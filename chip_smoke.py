@@ -7,12 +7,20 @@ Phases, each printing one JSON line and raising on failure (the script
 then exits non-zero and prints no result):
 
 1. device  — the card's name, count and power limit (nvidia-smi).
-2. build   — seconds to build the kernels from csrc/ with nvcc (sm_90a).
+2. build   — seconds to build every kernel library from csrc/ with nvcc
+             (sm_90a), one nvcc per source, all started together.
 3. kernels — every ported kernel against its plain PyTorch version on
-             the card, in bf16, at the shapes the serving path gives it;
-             kernel, plain and library (a yardstick only) device times
+             the card, at the shapes the serving and training paths
+             give it: the flash forward (serving prefill buckets and the
+             GPT-1.3B trainer's packed shape), the flash backward (the
+             trainer's packed shape, separate [B, S, H, D] tensors, a
+             ragged S, D=64 and D=256; two runs must give the same
+             bits), and AdamW on the trainer's 2048x8192 and 50304x2048
+             leaves (p, m, v bit for bit, stochastic rounding on).
+             Kernel, plain and library (a yardstick only) device times
              from torch.profiler's CUDA trace (a trace without device
-             time fails the phase), and the bound: the larger of
+             time is taken again, PROFILE_TRIES times in all, then the
+             phase fails), and the bound: the larger of
              bytes / 3.35 TB/s and operations / 989 TFLOP/s (H100 SXM
              data sheet).
 4. serve   — Llama ~1.1B at full width (vocab 32000, hidden 2048, FFN
@@ -23,7 +31,7 @@ then exits non-zero and prints no result):
              output lengths cycling {4, 16, 64, 160}. The kernel launch
              counts are set to 0 just before the engine runs and read
              just after: flash_attention_fwd must have run 16 layers x
-             16 prefills times.
+             16 prefills times, and no backward or AdamW launch.
 5. check   — every engine first token is the argmax of its own
              bucket-padded prefill logits, and those logits equal the
              unpadded prefill's (generate()'s route) within one bf16
@@ -35,10 +43,33 @@ then exits non-zero and prints no result):
              over 16 slots and of one 512-bucket prefill, from
              torch.profiler (after the counted run, so it changes none
              of the numbers above).
+7. train   — GPTTrainer at GPT-3 1.3B width (vocab 50304, hidden 2048,
+             24 layers, 16 heads of 128, max_seq_len 1024, tied
+             embeddings, bf16 masters with stochastic rounding, bf16
+             moments, ce_chunks=1, no remat; random weights from seed
+             0) on one fixed batch of 6 x 1024 tokens from
+             numpy.random.RandomState(0) (bench.py's): 2 warm-up steps,
+             then 5 counted steps with the launch counts set to 0 just
+             before and read just after: exactly 24 flash forward, 24
+             flash backward and 292 AdamW launches per step. Every loss
+             is finite and step 7's is below step 1's. Step ms,
+             tokens/s, peak device memory.
+8. train-profile — one step of the same trainer under torch.profiler:
+             device ms, busy share, top kernels, and the flash forward,
+             flash backward and AdamW kernels' ms per step.
+9. train-check — the same width at 2 layers: one step's loss and every
+             gradient through the kernels against the all-plain route
+             (attention through flash_attention_fwd_plain under
+             autograd) on the card, within TRAIN_LOSS_TOL and
+             TRAIN_GRAD_TOL.
 
-Then the line {"kernels": [...]}, the nvidia-smi name/power-limit line,
-and last {"ok": true, "device": {...}}. Needs a CUDA device and the
-repository checkout beside this file; imports nothing of JAX.
+Then the line {"phase": "profiler", ...} (how many traces came back
+without device time and were taken again), the line {"kernels": [...]}
+(launches from the train phase, the
+serve phase's beside them; ms and bounds at the trainer's shapes), the
+nvidia-smi name/power-limit line, and last {"ok": true, "device":
+{...}}. Needs a CUDA device and the repository checkout beside this
+file; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -53,13 +84,30 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense tensor-core bf16, same source
 OUT_TOL = 2e-2                   # kernel vs plain, bf16 out (atol=rtol)
 LSE_TOL = 1e-3                   # kernel vs plain, f32 lse (atol)
+# flash backward vs plain, bf16 dq/dk/dv (atol=rtol): P and dS rounded
+# to bf16 at other places in another summation order
+GRAD_TOL = 2e-2
+# train-check, kernel route vs all-plain route at 2 layers: the loss
+# (abs) and each gradient leaf's ||kernel - plain|| / ||plain||; the
+# routes round P and dS to bf16 at other places
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
 # prefill logits, kernel route (bf16 q) vs plain route (f32 q, the
 # reference's numerics): 16 layers of bf16 rounding at another place
 ROUTE_TOL = 0.125
 
+# torch.profiler on the card's machine now and then returns a CUDA
+# trace with no device events; such a trace is taken again, its setup
+# included, up to PROFILE_TRIES times in all
+PROFILE_TRIES = 3
+EMPTY_TRACES = 0
+
 SLOTS, MAX_LEN, MIN_BUCKET = 16, 512, 32
 PROMPT_LENS = (24, 48, 96, 180, 300)
 NEW_TOKENS = (4, 16, 64, 160)
+
+# the GPT-1.3B training step (bench.py:build_flagship's shape)
+TRAIN_B, TRAIN_T, WARMUP, STEPS = 6, 1024, 2, 5
 
 
 def emit(obj) -> None:
@@ -84,22 +132,58 @@ def device_events(prof):
             and e.self_device_time_total > 0]
 
 
+def traced(torch, setup, with_cpu: bool = False):
+    """Run ``setup()`` outside the window, then the function it returns
+    under torch.profiler; returns (wall s, the trace's device events).
+    A trace without device time is taken again, PROFILE_TRIES times in
+    all, then raises: a host clock would time the launches, not the
+    card."""
+    global EMPTY_TRACES
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if with_cpu:
+        activities.append(ProfilerActivity.CPU)
+    for _ in range(PROFILE_TRIES):
+        fn = setup()
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = device_events(prof)
+        if ev:
+            return wall, ev
+        EMPTY_TRACES += 1
+        print(f"chip_smoke: torch.profiler traced no CUDA device time "
+              f"({len(prof.events())} events); tracing again",
+              file=sys.stderr, flush=True)
+    raise RuntimeError(f"torch.profiler traced no CUDA device time in "
+                       f"{PROFILE_TRIES} traces")
+
+
 def device_ms(torch, fn, iters: int) -> float:
     """Device time per call: the sum of every kernel the call launches,
-    from torch.profiler's CUDA trace. Raises when the trace holds no
-    device time (a host clock would time the launches, not the card)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler's CUDA trace."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in device_events(prof))
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler traced no CUDA device time")
-    return total_us / 1e3 / iters
+    _, ev = traced(torch, lambda: calls)
+    return sum(e.self_device_time_total for e in ev) / 1e3 / iters
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, "bytes" or "operations"): the larger of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def score_pairs(S: int, causal: bool) -> int:
+    return S * (S + 1) // 2 if causal else S * S
 
 
 def flash_bound(B, S, H, D, causal, itemsize=2):
@@ -107,11 +191,28 @@ def flash_bound(B, S, H, D, causal, itemsize=2):
     (+ f32 lse), and 2 matmuls of 2 flops per multiply-add over the
     (causal) score pairs this input needs."""
     nbytes = 4 * B * S * H * D * itemsize + B * H * S * 4
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * pairs * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                        else "operations")
+    return bound(nbytes, 4 * B * H * score_pairs(S, causal) * D)
+
+
+def flash_bwd_bound(B, S, H, D, causal, itemsize=2):
+    """Least time for one backward: q, k, v, out, dO read once (out for
+    delta), lse read, dq, dk, dv written once; five matmuls (S, dP, dV,
+    dK, dQ) of 2 flops per multiply-add over the score pairs."""
+    nbytes = 8 * B * S * H * D * itemsize + B * H * S * 4
+    return bound(nbytes, 10 * B * H * score_pairs(S, causal) * D)
+
+
+def adamw_bound(n: int):
+    """Least time for one leaf of n bf16 parameters: read p, g, m, v and
+    write p, m, v (14 bytes each), no matmul."""
+    return bound(14 * n, 0)
+
+
+def qkv_views(torch, B, S, H, D, g):
+    """q, k, v as the trainer hands them to the kernels: strided views
+    of one packed [B, S, 3*H*D] projection."""
+    qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g)
+    return qkv.bfloat16().view(B, S, 3, H, D).unbind(2)
 
 
 def phase_kernels(torch, F):
@@ -119,17 +220,21 @@ def phase_kernels(torch, F):
         flash_attention_fwd, flash_attention_fwd_plain)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    # (B, S, H, D, causal): the serving prefill buckets and ragged
-    # lengths at Llama-1B's heads, one non-causal, one D=64 and one
-    # D=256 case
-    cases = [(1, s, 16, 128, True) for s in (24, 32, 64, 128, 256, 300,
-                                              512)]
-    cases += [(1, 512, 16, 128, False), (1, 128, 16, 64, True),
-              (1, 300, 8, 256, True)]
+    # (B, S, H, D, causal, packed): the serving prefill buckets and
+    # ragged lengths at Llama-1B's heads, one non-causal, one D=64 and
+    # one D=256 case, and the GPT-1.3B trainer's packed shape
+    cases = [(1, s, 16, 128, True, False)
+             for s in (24, 32, 64, 128, 256, 300, 512)]
+    cases += [(1, 512, 16, 128, False, False), (1, 128, 16, 64, True, False),
+              (1, 300, 8, 256, True, False),
+              (TRAIN_B, TRAIN_T, 16, 128, True, True)]
     rows = []
-    for B, S, H, D, causal in cases:
-        q, k, v = (torch.randn(B, S, H, D, device=dev, generator=g)
-                   .bfloat16() for _ in range(3))
+    for B, S, H, D, causal, packed in cases:
+        if packed:
+            q, k, v = qkv_views(torch, B, S, H, D, g)
+        else:
+            q, k, v = (torch.randn(B, S, H, D, device=dev, generator=g)
+                       .bfloat16() for _ in range(3))
         out, lse = flash_attention_fwd(q, k, v, causal=causal,
                                        return_lse=True)
         ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
@@ -140,21 +245,141 @@ def phase_kernels(torch, F):
                                    rtol=OUT_TOL)
         torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        bound, bound_by = flash_bound(B, S, H, D, causal)
+        bound_ms, bound_by = flash_bound(B, S, H, D, causal)
         kern = lambda: flash_attention_fwd(q, k, v, causal=causal)
         plain = lambda: flash_attention_fwd_plain(q, k, v, causal=causal)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                      is_causal=causal)
         rows.append({
             "B": B, "S": S, "H": H, "D": D, "causal": causal,
-            "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "ms": device_ms(torch, kern, 50),
-            "plain_ms": device_ms(torch, plain, 10),
-            "library_ms": device_ms(torch, lib, 50),
-            "bound_ms": bound, "bound_by": bound_by})
+            "packed": packed, "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "ms": device_ms(torch, kern, 20),
+            "plain_ms": device_ms(torch, plain, 5),
+            "library_ms": device_ms(torch, lib, 20),
+            "bound_ms": bound_ms, "bound_by": bound_by})
     emit({"phase": "kernels", "name": "flash_attention_fwd",
           "tolerance": {"out_atol_rtol": OUT_TOL, "lse_atol": LSE_TOL},
           "cases": rows})
+    return rows
+
+
+def phase_kernels_bwd(torch, F):
+    """The flash backward against its plain version: the trainer's
+    packed shape (q, k, v, dq, dk, dv all views of packed buffers),
+    separate [B, S, H, D] tensors at that shape, a ragged S, D=64 and
+    D=256. Two runs give the same bits (no atomics)."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [(TRAIN_B, TRAIN_T, 16, 128, True, True),
+             (TRAIN_B, TRAIN_T, 16, 128, True, False),
+             (1, 300, 16, 128, True, False), (2, 512, 16, 64, True, False),
+             (1, 300, 8, 256, True, False)]
+    rows = []
+    for B, S, H, D, causal, packed in cases:
+        if packed:
+            q, k, v = qkv_views(torch, B, S, H, D, g)
+            dqkv = torch.empty(B, S, 3 * H * D, device=dev,
+                               dtype=torch.bfloat16)
+            grads = dict(zip(("dq", "dk", "dv"),
+                             dqkv.view(B, S, 3, H, D).unbind(2)))
+        else:
+            q, k, v = (torch.randn(B, S, H, D, device=dev, generator=g)
+                       .bfloat16() for _ in range(3))
+            grads = {}
+        do = torch.randn(B, S, H, D, device=dev, generator=g).bfloat16()
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+        kern = lambda: flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                           **grads)
+        first = [t.clone() for t in kern()]
+        again = kern()
+        plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+        if not repeat:
+            raise AssertionError(f"flash backward {B, S, H, D}: two runs "
+                                 f"gave different bits")
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), first, plain):
+            errs.append((a.float() - b.float()).abs().max().item())
+            torch.testing.assert_close(a.float(), b.float(), atol=GRAD_TOL,
+                                       rtol=GRAD_TOL, msg=lambda m: (
+                                           f"{name} {B, S, H, D}: {m}"))
+        # the library's backward alone: SDPA's forward once, then its
+        # autograd backward timed on the same dO
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+        lib_do = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                          retain_graph=True)
+        bound_ms, bound_by = flash_bwd_bound(B, S, H, D, causal)
+        rows.append({
+            "B": B, "S": S, "H": H, "D": D, "causal": causal,
+            "packed": packed, "max_abs_err": max(errs),
+            "bitwise_repeatable": repeat,
+            "ms": device_ms(torch, kern, 10),
+            "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal), 3),
+            "library_ms": device_ms(torch, lib, 10),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del first, again, plain, lib_out
+    emit({"phase": "kernels", "name": "flash_attention_bwd",
+          "tolerance": {"grad_atol_rtol": GRAD_TOL}, "cases": rows})
+    return rows
+
+
+def phase_kernels_adamw(torch):
+    """AdamW on the trainer's 2048x8192 (win) and 50304x2048 (wte)
+    leaves, bf16 p, g, m, v, stochastic rounding on: p, m, v bit for bit
+    against the plain version; the yardstick is torch.optim.AdamW
+    (fused=True) on the same leaf, which does no SR."""
+    from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
+                                                  fused_adamw_update_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    hp = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.95, eps=1e-8, stoch_round=True,
+              leaf_id=291, seed=3)
+    sc = torch.tensor([0.5, 1 / (1 - 0.9 ** 3), 1 / (1 - 0.95 ** 3), 1.0],
+                      device=dev)
+    rows = []
+    for shape in ((2048, 8192), (50304, 2048)):
+        p = (0.02 * torch.randn(shape, device=dev, generator=g)).bfloat16()
+        grad = (1e-3 * torch.randn(shape, device=dev, generator=g)
+                ).bfloat16()
+        m = (1e-4 * torch.randn(shape, device=dev, generator=g)).bfloat16()
+        v = (1e-8 * torch.rand(shape, device=dev, generator=g)).bfloat16()
+        ref = fused_adamw_update_plain(p.clone(), grad, m.clone(),
+                                       v.clone(), sc, **hp)
+        got = fused_adamw_update(p.clone(), grad, m.clone(), v.clone(), sc,
+                                 **hp)
+        torch.cuda.synchronize()
+        for name, a, b in zip("pmv", got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"fused_adamw {shape}: {name} differs from the plain "
+                    f"version in {int((a != b).sum())} elements")
+        changed = (got[0] != p).float().mean().item()
+        del got, ref
+        lib_p = p.clone().requires_grad_()
+        lib_p.grad = grad
+        opt = torch.optim.AdamW([lib_p], lr=3e-4, betas=(0.9, 0.95),
+                                weight_decay=0.1, eps=1e-8, fused=True)
+        bound_ms, bound_by = adamw_bound(p.numel())
+        rows.append({
+            "shape": list(shape), "bitwise_equal": True, "max_abs_err": 0.0,
+            "p_changed_share": changed,
+            "ms": device_ms(torch, lambda: fused_adamw_update(
+                p, grad, m, v, sc, **hp), 10),
+            "plain_ms": device_ms(torch, lambda: fused_adamw_update_plain(
+                p, grad, m, v, sc, **hp), 3),
+            "library_ms": device_ms(torch, opt.step, 10),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del opt, lib_p, p, grad, m, v
+    emit({"phase": "kernels", "name": "fused_adamw", "cases": rows})
     return rows
 
 
@@ -167,7 +392,9 @@ def llama_1b_config():
 
 
 def phase_serve(torch, np, model):
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                      flash_attention_fwd)
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
     from paddle_tpu_torch.serving import ServingEngine
     cfg = model.config
     rng = np.random.RandomState(0)
@@ -187,12 +414,14 @@ def phase_serve(torch, np, model):
     reqs = [engine.submit(p, max_new_tokens=n)
             for p, n in zip(prompts, news)]
     torch.cuda.synchronize()
-    flash_attention_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_attention_fwd.launches
+    if flash_attention_bwd.launches or fused_adamw_update.launches:
+        raise AssertionError("serving launched a training kernel")
     for r, n in zip(reqs, news):
         if not (r.finished and r.finish_reason == "length"
                 and len(r.output_ids) == n):
@@ -215,21 +444,21 @@ def phase_serve(torch, np, model):
           "decode_steps": m["steps"], "prefills": prefills,
           "flash_launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return prompts, reqs, launches
+    return prompts, reqs, {"flash_attention_fwd": launches}
 
 
-def profiled(torch, fn):
-    """Run ``fn`` under torch.profiler (CPU + CUDA); returns (wall s,
-    device s, top kernels by device time as (name, ms))."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = device_events(prof)
+def reset_launches() -> None:
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                      flash_attention_fwd)
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
+    for fn in (flash_attention_fwd, flash_attention_bwd, fused_adamw_update):
+        fn.launches = 0
+
+
+def profiled(torch, setup):
+    """``traced`` with CPU + CUDA activities; returns (wall s, device s,
+    top kernels by device time as (name, ms))."""
+    wall, ev = traced(torch, setup, with_cpu=True)
     ev.sort(key=lambda e: -e.self_device_time_total)
     dev = sum(e.self_device_time_total for e in ev) / 1e6
     return wall, dev, [(e.key[:70], e.self_device_time_total / 1e3)
@@ -241,18 +470,24 @@ def phase_profile(torch, model, prompts):
     one admission of the 300-token prompt (bucket 512), each under the
     profiler (so wall times here include its overhead)."""
     from paddle_tpu_torch.serving import ServingEngine
-    engine = ServingEngine(model, kv_layout="contiguous", max_slots=SLOTS,
-                           max_len=MAX_LEN, min_bucket=MIN_BUCKET)
-    for p in prompts:
-        engine.submit(p, max_new_tokens=16)
-    engine.step()                       # admissions, outside the window
     steps = 8
-    wall, dev, top = profiled(
-        torch, lambda: [engine.step() for _ in range(steps)])
-    one = ServingEngine(model, kv_layout="contiguous", max_slots=1,
-                        max_len=MAX_LEN, min_bucket=MIN_BUCKET)
-    one.submit(prompts[PROMPT_LENS.index(300)], max_new_tokens=1)
-    pwall, pdev, ptop = profiled(torch, one.step)
+
+    def decode():
+        engine = ServingEngine(model, kv_layout="contiguous",
+                               max_slots=SLOTS, max_len=MAX_LEN,
+                               min_bucket=MIN_BUCKET)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=16)
+        engine.step()                   # admissions, outside the window
+        return lambda: [engine.step() for _ in range(steps)]
+
+    def prefill():
+        one = ServingEngine(model, kv_layout="contiguous", max_slots=1,
+                            max_len=MAX_LEN, min_bucket=MIN_BUCKET)
+        one.submit(prompts[PROMPT_LENS.index(300)], max_new_tokens=1)
+        return one.step
+    wall, dev, top = profiled(torch, decode)
+    pwall, pdev, ptop = profiled(torch, prefill)
     flash = sum(ms for name, ms in ptop if "flash_fwd_kernel" in name)
     emit({"phase": "profile",
           "decode": {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
@@ -335,6 +570,138 @@ def phase_check(torch, np, model, prompts, reqs):
           "route_argmax_equal": int(kern.argmax()) == int(plain.argmax())})
 
 
+def gpt_1p3b_config(num_layers: int = 24):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    # bench.py:build_flagship's GPT-3 1.3B shape
+    return GPTConfig(vocab_size=50304, hidden_size=2048,
+                     num_layers=num_layers, num_heads=16, max_seq_len=1024,
+                     dtype="bfloat16")
+
+
+def gpt_trainer(torch, num_layers: int = 24):
+    """build_flagship's recipe without quant8 and moment8: bf16 masters
+    with SR, bf16 moments, the fused AdamW on every leaf, unchunked CE,
+    no remat; lr 3e-4, wd 0.1, betas (0.9, 0.95), clip 1.0."""
+    from paddle_tpu_torch.models.gpt import GPTTrainer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return GPTTrainer(gpt_1p3b_config(num_layers), microbatches=1,
+                      remat=False, master_dtype="bfloat16",
+                      moment_dtype="bfloat16", ce_chunks=1,
+                      layer_unroll="full", generator=gen)
+
+
+def train_batch(np):
+    rng = np.random.RandomState(0)        # bench.py:83-85
+    ids = rng.randint(0, 50304, (TRAIN_B, TRAIN_T)).astype(np.int32)
+    return ids, np.roll(ids, -1, axis=1)
+
+
+def phase_train(torch, np, tr):
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                      flash_attention_fwd)
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
+    ids, labels = train_batch(np)
+    losses = [tr.train_step(ids, labels) for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [tr.train_step(ids, labels) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention_fwd": flash_attention_fwd.launches,
+              "flash_attention_bwd": flash_attention_bwd.launches,
+              "fused_adamw": fused_adamw_update.launches}
+    L = tr.cfg.num_layers
+    want = {"flash_attention_fwd": L * STEPS,
+            "flash_attention_bwd": L * STEPS,
+            "fused_adamw": (4 + 12 * L) * STEPS}
+    if counts != want:
+        raise AssertionError(f"train launches {counts}, expected {want} "
+                             f"over {STEPS} steps")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    tokens = TRAIN_B * TRAIN_T * STEPS
+    emit({"phase": "train", "params": tr.n_params(), "batch": TRAIN_B,
+          "seq": TRAIN_T, "steps": STEPS, "losses": losses,
+          "step_ms": wall / STEPS * 1e3, "tokens_per_s": tokens / wall,
+          "launches_per_step": {k: v / STEPS for k, v in counts.items()},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
+
+
+def phase_train_profile(torch, np, tr):
+    """One step under torch.profiler (wall time includes its overhead)."""
+    ids, labels = train_batch(np)
+    wall, ev = traced(torch, lambda: lambda: tr.train_step(ids, labels),
+                      with_cpu=True)
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    ms = {e.key: e.self_device_time_total / 1e3 for e in ev}
+    dev = sum(ms.values())
+
+    def share(*names):
+        return sum(v for k, v in ms.items() if any(n in k for n in names))
+    parts = {"flash_fwd_ms": share("flash_fwd_kernel"),
+             "flash_bwd_ms": share("flash_bwd_dkdv_kernel",
+                                   "flash_bwd_dq_kernel"),
+             "adamw_ms": share("adamw_kernel"),
+             # cuBLAS's kernels, by their name families
+             "matmul_ms": share("nvjet", "gemm", "cutlass", "xmma")}
+    emit({"phase": "train-profile", "wall_ms": wall * 1e3,
+          "device_ms": dev, "device_busy_share": dev / (wall * 1e3),
+          **parts, "other_ms": dev - sum(parts.values()),
+          "top_kernels_ms": [(k[:80], v) for k, v in list(ms.items())[:10]]})
+
+
+def plain_qkv_attention():
+    """The packed attention through the plain forward, differentiated by
+    autograd: the all-plain route of train-check."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd_plain
+
+    def attention(qkv, num_heads, causal=False, scale=None):
+        B, S, _ = qkv.shape
+        q, k, v = qkv.view(B, S, 3, num_heads, -1).unbind(2)
+        return flash_attention_fwd_plain(q, k, v, causal, scale)[0] \
+            .reshape(B, S, -1)
+    return attention
+
+
+def phase_train_check(torch, np):
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    from paddle_tpu_torch.models.gpt import flatten_params
+    tr = gpt_trainer(torch, num_layers=2)
+    ids, labels = train_batch(np)
+    loss, grads = tr.loss_and_grads(ids, labels)
+    kernel_fn = gpt_mod.flash_attention_qkv_fused
+    gpt_mod.flash_attention_qkv_fused = plain_qkv_attention()
+    try:
+        ploss, pgrads = tr.loss_and_grads(ids, labels)
+    finally:
+        gpt_mod.flash_attention_qkv_fused = kernel_fn
+    loss_diff = abs(float(loss) - float(ploss))
+    worst, worst_name = 0.0, ""
+    for (name, _), a, b in zip(flatten_params(tr.params), grads, pgrads):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite gradient {name}")
+        rel = ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    if loss_diff > TRAIN_LOSS_TOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError(
+            f"train-check: loss |diff| {loss_diff} (tol {TRAIN_LOSS_TOL}),"
+            f" worst gradient {worst_name} rel {worst} (tol "
+            f"{TRAIN_GRAD_TOL})")
+    emit({"phase": "train-check", "layers": 2, "loss": float(loss),
+          "plain_loss": float(ploss), "loss_abs_diff": loss_diff,
+          "worst_grad_rel_diff": worst, "worst_grad": worst_name,
+          "tolerance": {"loss_abs": TRAIN_LOSS_TOL,
+                        "grad_rel_norm": TRAIN_GRAD_TOL}})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -354,29 +721,51 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    _build.load("flash_attention_fwd")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    _build.build()
+    emit({"phase": "build", "kernels": list(_build.KERNELS),
+          "seconds": time.perf_counter() - t0})
 
-    rows = phase_kernels(torch, F)
+    fwd_rows = phase_kernels(torch, F)
+    bwd_rows = phase_kernels_bwd(torch, F)
+    adamw_rows = phase_kernels_adamw(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlamaForCausalLM(llama_1b_config(), dtype="bfloat16",
                              generator=gen)
-    prompts, reqs, launches = phase_serve(torch, np, model)
+    prompts, reqs, serve_launches = phase_serve(torch, np, model)
     phase_check(torch, np, model, prompts, reqs)
     phase_profile(torch, model, prompts)
+    del model, reqs
+    torch.cuda.empty_cache()
 
-    main_case = next(r for r in rows if r["S"] == 512 and r["causal"])
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas_ops.py:152",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    tr = gpt_trainer(torch)
+    train_launches = phase_train(torch, np, tr)
+    phase_train_profile(torch, np, tr)
+    del tr
+    torch.cuda.empty_cache()
+    phase_train_check(torch, np)
+
+    def entry(name, source, replaces, rows, main):
+        return {"name": name, "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": train_launches[name],
+                "launches_by_path": {"train": train_launches[name],
+                                     "serve": serve_launches.get(name, 0)},
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"]}
+    emit({"phase": "profiler", "empty_traces_taken_again": EMPTY_TRACES})
+    emit({"kernels": [
+        entry("flash_attention_fwd", "flash_attention_fwd.cu",
+              "paddle_tpu/ops/pallas_ops.py:152,645", fwd_rows,
+              next(r for r in fwd_rows if r["packed"])),
+        entry("flash_attention_bwd", "flash_attention_bwd.cu",
+              "paddle_tpu/ops/pallas_ops.py:277,304,585,612", bwd_rows,
+              next(r for r in bwd_rows if r["packed"])),
+        entry("fused_adamw", "fused_adamw.cu",
+              "paddle_tpu/ops/fused_adamw.py:281", adamw_rows,
+              adamw_rows[0])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""Load the reference's Llama weights into the port.
+"""Load the reference's weights into the port: Llama models and the GPT
+trainer.
 
 ``llama_from_jax_state`` takes the reference model's ``state_dict()``
 as numpy arrays (``{name: np.asarray(t)}``; the caller converts, so
@@ -10,6 +11,11 @@ one; the only layout change is the linear weights: the reference's
 ``torch.nn.Linear`` stores ``[out, in]``, so every ``*_proj.weight``
 and ``lm_head.weight`` is transposed. ``Embedding`` keeps
 ``[vocab, hidden]``. Names or shapes that do not match raise.
+
+``gpt_trainer_from_jax_params`` takes ``GPTSpmdTrainer.params`` as
+numpy and returns a ``GPTTrainer`` holding them; both packages keep
+matmul weights ``[in, out]``, so only names and shapes are checked.
+``gpt_params_to_numpy`` is its inverse.
 """
 from __future__ import annotations
 
@@ -18,9 +24,19 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .._device import resolve_device, resolve_dtype
+from .gpt import GPTConfig, GPTTrainer, block_shapes, top_shapes
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["llama_from_jax_state"]
+__all__ = ["gpt_params_to_numpy", "gpt_trainer_from_jax_params",
+           "llama_from_jax_state"]
+
+
+def _np32(arr) -> np.ndarray:
+    a = np.asarray(arr)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)      # numpy-side bf16 (ml_dtypes)
+    return a
 
 
 def _is_linear_weight(name: str) -> bool:
@@ -32,11 +48,83 @@ def llama_from_jax_state(np_state: Dict[str, np.ndarray], cfg: LlamaConfig,
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
     state = {}
     for name, arr in np_state.items():
-        a = np.asarray(arr)
-        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)      # numpy-side bf16 (ml_dtypes)
-        t = torch.tensor(a)                 # a copy the model owns
+        t = torch.tensor(_np32(arr))        # a copy the model owns
         state[name] = t.t() if _is_linear_weight(name) else t
     model.load_state_dict(state, strict=True)
     model.eval()
     return model
+
+
+def _take(src: dict, shapes: dict, where: str, device, dtype,
+          lead=None) -> dict:
+    """The leaves ``shapes`` names, from ``src``, as tensors; refuses a
+    missing or extra name and a wrong shape (a missed transpose of a
+    non-square weight). ``lead=(L, i)``: stacked ``[1, L, ...]`` leaves,
+    layer ``i``."""
+    if set(src) != set(shapes):
+        raise KeyError(f"{where}: names {sorted(src)} are not "
+                       f"{sorted(shapes)}")
+    out = {}
+    for name, shape in shapes.items():
+        a = _np32(src[name])
+        want = shape if lead is None else (1, lead[0]) + shape
+        if a.shape != want:
+            raise ValueError(f"{where}.{name}: shape {a.shape}, expected "
+                             f"{want} (weights are [in, out])")
+        if lead is not None:
+            a = a[0, lead[1]]
+        out[name] = torch.tensor(a, dtype=dtype, device=device)
+    return out
+
+
+def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
+                                device=None, dtype=None,
+                                **trainer_kwargs) -> GPTTrainer:
+    """A ``GPTTrainer`` holding the reference trainer's parameters.
+
+    ``np_params``: ``GPTSpmdTrainer.params`` as numpy (``jax.tree.map(
+    np.asarray, trainer.params)``), with ``blocks`` either per layer
+    (``layer_NNN`` dicts, ``layer_unroll="full"``) or stacked (each
+    leaf ``[1, L, ...]``). Matmul weights are ``[in, out]`` in both
+    packages, so nothing is transposed; names and shapes must match
+    exactly. ``dtype`` is the master dtype (default float32); other
+    keyword arguments go to ``GPTTrainer``."""
+    master = resolve_dtype(dtype)
+    dev = resolve_device(device)
+    top = {k: v for k, v in np_params.items() if k != "blocks"}
+    if "blocks" not in np_params:
+        raise KeyError("np_params has no 'blocks'")
+    params = _take(top, top_shapes(cfg), "params", dev, master)
+    blocks = np_params["blocks"]
+    L = cfg.num_layers
+    names = [f"layer_{i:03d}" for i in range(L)]
+    if set(blocks) == set(names):
+        params["blocks"] = {n: _take(blocks[n], block_shapes(cfg),
+                                     f"blocks.{n}", dev, master)
+                            for n in names}
+    else:
+        params["blocks"] = {n: _take(blocks, block_shapes(cfg), "blocks",
+                                     dev, master, lead=(L, i))
+                            for i, n in enumerate(names)}
+    return GPTTrainer(cfg, device=dev, master_dtype=master, params=params,
+                      **trainer_kwargs)
+
+
+def gpt_params_to_numpy(params: Dict, layout: str = "per_layer") -> Dict:
+    """The inverse of ``gpt_trainer_from_jax_params``: a trainer's
+    parameters as f32 numpy in the reference's layout, ``blocks`` per
+    layer or ``"stacked"`` (``[1, L, ...]`` leaves)."""
+    def np_(t):
+        return t.detach().float().cpu().numpy()
+    out = {k: np_(v) for k, v in params.items() if k != "blocks"}
+    layers = [params["blocks"][n] for n in sorted(params["blocks"])]
+    if layout == "per_layer":
+        out["blocks"] = {n: {k: np_(v) for k, v in params["blocks"][n]
+                             .items()} for n in sorted(params["blocks"])}
+    elif layout == "stacked":
+        out["blocks"] = {k: np.stack([np_(bp[k]) for bp in layers])[None]
+                         for k in layers[0]}
+    else:
+        raise ValueError(f"layout must be 'per_layer' or 'stacked'; got "
+                         f"{layout!r}")
+    return out

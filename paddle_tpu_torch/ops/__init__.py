@@ -1,10 +1,19 @@
 """Kernels of the port, each beside its plain PyTorch version.
 
 Counterpart of ``paddle_tpu/ops`` for the kernels ported so far:
-``flash_attention`` (``pallas_ops.py`` ``_fa_forward``). ``_build``
-compiles ``csrc/*.cu`` with ``nvcc`` on first use.
+``flash_attention`` (``pallas_ops.py`` ``_fa_forward``, ``_fa_backward``,
+``_fa_forward_qkvpacked``, ``_fa_backward_hsplit``) and ``fused_adamw``
+(``fused_adamw.py`` ``fused_adamw_update``); ``fused_ce`` is the
+reference's chunked cross-entropy (plain matmuls). ``_build`` compiles
+``csrc/*.cu`` with ``nvcc`` on first use.
 """
-from .flash_attention import (flash_attention_fwd,
-                              flash_attention_fwd_plain)
+from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
+                              flash_attention_fwd, flash_attention_fwd_plain,
+                              flash_attention_qkv_fused)
+from .fused_adamw import fused_adamw_update, fused_adamw_update_plain
+from .fused_ce import fused_softmax_cross_entropy
 
-__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain"]
+__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_qkv_fused", "fused_adamw_update",
+           "fused_adamw_update_plain", "fused_softmax_cross_entropy"]

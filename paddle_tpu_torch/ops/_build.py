@@ -9,9 +9,12 @@ use into a shared library with a plain C interface:
 
 under ``build/paddle_tpu_torch/`` at the checkout root. The file name
 carries a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. Nothing is downloaded:
-the build uses only the sources in ``csrc/`` and the installed CUDA
-toolkit. A failed build raises with the compiler's output.
+rebuilt and an unchanged one is loaded as it is; each build writes a
+temporary file and renames it into place, so a concurrent loader never
+sees a partial library. ``build(names)`` starts one ``nvcc`` per
+missing library at once and waits for each. Nothing is downloaded: the
+build uses only the sources in ``csrc/`` and the installed CUDA
+toolkit. A failed build raises with that compiler's output.
 """
 from __future__ import annotations
 
@@ -22,15 +25,17 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNELS", "NVCC_FLAGS", "build",
+           "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -47,28 +52,48 @@ def _nvcc() -> str:
         "port's CUDA kernels are built from csrc/ on first use")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if missing."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
+def _library(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if not so.is_file():
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> List[Path]:
+    """Build the libraries of ``names`` that are missing, one ``nvcc``
+    per source, all started together; returns their paths."""
+    names = list(names)
+    sos = [_library(n) for n in names]
+    jobs = []
+    for name, so in zip(names, sos):
+        if so.is_file():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in jobs:
+        output, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"kernel build failed: {name} (nvcc exit "
-                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)   # a concurrent loader sees no partial file
-    lib = _libs[name] = ctypes.CDLL(str(so))
+            failed.append(f"kernel build failed: {name} (nvcc exit "
+                          f"{proc.returncode}):\n{output}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return sos
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _libs[name] = ctypes.CDLL(str(build([name])[0]))
     return lib

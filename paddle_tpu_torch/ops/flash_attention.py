@@ -1,19 +1,31 @@
-"""Flash-attention forward: the Hopper kernel, its plain PyTorch version,
-and the wrapper that picks between them by the tensors' device.
+"""Flash attention, forward and backward: the Hopper kernels, their
+plain PyTorch versions, and the wrappers that pick between them by the
+tensors' device.
 
-Counterpart of ``paddle_tpu/ops/pallas_ops.py`` ``flash_attention_fwd``
-(:372) / ``_fa_forward`` (:146, the Pallas kernel ``_fa_fwd_kernel``).
+Counterpart of ``paddle_tpu/ops/pallas_ops.py``: ``flash_attention_fwd``
+(:372, a ``jax.custom_vjp`` over ``_fa_forward`` :146 and
+``_fa_backward`` :268) and ``flash_attention_qkv_fused`` (:709, over
+``_fa_forward_qkvpacked`` :636 and ``_fa_backward_hsplit`` :570).
 Layout is the reference's public one, ``[batch, seq, heads, head_dim]``;
-the CUDA kernel (``csrc/flash_attention_fwd.cu``) reads it by stride, so
-the reference's ``_pack``/``_unpack`` head-major copies do not exist here.
+the CUDA kernels (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``) read and write it by stride, so the
+reference's ``_pack``/``_unpack`` copies do not exist here, and the
+packed ``[B, S, 3*H*D]`` projection is three strided views of one
+tensor (no relayout, and the backward writes dq, dk, dv straight into
+one gradient buffer where the reference concatenates).
 
-``flash_attention_fwd`` runs the plain version for CPU tensors and the
-kernel for CUDA tensors. A CUDA input the kernel does not take (dtype
-other than bf16/f16, head_dim other than 64/128/256, a non-unit stride
-in head_dim, rows not 16-byte aligned) raises; nothing falls back. The
-callers (SDPA, the cache's prefill branch) route every square CUDA call
-here and leave these checks to the wrapper.
-``flash_attention_fwd.launches`` counts kernel launches.
+The custom VJP is a ``torch.autograd.Function``: its forward saves
+``out`` and ``lse``, its backward takes ``delta = rowsum(out * dO)``
+(plain torch, as the reference computes it in XLA) and runs the
+backward kernel. Both run the plain versions on CPU tensors. Calls that
+need no gradient (``torch.no_grad``/``inference_mode``, inputs without
+``requires_grad``) skip the Function.
+
+A CUDA input the kernels do not take (dtype other than bf16/f16,
+head_dim other than 64/128/256, a non-unit stride in head_dim, rows not
+16-byte aligned) raises; nothing falls back. ``flash_attention_fwd.
+launches`` and ``flash_attention_bwd.launches`` count kernel launches
+(one backward launch runs the dk/dv pass and then the dq pass).
 """
 from __future__ import annotations
 
@@ -25,11 +37,23 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "NEG_INF"]
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_qkv_fused", "NEG_INF"]
 
 NEG_INF = -1e30                      # the reference kernel's mask value
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def _scores(q, k, causal: bool, scale: float):
+    """f32 scaled scores ``[B, H, Sq, Sk]`` with the -1e30 causal mask."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        S = q.shape[1]
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
 
 
 def flash_attention_fwd_plain(q, k, v, causal: bool = False,
@@ -38,14 +62,9 @@ def flash_attention_fwd_plain(q, k, v, causal: bool = False,
     causal mask, unnormalised probabilities rounded to ``v``'s dtype for
     the PV product (f32 accumulation), then division by the row sum.
     Returns (out [B, S, H, D] in ``q``'s dtype, lse [B, H, S] f32)."""
-    D = q.shape[-1]
     if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        S = q.shape[1]
-        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -56,44 +75,86 @@ def flash_attention_fwd_plain(q, k, v, causal: bool = False,
     return out, lse
 
 
-def _check_cuda(q, k, v) -> None:
-    if not (q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype
-            and v.dtype == q.dtype and q.shape[-1] in _KERNEL_HEAD_DIMS):
+def _delta(out, dout):
+    """rowsum(out * dO) per (batch, head, row): ``[B, H, S]`` f32."""
+    return (out.float() * dout.float()).sum(-1).transpose(1, 2)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = False,
+                              scale: Optional[float] = None):
+    """The backward kernels' function in plain PyTorch, with the
+    reference's roundings (``_fa_bwd_dkdv_kernel``/``_fa_bwd_dq_kernel``):
+    P = exp(S - lse) from the saved lse, P rounded to dO's dtype for dV,
+    dS = P * (dP - delta) * scale rounded to q's dtype for dK and dQ, f32
+    accumulation. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dof = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = (p * (dp - _delta(out, dout)[..., None]) * scale)
+    ds = ds.to(q.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_strides_ok(t) -> bool:
+    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
+def _check_cuda(what: str, **tensors) -> None:
+    first = next(iter(tensors.values()))
+    dt, D = first.dtype, first.shape[-1]
+    if not (dt in _KERNEL_DTYPES and D in _KERNEL_HEAD_DIMS
+            and all(t.dtype == dt for t in tensors.values())):
         raise ValueError(
-            f"flash_attention_fwd kernel takes bfloat16/float16 q, k, v "
-            f"of one dtype with head_dim in {_KERNEL_HEAD_DIMS}; got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}, head_dim {q.shape[-1]}")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("q, k, v must be on one CUDA device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+            f"{what} kernel takes bfloat16/float16 tensors of one dtype "
+            f"with head_dim in {_KERNEL_HEAD_DIMS}; got "
+            + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items())
+            + f", head_dim {D}")
+    for name, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{what}: all tensors must be on one CUDA "
+                             f"device")
+        if not _kernel_strides_ok(t):
             raise ValueError(
-                f"flash_attention_fwd kernel needs {name} with unit "
-                f"stride in head_dim, other strides a multiple of 8 "
-                f"elements and a 16-byte aligned base; got strides "
-                f"{t.stride()}")
+                f"{what} kernel needs {name} with unit stride in "
+                f"head_dim, other strides a multiple of 8 elements and a "
+                f"16-byte aligned base; got strides {t.stride()}")
 
 
-def _bind(lib):
-    fn = lib.ptt_flash_attention_fwd
+def _bind(lib, name: str, argtypes):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, i, i, i, i] + [ll] * 12 + \
-            [ctypes.c_float, i, i, p]
-        fn.restype = i
-        lib.ptt_cuda_error_string.argtypes = [i]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.ptt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
     return fn
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_LL] * 12 + [ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 9 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P]
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err} "
+            f"({lib.ptt_cuda_error_string(err).decode()})")
+
+
 def _flash_cuda(q, k, v, causal: bool, scale: float):
-    _check_cuda(q, k, v)
+    _check_cuda("flash_attention_fwd", q=q, k=k, v=v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_fwd")
-    fn = _bind(lib)
+    fn = _bind(lib, "ptt_flash_attention_fwd", _FWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -101,22 +162,109 @@ def _flash_cuda(q, k, v, causal: bool, scale: float):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], float(scale), int(bool(causal)),
                  _KERNEL_DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd kernel launch failed: CUDA error {err} "
-            f"({lib.ptt_cuda_error_string(err).decode()})")
+    _raise_on(err, lib, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, scale, dq, dk, dv):
+    if not _kernel_strides_ok(dout):
+        dout = dout.contiguous()
+    _check_cuda("flash_attention_bwd", q=q, k=k, v=v, dout=dout, dq=dq,
+                dk=dk, dv=dv)
+    B, S, H, D = q.shape
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [B, H, S] = {(B, H, S)}; "
+                         f"got {lse.dtype}{tuple(lse.shape)}")
+    lse = lse.contiguous()
+    delta = _delta(out, dout).contiguous()
+    strides = (ctypes.c_longlong * 21)(
+        *(s for t in (q, k, v, dout, dq, dk, dv) for s in t.stride()[:3]))
+    lib = _build.load("flash_attention_bwd")
+    fn = _bind(lib, "ptt_flash_attention_bwd", _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), B, S, H, D,
+                 ctypes.cast(strides, ctypes.c_void_p), float(scale),
+                 int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+    _raise_on(err, lib, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+
+
+def _devices(*tensors) -> str:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"} or kinds == {"cuda"}:
+        return kinds.pop()
+    raise ValueError(f"flash attention takes tensors all on the CPU or all "
+                     f"on CUDA; got {[str(t.device) for t in tensors]}")
+
+
+def _forward(q, k, v, causal, scale):
+    if _devices(q, k, v) == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal, scale)
+    return _flash_cuda(q, k, v, causal, scale)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
+                        scale: Optional[float] = None, dq=None, dk=None,
+                        dv=None):
+    """Gradients (dq, dk, dv) of ``flash_attention_fwd`` from its saved
+    ``out`` and ``lse`` and the output gradient ``dout``, all ``[B, S,
+    H, D]`` (lse ``[B, H, S]`` f32). ``dq``/``dk``/``dv``, when given,
+    are written in place (any kernel-compatible strides, e.g. views of
+    one packed gradient). CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    dense = torch.contiguous_format
+    dq = torch.empty_like(q, memory_format=dense) if dq is None else dq
+    dk = torch.empty_like(k, memory_format=dense) if dk is None else dk
+    dv = torch.empty_like(v, memory_format=dense) if dv is None else dv
+    if _devices(q, k, v, out, lse, dout, dq, dk, dv) == "cpu":
+        for dst, src in zip((dq, dk, dv), flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, causal, scale)):
+            dst.copy_(src)
+    else:
+        _flash_bwd_cuda(q, k, v, out, lse, dout, causal, scale, dq, dk, dv)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash_bshd`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None,
                         return_lse: bool = False):
     """Fused attention on ``[batch, seq, heads, head_dim]`` tensors
-    (square: q, k, v share one shape). Returns ``out`` in ``q``'s dtype,
-    or ``(out, lse)`` with ``lse`` ``[batch, heads, seq]`` f32 when
-    ``return_lse``. CPU tensors take the plain version, CUDA tensors
-    the kernel."""
+    (square: q, k, v share one shape), differentiable. Returns ``out``
+    in ``q``'s dtype, or ``(out, lse)`` with ``lse`` ``[batch, heads,
+    seq]`` f32 when ``return_lse``. CPU tensors take the plain versions,
+    CUDA tensors the kernels."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"flash_attention_fwd takes q, k, v of one [B, S, H, D] "
@@ -126,16 +274,62 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         raise ValueError("flash_attention_fwd needs seq >= 1")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    devices = {q.device.type, k.device.type, v.device.type}
-    if devices == {"cpu"}:
-        out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
-    elif devices == {"cuda"}:
-        out, lse = _flash_cuda(q, k, v, causal, scale)
+    if _needs_grad(q, k, v):
+        out, lse = _Flash.apply(q, k, v, causal, scale)
     else:
-        raise ValueError(
-            f"flash_attention_fwd takes q, k, v all on the CPU or all "
-            f"on CUDA; got {q.device}, {k.device}, {v.device}")
+        out, lse = _forward(q, k, v, causal, scale)
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def _unpack(qkv, H: int):
+    B, S, HD3 = qkv.shape
+    return qkv.view(B, S, 3, H, HD3 // (3 * H)).unbind(2)
+
+
+class _FlashQKVPacked(torch.autograd.Function):
+    """The reference's ``_flash_qkvpacked`` custom VJP: q, k, v are
+    strided views of the projection output, and the backward writes
+    dq, dk, dv into the three views of one ``[B, S, 3*H*D]`` buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv, H, causal, scale):
+        out, lse = _forward(*_unpack(qkv, H), causal, scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.H, ctx.causal, ctx.scale = H, causal, scale
+        return out.reshape(*qkv.shape[:2], -1)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        flash_attention_bwd(*_unpack(qkv, ctx.H), out, lse,
+                            dout.reshape(out.shape), ctx.causal, ctx.scale,
+                            *_unpack(dqkv, ctx.H))
+        return dqkv, None, None, None
+
+
+def flash_attention_qkv_fused(qkv, num_heads: int, causal: bool = False,
+                              scale: Optional[float] = None):
+    """Fused attention straight off the qkv projection output ``[batch,
+    seq, 3*heads*head_dim]`` (q | k | v column blocks); returns
+    ``[batch, seq, heads*head_dim]``. Differentiable; no relayout or
+    copy on either pass. The reference's ``head_dim % 128`` and
+    ``seq % 128`` gates are TPU lane rules and do not apply: a CUDA call
+    launches or raises."""
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(
+            f"qkv must be [B, S, 3*num_heads*head_dim]; got "
+            f"{tuple(qkv.shape)} with num_heads={num_heads}")
+    if not qkv.is_contiguous():
+        raise ValueError("flash_attention_qkv_fused takes a contiguous "
+                         "qkv (its q, k, v are views of it)")
+    head_dim = qkv.shape[-1] // (3 * num_heads)
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    if _needs_grad(qkv):
+        return _FlashQKVPacked.apply(qkv, num_heads, causal, scale)
+    out, _ = _forward(*_unpack(qkv, num_heads), causal, scale)
+    return out.reshape(*qkv.shape[:2], -1)
