@@ -15,14 +15,23 @@ then exits non-zero and prints no result):
              GPT-1.3B trainer's packed shape), the flash backward (the
              trainer's packed shape, separate [B, S, H, D] tensors, a
              ragged S, D=64 and D=256; two runs must give the same
-             bits), and AdamW on the trainer's 2048x8192 and 50304x2048
-             leaves (p, m, v bit for bit, stochastic rounding on).
+             bits), AdamW on the trainer's 2048x8192 and 50304x2048
+             leaves (p, m, v bit for bit, stochastic rounding on), the
+             int8 quantize kernels at every shape the flagship trainer
+             gives them (row and column round-to-nearest, column
+             stochastic rounding with and without gelu: codes and
+             scales bit for bit, the SR laws on the card), the int8
+             GEMM (torch._int_mm, a library call) in the layouts the
+             port hands it beside bf16 matmuls, and the int8-moment
+             AdamW on every int8-moment leaf shape of GPT-1.3B (p, codes
+             and scales bit for bit; timed on 2048x6144 and 50304x2048).
              Kernel, plain and library (a yardstick only) device times
              from torch.profiler's CUDA trace (a trace without device
-             time is taken again, PROFILE_TRIES times in all, then the
-             phase fails), and the bound: the larger of
-             bytes / 3.35 TB/s and operations / 989 TFLOP/s (H100 SXM
-             data sheet).
+             time, or short of a whole number of events per call for
+             some kernel, is taken again, PROFILE_TRIES times in all,
+             then the phase fails), and the bound: the larger of bytes
+             / 3.35 TB/s and the operations at their peak rates (H100
+             SXM data sheet).
 4. serve   — Llama ~1.1B at full width (vocab 32000, hidden 2048, FFN
              5504, 16 heads of 128, 16 layers, bf16; random weights
              from seed 0) served by ServingEngine(kv_layout="contiguous",
@@ -31,7 +40,7 @@ then exits non-zero and prints no result):
              output lengths cycling {4, 16, 64, 160}. The kernel launch
              counts are set to 0 just before the engine runs and read
              just after: flash_attention_fwd must have run 16 layers x
-             16 prefills times, and no backward or AdamW launch.
+             16 prefills times, and no other kernel.
 5. check   — every engine first token is the argmax of its own
              bucket-padded prefill logits, and those logits equal the
              unpadded prefill's (generate()'s route) within one bf16
@@ -43,30 +52,38 @@ then exits non-zero and prints no result):
              over 16 slots and of one 512-bucket prefill, from
              torch.profiler (after the counted run, so it changes none
              of the numbers above).
-7. train   — GPTTrainer at GPT-3 1.3B width (vocab 50304, hidden 2048,
+7. train-flagship — bench.py:build_flagship's whole recipe: GPTTrainer
+             at GPT-3 1.3B width and depth (vocab 50304, hidden 2048,
              24 layers, 16 heads of 128, max_seq_len 1024, tied
              embeddings, bf16 masters with stochastic rounding, bf16
-             moments, ce_chunks=1, no remat; random weights from seed
-             0) on one fixed batch of 6 x 1024 tokens from
-             numpy.random.RandomState(0) (bench.py's): 2 warm-up steps,
-             then 5 counted steps with the launch counts set to 0 just
-             before and read just after: exactly 24 flash forward, 24
-             flash backward and 292 AdamW launches per step. Every loss
-             is finite and step 7's is below step 1's. Step ms,
-             tokens/s, peak device memory.
-8. train-profile — one step of the same trainer under torch.profiler:
-             device ms, busy share, top kernels, and the flash forward,
-             flash backward and AdamW kernels' ms per step.
-9. train-check — the same width at 2 layers: one step's loss and every
-             gradient through the kernels against the all-plain route
-             (attention through flash_attention_fwd_plain under
-             autograd) on the card, within TRAIN_LOSS_TOL and
-             TRAIN_GRAD_TOL.
+             moments, ce_chunks=1, quant8="wgrad" with gelu fused into
+             the ffn2 quantize, moment8, remat="save_main"; random
+             weights from seed 0) on one fixed batch of 6 x 1024 tokens
+             from numpy.random.RandomState(0) (bench.py's): 2 warm-up
+             steps, then 5 counted steps with the launch counts set to
+             0 just before and read just after: per step exactly 24
+             flash forward, 24 flash backward, 216 row, 72 column and
+             144 SR column quantize, 98 int8-moment AdamW and 194 AdamW
+             launches. Every loss is finite and step 7's is below step
+             1's. Step ms, tokens/s, peak device memory.
+8. train-flagship-profile — one step of it under torch.profiler: device
+             ms, busy share, top kernels, and device ms by kernel
+             family (flash forward and backward, both AdamW kernels,
+             the quantize kernels, int8 and bf16 GEMMs, the rest).
+9. train-check-flagship — the same recipe at 2 layers: one step's loss
+             and every gradient through the kernels against the
+             all-plain route (every quantize wrapper and the packed
+             attention through their plain versions) on the card,
+             within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL.
+10-12. train, train-profile, train-check — the same for the bf16
+             path (no int8, no int8 moments, no remat): 24 flash
+             forward, 24 flash backward and 292 AdamW launches per step.
 
 Then the line {"phase": "profiler", ...} (how many traces came back
-without device time and were taken again), the line {"kernels": [...]}
-(launches from the train phase, the
-serve phase's beside them; ms and bounds at the trainer's shapes), the
+without device time, or short of events, and were taken again), the
+line {"kernels": [...]}
+(launches from the train-flagship phase, every path's beside them; ms
+and bounds at the trainer's shapes), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device":
 {...}}. Needs a CUDA device and the repository checkout beside this
 file; imports nothing of JAX.
@@ -82,6 +99,10 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense tensor-core bf16, same source
+INT8_OPS_PER_S = 1979e12         # dense tensor-core int8, same source
+# scalar float32 outside the tensor cores, same source; the quantize
+# and AdamW kernels' integer operations (Philox) are counted at it too
+SCALAR_OPS_PER_S = 67e12
 OUT_TOL = 2e-2                   # kernel vs plain, bf16 out (atol=rtol)
 LSE_TOL = 1e-3                   # kernel vs plain, f32 lse (atol)
 # flash backward vs plain, bf16 dq/dk/dv (atol=rtol): P and dS rounded
@@ -97,10 +118,14 @@ TRAIN_GRAD_TOL = 5e-2
 ROUTE_TOL = 0.125
 
 # torch.profiler on the card's machine now and then returns a CUDA
-# trace with no device events; such a trace is taken again, its setup
-# included, up to PROFILE_TRIES times in all
-PROFILE_TRIES = 3
+# trace with no device events (once or twice a run, twice in a row at
+# most so far), and once returned one that read a kernel at half its
+# time; such a trace, or one whose kernels did not each run a whole
+# number of times per timed call, is taken again, its setup included,
+# up to PROFILE_TRIES times in all
+PROFILE_TRIES = 5
 EMPTY_TRACES = 0
+SHORT_TRACES = 0
 
 SLOTS, MAX_LEN, MIN_BUCKET = 16, 512, 32
 PROMPT_LENS = (24, 48, 96, 180, 300)
@@ -132,13 +157,16 @@ def device_events(prof):
             and e.self_device_time_total > 0]
 
 
-def traced(torch, setup, with_cpu: bool = False):
+def traced(torch, setup, with_cpu: bool = False, calls: int = 0):
     """Run ``setup()`` outside the window, then the function it returns
     under torch.profiler; returns (wall s, the trace's device events).
-    A trace without device time is taken again, PROFILE_TRIES times in
+    A trace without device time, or (when ``calls`` names how many calls
+    the function makes of a function that launches the same kernels
+    each time) one in which some kernel ran a number of times that
+    ``calls`` does not divide, is taken again, PROFILE_TRIES times in
     all, then raises: a host clock would time the launches, not the
     card."""
-    global EMPTY_TRACES
+    global EMPTY_TRACES, SHORT_TRACES
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if with_cpu:
@@ -152,32 +180,43 @@ def traced(torch, setup, with_cpu: bool = False):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = device_events(prof)
-        if ev:
+        short = [(e.key[:60], e.count) for e in ev
+                 if calls and e.count % calls]
+        if ev and not short:
             return wall, ev
-        EMPTY_TRACES += 1
-        print(f"chip_smoke: torch.profiler traced no CUDA device time "
-              f"({len(prof.events())} events); tracing again",
+        if ev:
+            SHORT_TRACES += 1
+            why = f"kernels short of {calls} calls: {short}"
+        else:
+            EMPTY_TRACES += 1
+            why = f"no CUDA device time ({len(prof.events())} events)"
+        print(f"chip_smoke: torch.profiler traced {why}; tracing again",
               file=sys.stderr, flush=True)
-    raise RuntimeError(f"torch.profiler traced no CUDA device time in "
+    raise RuntimeError(f"torch.profiler traced no whole CUDA trace in "
                        f"{PROFILE_TRIES} traces")
 
 
 def device_ms(torch, fn, iters: int) -> float:
     """Device time per call: the sum of every kernel the call launches,
-    from torch.profiler's CUDA trace."""
+    from torch.profiler's CUDA trace of ``iters`` calls."""
     for _ in range(3):
         fn()
 
     def calls():
         for _ in range(iters):
             fn()
-    _, ev = traced(torch, lambda: calls)
+    _, ev = traced(torch, lambda: calls, calls=iters)
     return sum(e.self_device_time_total for e in ev) / 1e3 / iters
 
 
-def bound(nbytes: float, flops: float):
-    """(least ms, "bytes" or "operations"): the larger of the two."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound(nbytes: float, flops: float, scalar_ops: float = 0.0,
+          int8_ops: float = 0.0):
+    """(least ms, "bytes" or "operations"): the larger of the bytes'
+    time and the operations' time, bf16 tensor-core flops, int8
+    tensor-core operations and scalar operations each at their peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S \
+        + scalar_ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
@@ -206,6 +245,26 @@ def adamw_bound(n: int):
     """Least time for one leaf of n bf16 parameters: read p, g, m, v and
     write p, m, v (14 bytes each), no matmul."""
     return bound(14 * n, 0)
+
+
+# scalar operations per element, counted from csrc/quantize.cu and
+# csrc/fused_adamw8.cu: the RTN code (|x|, max, divide, round, clip x2),
+# the SR code (divide, add, floor, clip x2, the uniform's shift, or and
+# subtract), the tanh-gelu (7 multiplies and adds and a tanh, counted as
+# 10), and Philox4x32-10 (10 rounds of 2 multiplies and 4 xors/adds per
+# 4 words: 15 per element)
+RTN_OPS, SR_OPS, GELU_OPS, PHILOX_OPS = 6, 8, 10, 15
+
+
+def quantize_bound(R, C, itemsize, gelu, sr):
+    """Least time for one quantize of [R, C]: x read once, the int8
+    codes written, one f32 scale per row or column; the scale math and
+    the gelu counted once per element."""
+    n = R * C
+    nbytes = n * itemsize + n + 4 * max(R, C)
+    ops = n * ((SR_OPS + PHILOX_OPS if sr else RTN_OPS)
+               + GELU_OPS * bool(gelu))
+    return bound(nbytes, 0, scalar_ops=ops)
 
 
 def qkv_views(torch, B, S, H, D, g):
@@ -383,6 +442,265 @@ def phase_kernels_adamw(torch):
     return rows
 
 
+# the GPT-1.3B trainer's quantize shapes (M = 6144 tokens, D = 2048,
+# F = 8192): (rows, cols, gelu, what) per kernel
+M_TOK, D_MODEL, F_FFN = TRAIN_B * TRAIN_T, 2048, 8192
+ROWQ_CASES = [(M_TOK, D_MODEL, False, "activation (qkv, ffn1 fwd)"),
+              (M_TOK, F_FFN, True, "ffn1_out, gelu fused (ffn2 fwd)"),
+              (M_TOK, 3 * D_MODEL, False, "g of qkv (dgrad)"),
+              (M_TOK, F_FFN, False, "g of ffn1 (dgrad)"),
+              (M_TOK, D_MODEL, False, "g of ffn2 (dgrad)"),
+              (D_MODEL, 3 * D_MODEL, False, "wqkv along axis 1 (dgrad)"),
+              (D_MODEL, F_FFN, False, "win along axis 1 (dgrad)"),
+              (F_FFN, D_MODEL, False, "wout along axis 1 (dgrad)")]
+COLQ_CASES = [(D_MODEL, 3 * D_MODEL, False, "wqkv (fwd)"),
+              (D_MODEL, F_FFN, False, "win (fwd)"),
+              (F_FFN, D_MODEL, False, "wout (fwd)")]
+SRQ_CASES = [(M_TOK, D_MODEL, False, "LN output (qkv, ffn1 wgrad)"),
+             (M_TOK, F_FFN, True, "ffn1_out, gelu fused (ffn2 wgrad)"),
+             (M_TOK, 3 * D_MODEL, False, "g of qkv (wgrad)"),
+             (M_TOK, F_FFN, False, "g of ffn1 (wgrad)"),
+             (M_TOK, D_MODEL, False, "g of ffn2 (wgrad)")]
+SR_UNBIASED_SEEDS = 256
+
+
+def quant_input(torch, R, C, gen, zero_col: bool):
+    """bf16 test data of the trainer's kind: a normal with per-column
+    spread over four decades (so the per-column scales differ), and one
+    all-zero column (its scale must be 1/127, its codes 0)."""
+    spread = torch.logspace(-4, 0, C, device="cuda")[
+        torch.randperm(C, device="cuda", generator=gen)]
+    x = (torch.randn(R, C, device="cuda", generator=gen) * spread).bfloat16()
+    if zero_col:
+        x[:, C // 3] = 0
+    return x
+
+
+def check_equal(torch, name, got, want) -> None:
+    for part, a, b in zip(("codes", "scales"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name}: kernel {part} differ from the plain version in "
+                f"{int((a != b).sum())} of {a.numel()} elements")
+
+
+def sr_laws(torch, name, x, q, scale, act) -> dict:
+    """Row 12's laws on the card: every code the floor or the ceiling of
+    act(x) / scale, and an all-zero column at scale 1/127 with codes 0."""
+    from paddle_tpu_torch.ops.quant_matmul import _apply_act
+    v = _apply_act(x.float(), act) / scale
+    qf = q.float()
+    ok = (qf == torch.floor(v).clamp(-127, 127)) | \
+        (qf == torch.ceil(v).clamp(-127, 127))
+    if not bool(ok.all()):
+        raise AssertionError(f"{name}: {int((~ok).sum())} SR codes are "
+                             f"neither floor nor ceil of x / scale")
+    zero = (x == 0).all(0)
+    if bool(zero.any()) and not (
+            bool((scale[0, zero] == 1.0 / 127.0).all())
+            and bool((q[:, zero] == 0).all())):
+        raise AssertionError(f"{name}: an all-zero column is not at scale "
+                             f"1/127 with codes 0")
+    return {"floor_or_ceil": True, "zero_columns": int(zero.sum())}
+
+
+def sr_unbiased(torch, gen) -> dict:
+    """The SR kernel's mean over SR_UNBIASED_SEEDS seeds equals the
+    input within 4 standard errors: [1024, 256] bf16, gelu fused."""
+    from paddle_tpu_torch.ops.quant_matmul import (_apply_act,
+                                                   sr_quantize_colwise)
+    x = quant_input(torch, 1024, 256, gen, zero_col=False)
+    exact = _apply_act(x.float(), "gelu")
+    acc = torch.zeros_like(exact, dtype=torch.float64)
+    for seed in range(SR_UNBIASED_SEEDS):
+        q, scale = sr_quantize_colwise(x, seed * 7919 + 1, act="gelu")
+        acc += (q.float() * scale).double()
+    mean = acc / SR_UNBIASED_SEEDS
+    # one draw's error is uniform within one step (scale): sd <= scale/2
+    se = scale.double() * 0.5 / math.sqrt(SR_UNBIASED_SEEDS)
+    worst = ((mean - exact.double()).abs() / se).max().item()
+    bias = ((mean - exact.double()) / scale.double()).mean().item()
+    if worst > 4 * math.sqrt(2 * math.log(exact.numel())) or \
+            abs(bias) > 4 * 0.5 / math.sqrt(SR_UNBIASED_SEEDS * exact.numel()):
+        raise AssertionError(f"SR mean over seeds: worst {worst} standard "
+                             f"errors, mean bias {bias} steps")
+    return {"seeds": SR_UNBIASED_SEEDS, "worst_se": worst,
+            "mean_bias_steps": bias}
+
+
+def phase_kernels_quant(torch):
+    """Kernel rows 8, 9 and 12 at every trainer shape: codes and scales
+    bit for bit against the plain versions (the SR kernel draws the
+    plain version's Philox words), row 12's laws on the card, device
+    ms of kernel and plain version, and the bound. No single PyTorch
+    call computes these functions: library_ms is null."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    specs = [("quantize_rows", ROWQ_CASES, qm.quantize_rows,
+              qm.quantize_rows_plain, False),
+             ("quantize_cols", COLQ_CASES, qm.quantize_cols,
+              qm.quantize_cols_plain, False),
+             ("sr_quantize_colwise", SRQ_CASES, qm.sr_quantize_colwise,
+              qm.sr_quantize_colwise_plain, True)]
+    for name, cases, kern, plain, sr in specs:
+        rows = []
+        for i, (R, C, gelu, what) in enumerate(cases):
+            x = quant_input(torch, R, C, gen, zero_col=True)
+            act = "gelu" if gelu else None
+            args = (x,) if name == "quantize_cols" else \
+                (x, 1000 + i, act) if sr else (x, act)
+            got = kern(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            check_equal(torch, f"{name} {R}x{C} {what}", got, want)
+            row = {"shape": [R, C], "gelu": gelu, "operand": what,
+                   "bitwise_equal": True, "max_abs_err": 0.0}
+            if sr:
+                row["laws"] = sr_laws(torch, name, x, *got, act)
+            del got, want
+            b_ms, b_by = quantize_bound(R, C, 2, gelu, sr)
+            row.update({"ms": device_ms(torch, lambda: kern(*args), 10),
+                        "plain_ms": device_ms(torch, lambda: plain(*args), 2),
+                        "library_ms": None, "bound_ms": b_ms,
+                        "bound_by": b_by})
+            rows.append(row)
+            del x
+        result = {"phase": "kernels", "name": name, "cases": rows}
+        if sr:
+            result["unbiased"] = sr_unbiased(torch, gen)
+        emit(result)
+        out[name] = rows
+    return out
+
+
+def phase_int_mm(torch):
+    """The int8 GEMM of the all-int8 linears, torch._int_mm (an XLA
+    dot_general in the reference, not a Pallas kernel), at each site's
+    three orientations with the operand layouts the port hands it:
+    forward xq[M,K] @ wq[K,N] (w's codes column-major from the column
+    kernel), dgrad gq[M,N] @ wq[K,N].T (row-major codes of w,
+    transposed), wgrad aq[M,K].T @ gq[M,N] (both column-major from the
+    SR column kernel). Beside it a bf16 torch.matmul of the same shape.
+    The int32 result is held exactly to a float64 product."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, device="cuda", generator=gen,
+                             dtype=torch.int8)
+
+    def col_major(t):
+        return t.t().contiguous().t()
+    for K, N, site in ((D_MODEL, 3 * D_MODEL, "qkv"),
+                       (D_MODEL, F_FFN, "ffn1"), (F_FFN, D_MODEL, "ffn2")):
+        for orient, a, b in (
+                ("fwd", codes(M_TOK, K), col_major(codes(K, N))),
+                ("dgrad", codes(M_TOK, N), codes(K, N).t()),
+                ("wgrad", col_major(codes(M_TOK, K)).t(),
+                 col_major(codes(M_TOK, N)))):
+            y = torch._int_mm(a, b)
+            if not torch.equal(y.double(), a.double() @ b.double()):
+                raise AssertionError(f"_int_mm {site} {orient} is not exact")
+            m_, k_, n_ = a.shape[0], a.shape[1], b.shape[1]
+            b_ms, b_by = bound(m_ * k_ + k_ * n_ + 4 * m_ * n_, 0,
+                               int8_ops=2 * m_ * k_ * n_)
+            af = torch.randn(a.shape, device="cuda", generator=gen).bfloat16()
+            bf = torch.randn(b.shape, device="cuda", generator=gen).bfloat16()
+            rows.append({
+                "site": site, "orientation": orient, "shape": [m_, k_, n_],
+                "a_row_major": a.is_contiguous(),
+                "b_column_major": b.t().is_contiguous(),
+                "ms": device_ms(torch, lambda: torch._int_mm(a, b), 10),
+                "bf16_matmul_ms": device_ms(torch, lambda: af @ bf, 10),
+                "bound_ms": b_ms, "bound_by": b_by})
+            del y, af, bf
+    emit({"phase": "kernels", "name": "int8_gemm (torch._int_mm)",
+          "cases": rows})
+    return rows
+
+
+def adamw8_bound(R: int, C: int):
+    """Least time for one leaf with int8 moments: read p, g (bf16) and
+    the m and sqrt(v) codes, write p and the codes (10 bytes a
+    parameter), read and write the two f32 row scales; the update,
+    both requantizations and three Philox streams counted as scalar
+    operations (~30 + 2 * (SR_OPS + PHILOX_OPS) a parameter)."""
+    n = R * C
+    return bound(10 * n + 16 * R, 0,
+                 scalar_ops=n * (30 + 2 * (SR_OPS + PHILOX_OPS)))
+
+
+# GPT-1.3B's int8-moment leaves: wqkv, wproj, win, wout of each layer,
+# wte and wpe; the first and the fifth are timed
+ADAMW8_SHAPES = [(D_MODEL, 3 * D_MODEL), (D_MODEL, D_MODEL),
+                 (D_MODEL, F_FFN), (F_FFN, D_MODEL), (50304, D_MODEL),
+                 (TRAIN_T, D_MODEL)]
+ADAMW8_TIMED = ((D_MODEL, 3 * D_MODEL), (50304, D_MODEL))
+
+
+def phase_kernels_adamw8(torch):
+    """Kernel row 13 on every int8-moment leaf shape of the trainer,
+    bf16 p and g, stochastic rounding on: p, the codes and the scales
+    bit for bit against the plain version, from a state two updates old
+    (codes and scales not at their initial values). On wqkv and wte,
+    ms against the bound and row 14's ms on the same leaf. No PyTorch
+    call keeps int8 moments: library_ms is null."""
+    from paddle_tpu_torch.ops.fused_adamw import (
+        fused_adamw_update, fused_adamw_update8, fused_adamw_update8_plain,
+        moment8_init)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hp = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.95, eps=1e-8, stoch_round=True,
+              leaf_id=7, seed=3)
+    sc = torch.tensor([0.5, 1 / (1 - 0.9 ** 3), 1 / (1 - 0.95 ** 3), 1.0],
+                      device="cuda")
+    rows = []
+    for shape in ADAMW8_SHAPES:
+        p = (0.02 * torch.randn(shape, device="cuda", generator=gen)
+             ).bfloat16()
+        grad = (1e-3 * torch.randn(shape, device="cuda", generator=gen)
+                ).bfloat16()
+        state = list(moment8_init(p))
+        for seed in (1, 2):             # move the state off its zeros
+            fused_adamw_update8_plain(p.clone(), grad, *state, sc,
+                                      **dict(hp, seed=seed))
+        ref = fused_adamw_update8_plain(
+            p.clone(), grad, *[t.clone() for t in state], sc, **hp)
+        got = fused_adamw_update8(p.clone(), grad,
+                                  *[t.clone() for t in state], sc, **hp)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("p", "m_q", "m_scale", "v_q", "v_scale"),
+                              got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"fused_adamw8 {shape}: {name} differs from the plain "
+                    f"version in {int((a != b).sum())} elements")
+        del got, ref
+        row = {"shape": list(shape), "bitwise_equal": True,
+               "max_abs_err": 0.0}
+        rows.append(row)
+        if shape not in ADAMW8_TIMED:
+            del p, grad, state
+            continue
+        m16 = (1e-4 * torch.randn(shape, device="cuda", generator=gen)
+               ).bfloat16()
+        v16 = (1e-8 * torch.rand(shape, device="cuda", generator=gen)
+               ).bfloat16()
+        b_ms, b_by = adamw8_bound(*shape)
+        row.update({
+            "ms": device_ms(torch, lambda: fused_adamw_update8(
+                p, grad, *state, sc, **hp), 10),
+            "plain_ms": device_ms(torch, lambda: fused_adamw_update8_plain(
+                p, grad, *state, sc, **hp), 2),
+            "adamw_bf16_moments_ms": device_ms(
+                torch, lambda: fused_adamw_update(p, grad, m16, v16, sc, **hp),
+                10),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        del p, grad, state, m16, v16
+    emit({"phase": "kernels", "name": "fused_adamw8", "cases": rows})
+    return rows
+
+
 def llama_1b_config():
     from paddle_tpu_torch.models.llama import LlamaConfig
     # benchmarks/bench_serving_engine.py's full-width serving shape
@@ -392,9 +710,7 @@ def llama_1b_config():
 
 
 def phase_serve(torch, np, model):
-    from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
-                                                      flash_attention_fwd)
-    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
     from paddle_tpu_torch.serving import ServingEngine
     cfg = model.config
     rng = np.random.RandomState(0)
@@ -420,8 +736,10 @@ def phase_serve(torch, np, model):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_attention_fwd.launches
-    if flash_attention_bwd.launches or fused_adamw_update.launches:
-        raise AssertionError("serving launched a training kernel")
+    others = {k: v for k, v in read_launches().items()
+              if k != "flash_attention_fwd" and v}
+    if others:
+        raise AssertionError(f"serving launched training kernels: {others}")
     for r, n in zip(reqs, news):
         if not (r.finished and r.finish_reason == "length"
                 and len(r.output_ids) == n):
@@ -447,12 +765,30 @@ def phase_serve(torch, np, model):
     return prompts, reqs, {"flash_attention_fwd": launches}
 
 
-def reset_launches() -> None:
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by the name the kernels line
+    gives it; each counts its own launches."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                       flash_attention_fwd)
-    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
-    for fn in (flash_attention_fwd, flash_attention_bwd, fused_adamw_update):
+    from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
+                                                  fused_adamw_update8)
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd,
+            "fused_adamw": fused_adamw_update,
+            "quantize_rows": qm.quantize_rows,
+            "quantize_cols": qm.quantize_cols,
+            "sr_quantize_colwise": qm.sr_quantize_colwise,
+            "fused_adamw8": fused_adamw_update8}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
         fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def profiled(torch, setup):
@@ -578,16 +914,22 @@ def gpt_1p3b_config(num_layers: int = 24):
                      dtype="bfloat16")
 
 
-def gpt_trainer(torch, num_layers: int = 24):
-    """build_flagship's recipe without quant8 and moment8: bf16 masters
-    with SR, bf16 moments, the fused AdamW on every leaf, unchunked CE,
-    no remat; lr 3e-4, wd 0.1, betas (0.9, 0.95), clip 1.0."""
+FLAGSHIP = dict(quant8="wgrad", moment8=True, remat="save_main")
+
+
+def gpt_trainer(torch, num_layers: int = 24, flagship: bool = True):
+    """build_flagship's trainer: bf16 masters with SR, bf16 moments, the
+    fused AdamW on every leaf, unchunked CE; lr 3e-4, wd 0.1, betas
+    (0.9, 0.95), clip 1.0. ``flagship``: its whole recipe, int8 matmuls
+    (quant8="wgrad", gelu fused into the ffn2 quantize), int8 moments
+    and remat="save_main"; else the bf16 path (none of the three)."""
     from paddle_tpu_torch.models.gpt import GPTTrainer
     gen = torch.Generator(device="cuda").manual_seed(0)
+    recipe = FLAGSHIP if flagship else dict(remat=False)
     return GPTTrainer(gpt_1p3b_config(num_layers), microbatches=1,
-                      remat=False, master_dtype="bfloat16",
-                      moment_dtype="bfloat16", ce_chunks=1,
-                      layer_unroll="full", generator=gen)
+                      master_dtype="bfloat16", moment_dtype="bfloat16",
+                      ce_chunks=1, layer_unroll="full", generator=gen,
+                      **recipe)
 
 
 def train_batch(np):
@@ -596,10 +938,22 @@ def train_batch(np):
     return ids, np.roll(ids, -1, axis=1)
 
 
-def phase_train(torch, np, tr):
-    from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
-                                                      flash_attention_fwd)
-    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update
+def expected_launches(tr) -> dict:
+    """Kernel launches per training step of ``tr``: one flash forward
+    and backward per layer; in int8 mode 9 row, 3 column and 6 SR column
+    quantizes per layer; one AdamW launch per leaf, int8-moment leaves
+    (moment8) on their own kernel."""
+    L = tr.cfg.num_layers
+    leaves = 4 + 12 * L
+    n8 = sum(isinstance(m, tuple) for m in tr.opt_state["m"])
+    int8 = tr.quant8 == "wgrad"
+    return {"flash_attention_fwd": L, "flash_attention_bwd": L,
+            "fused_adamw": leaves - n8, "quantize_rows": 9 * L * int8,
+            "quantize_cols": 3 * L * int8,
+            "sr_quantize_colwise": 6 * L * int8, "fused_adamw8": n8}
+
+
+def phase_train(torch, np, tr, name: str):
     ids, labels = train_batch(np)
     losses = [tr.train_step(ids, labels) for _ in range(WARMUP)]
     torch.cuda.synchronize()
@@ -609,15 +963,10 @@ def phase_train(torch, np, tr):
     losses += [tr.train_step(ids, labels) for _ in range(STEPS)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"flash_attention_fwd": flash_attention_fwd.launches,
-              "flash_attention_bwd": flash_attention_bwd.launches,
-              "fused_adamw": fused_adamw_update.launches}
-    L = tr.cfg.num_layers
-    want = {"flash_attention_fwd": L * STEPS,
-            "flash_attention_bwd": L * STEPS,
-            "fused_adamw": (4 + 12 * L) * STEPS}
+    counts = read_launches()
+    want = {k: v * STEPS for k, v in expected_launches(tr).items()}
     if counts != want:
-        raise AssertionError(f"train launches {counts}, expected {want} "
+        raise AssertionError(f"{name} launches {counts}, expected {want} "
                              f"over {STEPS} steps")
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
@@ -625,62 +974,117 @@ def phase_train(torch, np, tr):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
     tokens = TRAIN_B * TRAIN_T * STEPS
-    emit({"phase": "train", "params": tr.n_params(), "batch": TRAIN_B,
-          "seq": TRAIN_T, "steps": STEPS, "losses": losses,
+    emit({"phase": name, "params": tr.n_params(), "batch": TRAIN_B,
+          "seq": TRAIN_T, "recipe": {"quant8": tr.quant8,
+                                     "moment8": tr.moment8,
+                                     "remat": tr.remat},
+          "steps": STEPS, "losses": losses,
           "step_ms": wall / STEPS * 1e3, "tokens_per_s": tokens / wall,
           "launches_per_step": {k: v / STEPS for k, v in counts.items()},
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     return counts
 
 
-def phase_train_profile(torch, np, tr):
-    """One step under torch.profiler (wall time includes its overhead)."""
+# kernel families of a training step's trace, by name: the port's
+# kernels, then cuBLAS's GEMMs (int8 ones carry an int8 type in their
+# names), the rest elementwise, reductions and copies
+PROFILE_PARTS = {
+    "flash_fwd_ms": ("flash_fwd_kernel",),
+    "flash_bwd_ms": ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    "adamw_ms": ("adamw_kernel<",),
+    "adamw8_ms": ("adamw8_kernel",),
+    "quantize_ms": ("rowq_kernel", "col_amax_kernel", "col_cast_kernel"),
+}
+GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "sm80_")
+INT8_NAMES = ("i8", "s8", "imma", "int8", "integer")
+
+
+def phase_train_profile(torch, np, tr, name: str):
+    """One step under torch.profiler (wall time includes its overhead):
+    device ms by kernel family, busy share, top kernels."""
     ids, labels = train_batch(np)
     wall, ev = traced(torch, lambda: lambda: tr.train_step(ids, labels),
                       with_cpu=True)
     ev.sort(key=lambda e: -e.self_device_time_total)
     ms = {e.key: e.self_device_time_total / 1e3 for e in ev}
     dev = sum(ms.values())
-
-    def share(*names):
-        return sum(v for k, v in ms.items() if any(n in k for n in names))
-    parts = {"flash_fwd_ms": share("flash_fwd_kernel"),
-             "flash_bwd_ms": share("flash_bwd_dkdv_kernel",
-                                   "flash_bwd_dq_kernel"),
-             "adamw_ms": share("adamw_kernel"),
-             # cuBLAS's kernels, by their name families
-             "matmul_ms": share("nvjet", "gemm", "cutlass", "xmma")}
-    emit({"phase": "train-profile", "wall_ms": wall * 1e3,
-          "device_ms": dev, "device_busy_share": dev / (wall * 1e3),
-          **parts, "other_ms": dev - sum(parts.values()),
-          "top_kernels_ms": [(k[:80], v) for k, v in list(ms.items())[:10]]})
-
-
-def plain_qkv_attention():
-    """The packed attention through the plain forward, differentiated by
-    autograd: the all-plain route of train-check."""
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd_plain
-
-    def attention(qkv, num_heads, causal=False, scale=None):
-        B, S, _ = qkv.shape
-        q, k, v = qkv.view(B, S, 3, num_heads, -1).unbind(2)
-        return flash_attention_fwd_plain(q, k, v, causal, scale)[0] \
-            .reshape(B, S, -1)
-    return attention
+    parts = dict.fromkeys(PROFILE_PARTS, 0.0)
+    parts.update(int8_gemm_ms=0.0, bf16_gemm_ms=0.0, other_ms=0.0)
+    for k, v in ms.items():
+        low = k.lower()
+        part = next((p for p, names in PROFILE_PARTS.items()
+                     if any(n in k for n in names)), None)
+        if part is None and any(n in low for n in GEMM_NAMES):
+            part = "int8_gemm_ms" if any(n in low for n in INT8_NAMES) \
+                else "bf16_gemm_ms"
+        parts[part or "other_ms"] += v
+    emit({"phase": name, "wall_ms": wall * 1e3, "device_ms": dev,
+          "device_busy_share": dev / (wall * 1e3), **parts,
+          "top_kernels_ms": [(k[:100], v) for k, v in list(ms.items())[:14]]})
 
 
-def phase_train_check(torch, np):
-    from paddle_tpu_torch.models import gpt as gpt_mod
+class plain_route:
+    """Within the block every kernel of the training step runs its plain
+    PyTorch version on the card: the quantize wrappers of
+    ops/quant_matmul.py, and the attention (through
+    flash_attention_fwd_plain under autograd on the bf16 path, and the
+    plain packed forward and backward in the int8 block)."""
+
+    def __enter__(self):
+        import torch
+        from paddle_tpu_torch.models import gpt as gpt_mod
+        from paddle_tpu_torch.ops import quant_matmul as qm
+        from paddle_tpu_torch.ops.flash_attention import (
+            flash_attention_bwd_plain, flash_attention_fwd_plain)
+
+        def unpack(qkv, H):
+            B, S, _ = qkv.shape
+            return qkv.view(B, S, 3, H, -1).unbind(2)
+
+        def attention(qkv, num_heads, causal=False, scale=None):
+            B, S, _ = qkv.shape
+            return flash_attention_fwd_plain(*unpack(qkv, num_heads), causal,
+                                             scale)[0].reshape(B, S, -1)
+
+        def packed_fwd(qkv, H, causal, scale):
+            return flash_attention_fwd_plain(*unpack(qkv, H), causal, scale)
+
+        def packed_bwd(qkv, out, lse, dout, H, causal, scale):
+            grads = flash_attention_bwd_plain(*unpack(qkv, H), out, lse,
+                                              dout.reshape(out.shape),
+                                              causal, scale)
+            return torch.stack(grads, dim=2).reshape(qkv.shape)
+        self.saved = [(gpt_mod, "flash_attention_qkv_fused", attention),
+                      (gpt_mod, "flash_qkv_packed_fwd", packed_fwd),
+                      (gpt_mod, "flash_qkv_packed_bwd", packed_bwd),
+                      (qm, "quantize_rows", qm.quantize_rows_plain),
+                      (qm, "quantize_cols", qm.quantize_cols_plain),
+                      (qm, "sr_quantize_colwise",
+                       qm.sr_quantize_colwise_plain)]
+        self.saved = [(mod, attr, getattr(mod, attr), new)
+                      for mod, attr, new in self.saved]
+        for mod, attr, _, new in self.saved:
+            setattr(mod, attr, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, old, _ in self.saved:
+            setattr(mod, attr, old)
+        return False
+
+
+def phase_train_check(torch, np, flagship: bool):
+    """2 layers of the trainer: one step's loss and every gradient
+    through the kernels against the all-plain route on the card (the
+    quantize kernels equal their plain versions bit for bit, SR noise
+    included, so the two routes differ only where the attention rounds
+    P and dS to bf16), within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL."""
     from paddle_tpu_torch.models.gpt import flatten_params
-    tr = gpt_trainer(torch, num_layers=2)
+    tr = gpt_trainer(torch, num_layers=2, flagship=flagship)
     ids, labels = train_batch(np)
     loss, grads = tr.loss_and_grads(ids, labels)
-    kernel_fn = gpt_mod.flash_attention_qkv_fused
-    gpt_mod.flash_attention_qkv_fused = plain_qkv_attention()
-    try:
+    with plain_route():
         ploss, pgrads = tr.loss_and_grads(ids, labels)
-    finally:
-        gpt_mod.flash_attention_qkv_fused = kernel_fn
     loss_diff = abs(float(loss) - float(ploss))
     worst, worst_name = 0.0, ""
     for (name, _), a, b in zip(flatten_params(tr.params), grads, pgrads):
@@ -695,9 +1099,10 @@ def phase_train_check(torch, np):
             f"train-check: loss |diff| {loss_diff} (tol {TRAIN_LOSS_TOL}),"
             f" worst gradient {worst_name} rel {worst} (tol "
             f"{TRAIN_GRAD_TOL})")
-    emit({"phase": "train-check", "layers": 2, "loss": float(loss),
-          "plain_loss": float(ploss), "loss_abs_diff": loss_diff,
-          "worst_grad_rel_diff": worst, "worst_grad": worst_name,
+    emit({"phase": "train-check" + ("-flagship" if flagship else ""),
+          "layers": 2, "loss": float(loss), "plain_loss": float(ploss),
+          "loss_abs_diff": loss_diff, "worst_grad_rel_diff": worst,
+          "worst_grad": worst_name,
           "tolerance": {"loss_abs": TRAIN_LOSS_TOL,
                         "grad_rel_norm": TRAIN_GRAD_TOL}})
 
@@ -715,8 +1120,8 @@ def main() -> int:
     from paddle_tpu_torch.ops import _build
 
     smi = nvidia_smi()
-    name = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "name": name,
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "name": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
@@ -728,6 +1133,9 @@ def main() -> int:
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)
     adamw_rows = phase_kernels_adamw(torch)
+    quant_rows = phase_kernels_quant(torch)
+    phase_int_mm(torch)
+    adamw8_rows = phase_kernels_adamw8(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlamaForCausalLM(llama_1b_config(), dtype="bfloat16",
@@ -738,24 +1146,32 @@ def main() -> int:
     del model, reqs
     torch.cuda.empty_cache()
 
-    tr = gpt_trainer(torch)
-    train_launches = phase_train(torch, np, tr)
-    phase_train_profile(torch, np, tr)
-    del tr
-    torch.cuda.empty_cache()
-    phase_train_check(torch, np)
+    launches = {"serve": serve_launches}
+    for flagship, path in ((True, "train-flagship"), (False, "train")):
+        tr = gpt_trainer(torch, flagship=flagship)
+        launches[path] = phase_train(torch, np, tr, path)
+        phase_train_profile(torch, np, tr, path + "-profile")
+        del tr
+        torch.cuda.empty_cache()
+        phase_train_check(torch, np, flagship)
 
-    def entry(name, source, replaces, rows, main):
-        return {"name": name, "route": "cuda",
+    def entry(kernel, source, replaces, rows, main):
+        return {"name": kernel, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": train_launches[name],
-                "launches_by_path": {"train": train_launches[name],
-                                     "serve": serve_launches.get(name, 0)},
+                "replaces": replaces,
+                "launches": launches["train-flagship"][kernel],
+                "launches_by_path": {p: counts.get(kernel, 0)
+                                     for p, counts in launches.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]}
-    emit({"phase": "profiler", "empty_traces_taken_again": EMPTY_TRACES})
+
+    def largest(rows):
+        return max(rows, key=lambda r: (r["shape"][0] * r["shape"][1],
+                                        r.get("gelu", False)))
+    emit({"phase": "profiler", "empty_traces_taken_again": EMPTY_TRACES,
+          "short_traces_taken_again": SHORT_TRACES})
     emit({"kernels": [
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               "paddle_tpu/ops/pallas_ops.py:152,645", fwd_rows,
@@ -765,9 +1181,22 @@ def main() -> int:
               next(r for r in bwd_rows if r["packed"])),
         entry("fused_adamw", "fused_adamw.cu",
               "paddle_tpu/ops/fused_adamw.py:281", adamw_rows,
-              adamw_rows[0])]})
+              adamw_rows[0]),
+        entry("quantize_rows", "quantize.cu",
+              "paddle_tpu/ops/quant_matmul.py:114", quant_rows[
+                  "quantize_rows"], largest(quant_rows["quantize_rows"])),
+        entry("quantize_cols", "quantize.cu",
+              "paddle_tpu/ops/quant_matmul.py:129", quant_rows[
+                  "quantize_cols"], largest(quant_rows["quantize_cols"])),
+        entry("sr_quantize_colwise", "quantize.cu",
+              "paddle_tpu/ops/quant_matmul.py:447",
+              quant_rows["sr_quantize_colwise"],
+              largest(quant_rows["sr_quantize_colwise"])),
+        entry("fused_adamw8", "fused_adamw8.cu",
+              "paddle_tpu/ops/fused_adamw.py:222", adamw8_rows,
+              largest(adamw8_rows))]})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -30,35 +30,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
+using ptt::put;
+using ptt::to_f32;
 
 template <typename TP, typename TG, typename TM, bool SR>
 __global__ void __launch_bounds__(kThreads)
@@ -77,10 +56,7 @@ adamw_kernel(TP* __restrict__ p, const TG* __restrict__ g,
        grp < groups; grp += (long long)gridDim.x * blockDim.x) {
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if (SR) {
-      bits = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(grp),
-                     static_cast<uint32_t>(grp >> 32), 0u, 0u),
-          key, 0u);
+      bits = ptt::philox_group(grp, 0u, key, 0u);
     }
     const uint32_t word[4] = {bits.x, bits.y, bits.z, bits.w};
 #pragma unroll

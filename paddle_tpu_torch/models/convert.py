@@ -15,7 +15,11 @@ and ``lm_head.weight`` is transposed. ``Embedding`` keeps
 ``gpt_trainer_from_jax_params`` takes ``GPTSpmdTrainer.params`` as
 numpy and returns a ``GPTTrainer`` holding them; both packages keep
 matmul weights ``[in, out]``, so only names and shapes are checked.
-``gpt_params_to_numpy`` is its inverse.
+Trainer options (``quant8``, ``moment8``, ``remat``, ...) pass through,
+and ``np_opt_state`` (``GPTSpmdTrainer.opt_state`` as numpy) replaces
+the fresh AdamW state: the step, and per leaf the moments, arrays or,
+for the leaves with int8 moments (``moment8``), ``(q, scale)`` pairs.
+``gpt_params_to_numpy`` and ``gpt_opt_state_to_numpy`` are the inverses.
 """
 from __future__ import annotations
 
@@ -25,11 +29,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, resolve_dtype
-from .gpt import GPTConfig, GPTTrainer, block_shapes, top_shapes
+from .gpt import (GPTConfig, GPTTrainer, block_shapes, flatten_params,
+                  top_shapes)
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["gpt_params_to_numpy", "gpt_trainer_from_jax_params",
-           "llama_from_jax_state"]
+__all__ = ["gpt_opt_state_to_numpy", "gpt_params_to_numpy",
+           "gpt_trainer_from_jax_params", "llama_from_jax_state"]
 
 
 def _np32(arr) -> np.ndarray:
@@ -78,7 +83,7 @@ def _take(src: dict, shapes: dict, where: str, device, dtype,
 
 
 def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
-                                device=None, dtype=None,
+                                device=None, dtype=None, np_opt_state=None,
                                 **trainer_kwargs) -> GPTTrainer:
     """A ``GPTTrainer`` holding the reference trainer's parameters.
 
@@ -87,7 +92,10 @@ def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
     (``layer_NNN`` dicts, ``layer_unroll="full"``) or stacked (each
     leaf ``[1, L, ...]``). Matmul weights are ``[in, out]`` in both
     packages, so nothing is transposed; names and shapes must match
-    exactly. ``dtype`` is the master dtype (default float32); other
+    exactly. ``dtype`` is the master dtype (default float32);
+    ``np_opt_state`` the reference's ``opt_state`` as numpy (``{"step",
+    "m", "v"}``, ``m``/``v`` trees shaped like ``np_params`` with per
+    layer ``blocks``, int8-moment leaves as ``(q, scale)`` pairs); other
     keyword arguments go to ``GPTTrainer``."""
     master = resolve_dtype(dtype)
     dev = resolve_device(device)
@@ -106,8 +114,83 @@ def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
         params["blocks"] = {n: _take(blocks, block_shapes(cfg), "blocks",
                                      dev, master, lead=(L, i))
                             for i, n in enumerate(names)}
-    return GPTTrainer(cfg, device=dev, master_dtype=master, params=params,
-                      **trainer_kwargs)
+    trainer = GPTTrainer(cfg, device=dev, master_dtype=master,
+                         params=params, **trainer_kwargs)
+    if np_opt_state is not None:
+        trainer.opt_state = _opt_state_from_numpy(np_opt_state, trainer)
+    return trainer
+
+
+def _moment_leaves(tree) -> list:
+    """A moment tree's leaves in flatten order, ``(q, scale)`` pairs
+    kept whole (the reference flattens with ``is_leaf=tuple``)."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        else:
+            out.append(node)
+    walk(tree)
+    return out
+
+
+def _opt_state_from_numpy(np_opt_state: Dict, trainer: GPTTrainer) -> Dict:
+    """The reference's opt_state as the port's: a moment for every leaf,
+    of the trainer's kind (an int8 ``(q, scale)`` pair exactly where the
+    trainer keeps one) and the leaf's shape."""
+    state = {"step": int(np.asarray(np_opt_state["step"]))}
+    paths = [path for path, _ in flatten_params(trainer.params)]
+    for key in ("m", "v"):
+        leaves = _moment_leaves(np_opt_state[key])
+        if len(leaves) != len(paths):
+            raise ValueError(f"opt_state[{key!r}] has {len(leaves)} leaves; "
+                             f"the trainer has {len(paths)}")
+        moments = []
+        for path, have, want in zip(paths, leaves, trainer.opt_state[key]):
+            if isinstance(want, tuple) != isinstance(have, tuple):
+                raise ValueError(
+                    f"opt_state[{key!r}] {path}: int8 (q, scale) pairs on "
+                    f"one side only; build the trainer with the "
+                    f"reference's moment8 setting")
+            pair = have if isinstance(have, tuple) else (have,)
+            ref = want if isinstance(want, tuple) else (want,)
+            got = []
+            for a, t in zip(pair, ref):
+                a = np.asarray(a)
+                if a.shape != tuple(t.shape):
+                    raise ValueError(f"opt_state[{key!r}] {path}: shape "
+                                     f"{a.shape}, expected "
+                                     f"{tuple(t.shape)}")
+                if t.dtype != torch.int8:
+                    a = _np32(a)
+                got.append(torch.tensor(a, dtype=t.dtype, device=t.device))
+            moments.append(tuple(got) if isinstance(want, tuple) else got[0])
+        state[key] = moments
+    return state
+
+
+def gpt_opt_state_to_numpy(trainer: GPTTrainer) -> Dict:
+    """The inverse of ``np_opt_state``: the trainer's AdamW state in the
+    reference's layout (``blocks`` per layer), moments as f32 numpy and
+    int8-moment leaves as ``(int8 codes, f32 scales)`` pairs."""
+    def np_(t):
+        t = t.detach().cpu()
+        return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
+    out = {"step": np.int32(trainer.opt_state["step"])}
+    paths = [path for path, _ in flatten_params(trainer.params)]
+    for key in ("m", "v"):
+        tree: Dict = {}
+        for path, mom in zip(paths, trainer.opt_state[key]):
+            *parents, leaf = path.split(".")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = tuple(np_(t) for t in mom) \
+                if isinstance(mom, tuple) else np_(mom)
+        out[key] = tree
+    return out
 
 
 def gpt_params_to_numpy(params: Dict, layout: str = "per_layer") -> Dict:

@@ -19,6 +19,30 @@ Parameters keep the reference's pytree: a dict with ``wte [V, D]``,
 keys at every level, ``gpt.py:1314-1319``), so both draw the same SR
 streams per (step, leaf).
 
+The flagship recipe of ``bench.py:build_flagship`` is ported as well:
+
+- ``quant8="wgrad"``: the qkv (site 1), ffn1 (site 2) and ffn2 (site
+  3, ``int8_gelu_linear_all8`` on the pre-gelu ``ffn1_out``: the gelu
+  runs inside the quantize kernels, ``fuse_gelu_quant``) products take
+  int8 in the forward, the dgrad and the wgrad (``ops/quant_matmul.py``,
+  ``_mm`` :775); ``wproj`` and the CE head stay bf16 matmuls. Seeds:
+  ``(step + 1) * 40503`` per step (``step`` before the update,
+  :1378), ``+ 16 * layer`` per layer (:996), ``* 8 + site`` per site,
+  int32-wrapped as the reference's ``jnp.int32`` arithmetic.
+- ``moment8=True``: the leaves ``moment8_eligible`` picks keep m and
+  sqrt(v) as int8 codes with per-row scales (``(q, scale)`` pairs in
+  ``opt_state``, :641) and take the int8-moment AdamW kernel; the
+  others keep ``moment_dtype`` moments and the AdamW kernel (:1322).
+- ``remat="save_main"`` (:1021): per layer the backward keeps the block
+  input, ``qkv_out``, the flash out and lse, and ``ffn1_out``, and
+  recomputes LayerNorm 1, the ``wproj`` product with its residual add
+  and LayerNorm 2. It never runs the flash forward, the qkv or ffn1
+  products or their quantize kernels again.
+
+The int8 block is one ``torch.autograd.Function`` with an explicit
+backward (``_Int8Block``), so the remat recompute is exactly the three
+cheap ops above: with remat off it saves those three results instead.
+
 On a CPU device every kernel runs its plain version. Arguments this
 slice does not port raise ``NotImplementedError`` naming the slice that
 brings them.
@@ -34,9 +58,14 @@ import torch
 from torch.nn import functional as TF
 
 from .._device import resolve_device, resolve_dtype
-from ..ops.flash_attention import flash_attention_qkv_fused
-from ..ops.fused_adamw import fused_adamw_update
+from ..ops.flash_attention import (flash_attention_qkv_fused,
+                                   flash_qkv_packed_bwd, flash_qkv_packed_fwd)
+from ..ops.fused_adamw import (fused_adamw_update, fused_adamw_update8,
+                               moment8_eligible, moment8_init)
 from ..ops.fused_ce import fused_softmax_cross_entropy
+from ..ops.quant_matmul import (int8_gelu_linear_all8_bwd,
+                                int8_linear_all8_bwd, int8_matmul,
+                                layer_seed, site_seed, step_seed)
 
 __all__ = ["GPTConfig", "GPTTrainer", "block_shapes", "flatten_params",
            "layer_norm", "top_shapes"]
@@ -104,30 +133,115 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, g, b, eps):
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, unbiased=False, keepdim=True)
-        rstd = torch.rsqrt(var + eps)
+        y, mean, rstd = _ln_fwd(x, g, b, eps)
         ctx.save_for_backward(x, g, mean, rstd)
-        return ((xf - mean) * rstd * g + b).to(x.dtype)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, g, mean, rstd = ctx.saved_tensors
-        xhat = (x.float() - mean) * rstd
-        dyf = dy.float()
-        lead = tuple(range(x.dim() - 1))
-        dg = (dyf * xhat).sum(lead)
-        db = dyf.sum(lead)
-        dxhat = dyf * g.float()
-        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                     - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-        return dx.to(x.dtype), dg.to(g.dtype), db.to(g.dtype), None
+        return (*_ln_bwd(*ctx.saved_tensors, dy), None)
+
+
+def _ln_fwd(x, g, b, eps: float = 1e-5):
+    """LayerNorm's output and its per-row f32 mean and rstd."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return ((xf - mean) * rstd * g + b).to(x.dtype), mean, rstd
+
+
+def _ln_bwd(x, g, mean, rstd, dy):
+    """LayerNorm's ``(dx, dg, db)`` from x and the saved row statistics."""
+    xhat = (x.float() - mean) * rstd
+    dyf = dy.float()
+    lead = tuple(range(x.dim() - 1))
+    dg = (dyf * xhat).sum(lead)
+    db = dyf.sum(lead)
+    dxhat = dyf * g.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), dg.to(g.dtype), db.to(g.dtype)
 
 
 def layer_norm(x, g, b, eps: float = 1e-5):
     """LayerNorm over the last dim with f32 statistics (``gpt.py:1530``)."""
     return _LayerNorm.apply(x, g, b, eps)
+
+
+# leaves of one block in the order _Int8Block takes them
+_BLOCK_KEYS = ("ln1_g", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "ln2_g",
+               "ln2_b", "win", "bin", "wout", "bout")
+
+
+def _sum_lead(t):
+    """A bias gradient: ``t`` summed over every dim but the last."""
+    return t.sum(tuple(range(t.dim() - 1)))
+
+
+class _Int8Block(torch.autograd.Function):
+    """One pre-LN block of the ``quant8="wgrad"`` recipe (``_block``
+    :819 with ``fuse_gelu_quant``) with an explicit backward.
+
+    Forward: LN1, qkv = int8(h1 @ wqkv) + bqkv, packed flash attention
+    (out, lse), xm = x + attn @ wproj + bproj, LN2, a = int8(h2 @ win) +
+    bin (``ffn1_out``), y = xm + int8(gelu(a) @ wout) + bout. It saves
+    the block input, qkv, out, lse and a; with ``save_main`` that is all
+    (the reference's policy, :1021), without it also h1, xm, h2 and the
+    two LayerNorms' row statistics. The backward recomputes what was not
+    saved (LN1, the wproj product with its residual add, LN2), then runs
+    the int8 backward of each site, the flash backward and the
+    LayerNorm backwards. ``seed`` is the layer's int seed."""
+
+    @staticmethod
+    def forward(ctx, x, seed, num_heads, save_main, *leaves):
+        w = dict(zip(_BLOCK_KEYS, leaves))
+        h1, mean1, rstd1 = _ln_fwd(x, w["ln1_g"], w["ln1_b"])
+        qkv = int8_matmul(h1, w["wqkv"]) + w["bqkv"]
+        scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * num_heads))
+        out, lse = flash_qkv_packed_fwd(qkv, num_heads, True, scale)
+        xm = x + out.reshape(x.shape[:-1] + (-1,)) @ w["wproj"] \
+            + w["bproj"]
+        h2, mean2, rstd2 = _ln_fwd(xm, w["ln2_g"], w["ln2_b"])
+        a = int8_matmul(h2, w["win"]) + w["bin"]
+        y = xm + int8_matmul(a, w["wout"], "gelu") + w["bout"]
+        kept = () if save_main else (h1, mean1, rstd1, xm, h2, mean2, rstd2)
+        ctx.save_for_backward(x, qkv, out, lse, a, *kept, *leaves)
+        ctx.seed, ctx.num_heads, ctx.scale = seed, num_heads, scale
+        ctx.save_main = save_main
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        x, qkv, out, lse, a = saved[:5]
+        w = dict(zip(_BLOCK_KEYS, saved[-len(_BLOCK_KEYS):]))
+        attn = out.reshape(x.shape[:-1] + (-1,))
+        if ctx.save_main:
+            h1, mean1, rstd1 = _ln_fwd(x, w["ln1_g"], w["ln1_b"])
+            xm = x + attn @ w["wproj"] + w["bproj"]
+            h2, mean2, rstd2 = _ln_fwd(xm, w["ln2_g"], w["ln2_b"])
+        else:
+            h1, mean1, rstd1, xm, h2, mean2, rstd2 = saved[5:12]
+        s1, s2, s3 = (site_seed(ctx.seed, k) for k in (1, 2, 3))
+        g = {"bout": _sum_lead(dy)}
+        da, g["wout"] = int8_gelu_linear_all8_bwd(a, w["wout"], s3, dy)
+        g["bin"] = _sum_lead(da)
+        dh2, g["win"] = int8_linear_all8_bwd(h2, w["win"], s2, da)
+        dxm, g["ln2_g"], g["ln2_b"] = _ln_bwd(xm, w["ln2_g"], mean2, rstd2,
+                                              dh2)
+        dxm = dy + dxm
+        g["bproj"] = _sum_lead(dxm)
+        D = dxm.shape[-1]
+        g["wproj"] = attn.reshape(-1, attn.shape[-1]).t() \
+            @ dxm.reshape(-1, D)
+        dqkv = flash_qkv_packed_bwd(qkv, out, lse, dxm @ w["wproj"].t(),
+                                    ctx.num_heads, True, ctx.scale)
+        g["bqkv"] = _sum_lead(dqkv)
+        dh1, g["wqkv"] = int8_linear_all8_bwd(h1, w["wqkv"], s1, dqkv)
+        dx, g["ln1_g"], g["ln1_b"] = _ln_bwd(x, w["ln1_g"], mean1, rstd1,
+                                             dh1)
+        return (dxm + dx, None, None, None, *(g[k] for k in _BLOCK_KEYS))
 
 
 def _not_ported(what: str, slice_: str):
@@ -144,9 +258,11 @@ class GPTTrainer:
     ``master_dtype=bfloat16`` stores the masters at compute precision
     and updates them with stochastic rounding (the flagship recipe);
     float32 masters are cast to ``cfg.dtype`` inside the step and take
-    f32 gradients and exact updates. ``params`` (a dict in the
-    reference's layout, e.g. from ``models.convert``) replaces the
-    random initialisation."""
+    f32 gradients and exact updates. ``quant8="wgrad"``, ``moment8``
+    and ``remat="save_main"`` are the flagship's int8 matmuls, int8
+    moments and selective remat (see the module docstring). ``params``
+    (a dict in the reference's layout, e.g. from ``models.convert``)
+    replaces the random initialisation."""
 
     def __init__(self, cfg: GPTConfig, microbatches: Optional[int] = 1,
                  learning_rate: float = 3e-4, weight_decay: float = 0.1,
@@ -163,22 +279,32 @@ class GPTTrainer:
                  int8_guard_period: int = 0, device=None,
                  params: Optional[Dict[str, Any]] = None,
                  generator: Optional[torch.Generator] = None):
-        if quant8:
-            _not_ported(f"quant8={quant8!r}", "next trainer slice")
-        if moment8:
-            _not_ported("moment8", "next trainer slice")
-        if remat is not False:
-            _not_ported(f"remat={remat!r}", "next trainer slice")
+        if quant8 and quant8 != "wgrad":
+            _not_ported(f"quant8={quant8!r}", "a later trainer slice; "
+                        "quant8='wgrad' is ported")
+        if remat and remat != "save_main":
+            _not_ported(f"remat={remat!r}", "a later trainer slice; "
+                        "remat='save_main' is ported")
+        if remat and quant8 != "wgrad":
+            _not_ported("remat='save_main' without quant8='wgrad'",
+                        "a later trainer slice")
         if int8_guard_period:
-            _not_ported("int8_guard_period", "next trainer slice")
+            _not_ported("int8_guard_period", "a later trainer slice")
+        if fuse_gelu_quant and quant8 != "wgrad":
+            raise ValueError(
+                "fuse_gelu_quant rides the all-int8 recipe: it needs "
+                "quant8='wgrad'")
+        if quant8 == "wgrad" and fuse_gelu_quant is False:
+            _not_ported("quant8='wgrad' with fuse_gelu_quant=False",
+                        "a later trainer slice; the ffn2 site fuses gelu")
+        if ce_int8 or fuse_ln_quant or fuse_bwd_colq:
+            _not_ported("ce_int8, fuse_ln_quant and fuse_bwd_colq",
+                        "a later trainer slice (kernel rows 10 and 11)")
         if moe_experts:
             _not_ported("moe_experts", "MoE slice")
         if pipeline_schedule != "gpipe" or microbatches not in (None, 1):
             _not_ported("pipeline schedules and microbatches",
                         "multi-GPU training slice")
-        if ce_int8 or fuse_gelu_quant or fuse_ln_quant or fuse_bwd_colq:
-            _not_ported("ce_int8 and the fuse_* int8 options",
-                        "next trainer slice")
         if not fused_optimizer:
             _not_ported("the unfused optimizer", "this slice runs the "
                         "fused AdamW kernel on every leaf")
@@ -188,6 +314,7 @@ class GPTTrainer:
         if cfg.dropout:
             _not_ported("dropout", "the reference trainer has none")
         self.cfg = cfg
+        self.quant8, self.remat, self.moment8 = quant8, remat, bool(moment8)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(cfg.dtype)
         self.master_dtype = resolve_dtype(master_dtype)
@@ -206,12 +333,16 @@ class GPTTrainer:
         self._leaves = [p for _, p in flatten_params(params)]
         for p in self._leaves:
             p.requires_grad_(True)
-        self.opt_state = {
-            "step": 0,
-            "m": [torch.zeros_like(p, dtype=self.moment_dtype)
-                  for p in self._leaves],
-            "v": [torch.zeros_like(p, dtype=self.moment_dtype)
-                  for p in self._leaves]}
+        self.opt_state = {"step": 0, "m": [], "v": []}
+        for p in self._leaves:
+            if self.moment8 and moment8_eligible(p):
+                mq, msc, vq, vsc = moment8_init(p)
+                m, v = (mq, msc), (vq, vsc)
+            else:
+                m, v = (torch.zeros_like(p, dtype=self.moment_dtype)
+                        for _ in range(2))
+            self.opt_state["m"].append(m)
+            self.opt_state["v"].append(v)
 
     # -- init --------------------------------------------------------------
     def _init_params(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -257,19 +388,27 @@ class GPTTrainer:
                                          causal=True)
         return x + attn @ bp["wproj"].to(dt) + bp["bproj"].to(dt)
 
-    def _block(self, x, bp):
+    def _block(self, x, bp, seed=None):
+        """One block; ``seed`` is the layer's SR seed in int8 mode."""
         dt = x.dtype
+        if self.quant8 == "wgrad":
+            leaves = [bp[k] if k.startswith("ln") else bp[k].to(dt)
+                      for k in _BLOCK_KEYS]
+            return _Int8Block.apply(x, seed, self.cfg.num_heads,
+                                    self.remat == "save_main", *leaves)
         x = self._attn_sublayer(x, bp)
         h = layer_norm(x, bp["ln2_g"], bp["ln2_b"])
         a = TF.gelu(h @ bp["win"].to(dt) + bp["bin"].to(dt),
                     approximate="tanh")
         return x + a @ bp["wout"].to(dt) + bp["bout"].to(dt)
 
-    def _forward_loss(self, params, input_ids, labels):
+    def _forward_loss(self, params, input_ids, labels, seed=None):
+        """The step's loss; ``seed`` is the step's SR seed in int8 mode
+        (the reference's default 1 when None)."""
         cfg = self.cfg
         x = self._embed(params["wte"], params["wpe"], input_ids)
-        for key in sorted(params["blocks"]):
-            x = self._block(x, params["blocks"][key])
+        for li, key in enumerate(sorted(params["blocks"])):
+            x = self._block(x, params["blocks"][key], layer_seed(seed, li))
         x = layer_norm(x, params["ln_f_g"], params["ln_f_b"])
         vm = bool(cfg.tie_embeddings)
         head = params["wte"] if vm else params["head"]
@@ -297,14 +436,17 @@ class GPTTrainer:
               for c in (inv_bc1, inv_bc2)),
             torch.as_tensor(lr_mult, dtype=torch.float32,
                             device=self.device).reshape(())])
+        hp = dict(lr=self.lr, wd=self.wd, b1=b1, b2=b2, eps=1e-8,
+                  stoch_round=self._stoch_round, seed=step)
         with torch.no_grad():
             for i, (p, g, m, v) in enumerate(zip(
                     self._leaves, grads, self.opt_state["m"],
                     self.opt_state["v"])):
-                fused_adamw_update(
-                    p, g, m, v, scalars, lr=self.lr, wd=self.wd, b1=b1,
-                    b2=b2, eps=1e-8, stoch_round=self._stoch_round,
-                    leaf_id=i, seed=step)
+                if isinstance(m, tuple):      # int8 moments (moment8)
+                    fused_adamw_update8(p, g, *m, *v, scalars, leaf_id=i,
+                                        **hp)
+                else:
+                    fused_adamw_update(p, g, m, v, scalars, leaf_id=i, **hp)
         self.opt_state["step"] = step
 
     # -- public step -------------------------------------------------------
@@ -315,7 +457,9 @@ class GPTTrainer:
                     for t in (input_ids, labels))
         for p in self._leaves:
             p.grad = None
-        loss = self._forward_loss(self.params, ids, lab)
+        seed = step_seed(self.opt_state["step"]) \
+            if self.quant8 == "wgrad" else None
+        loss = self._forward_loss(self.params, ids, lab, seed)
         loss.backward()
         grads = [p.grad for p in self._leaves]
         for p in self._leaves:

@@ -2,18 +2,26 @@
 
 Counterpart of ``paddle_tpu/ops`` for the kernels ported so far:
 ``flash_attention`` (``pallas_ops.py`` ``_fa_forward``, ``_fa_backward``,
-``_fa_forward_qkvpacked``, ``_fa_backward_hsplit``) and ``fused_adamw``
-(``fused_adamw.py`` ``fused_adamw_update``); ``fused_ce`` is the
-reference's chunked cross-entropy (plain matmuls). ``_build`` compiles
-``csrc/*.cu`` with ``nvcc`` on first use.
+``_fa_forward_qkvpacked``, ``_fa_backward_hsplit``), ``fused_adamw``
+(``fused_adamw.py`` ``fused_adamw_update`` and ``fused_adamw_update8``)
+and ``quant_matmul`` (``quant_matmul.py`` ``_rowq_call``, ``_colq_call``,
+``_sr_colq_pallas`` and the all-int8 linears over ``torch._int_mm``);
+``fused_ce`` is the reference's chunked cross-entropy (plain matmuls).
+``_build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
 """
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_fwd_plain,
                               flash_attention_qkv_fused)
-from .fused_adamw import fused_adamw_update, fused_adamw_update_plain
+from .fused_adamw import (fused_adamw_update, fused_adamw_update8,
+                          fused_adamw_update8_plain, fused_adamw_update_plain)
 from .fused_ce import fused_softmax_cross_entropy
+from .quant_matmul import (int8_gelu_linear_all8, int8_linear_all8,
+                           quantize_cols, quantize_rows, sr_quantize_colwise)
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_qkv_fused", "fused_adamw_update",
-           "fused_adamw_update_plain", "fused_softmax_cross_entropy"]
+           "fused_adamw_update8", "fused_adamw_update8_plain",
+           "fused_adamw_update_plain", "fused_softmax_cross_entropy",
+           "int8_gelu_linear_all8", "int8_linear_all8", "quantize_cols",
+           "quantize_rows", "sr_quantize_colwise"]

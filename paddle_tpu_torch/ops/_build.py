@@ -8,7 +8,8 @@ use into a shared library with a plain C interface:
          -Xcompiler -fPIC -o build/paddle_tpu_torch/lib<name>-<hash>.so
 
 under ``build/paddle_tpu_torch/`` at the checkout root. The file name
-carries a hash of the source and the flags, so an edited kernel is
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel is
 rebuilt and an unchanged one is loaded as it is; each build writes a
 temporary file and renames it into place, so a concurrent loader never
 sees a partial library. ``build(names)`` starts one ``nvcc`` per
@@ -35,7 +36,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw",
+           "fused_adamw8", "quantize")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -57,6 +59,8 @@ def _library(name: str) -> Path:
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

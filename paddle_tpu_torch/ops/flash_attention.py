@@ -39,7 +39,8 @@ from . import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
-           "flash_attention_qkv_fused", "NEG_INF"]
+           "flash_attention_qkv_fused", "flash_qkv_packed_bwd",
+           "flash_qkv_packed_fwd", "NEG_INF"]
 
 NEG_INF = -1e30                      # the reference kernel's mask value
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
@@ -289,6 +290,23 @@ def _unpack(qkv, H: int):
     return qkv.view(B, S, 3, H, HD3 // (3 * H)).unbind(2)
 
 
+def flash_qkv_packed_fwd(qkv, num_heads: int, causal: bool, scale: float):
+    """The packed forward without autograd: ``(out [B, S, H, D], lse [B,
+    H, S])`` off the three strided views of ``qkv [B, S, 3*H*D]``."""
+    return _forward(*_unpack(qkv, num_heads), causal, scale)
+
+
+def flash_qkv_packed_bwd(qkv, out, lse, dout, num_heads: int, causal: bool,
+                         scale: float):
+    """The packed backward: ``dqkv [B, S, 3*H*D]``, dq, dk and dv written
+    into its three views by one backward call."""
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    flash_attention_bwd(*_unpack(qkv, num_heads), out, lse,
+                        dout.reshape(out.shape), causal, scale,
+                        *_unpack(dqkv, num_heads))
+    return dqkv
+
+
 class _FlashQKVPacked(torch.autograd.Function):
     """The reference's ``_flash_qkvpacked`` custom VJP: q, k, v are
     strided views of the projection output, and the backward writes
@@ -296,7 +314,7 @@ class _FlashQKVPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, H, causal, scale):
-        out, lse = _forward(*_unpack(qkv, H), causal, scale)
+        out, lse = flash_qkv_packed_fwd(qkv, H, causal, scale)
         ctx.save_for_backward(qkv, out, lse)
         ctx.H, ctx.causal, ctx.scale = H, causal, scale
         return out.reshape(*qkv.shape[:2], -1)
@@ -304,11 +322,8 @@ class _FlashQKVPacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
-        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        flash_attention_bwd(*_unpack(qkv, ctx.H), out, lse,
-                            dout.reshape(out.shape), ctx.causal, ctx.scale,
-                            *_unpack(dqkv, ctx.H))
-        return dqkv, None, None, None
+        return flash_qkv_packed_bwd(qkv, out, lse, dout, ctx.H, ctx.causal,
+                                    ctx.scale), None, None, None
 
 
 def flash_attention_qkv_fused(qkv, num_heads: int, causal: bool = False,

@@ -18,18 +18,33 @@ bits, and the same f32 operations in the same order as the kernel
 (which rounds each one explicitly), so on the card kernel and plain
 agree bit for bit.
 
-``fused_adamw_update.launches`` counts kernel launches.
+``fused_adamw_update8`` is the int8-moment variant (``fused_adamw.py``
+:203, the Pallas kernel ``_kernel8`` :115; ``csrc/fused_adamw8.cu``):
+m and sqrt(v) stored as int8 codes with per-row f32 scales, dequantized,
+updated as above, then requantized per row with stochastic rounding
+(m codes in [-127, 127], sqrt(v) codes in [0, 127]). Its streams share
+the key above and differ in the counter's third word: 0 for p (so p's
+bits equal ``fused_adamw_update``'s for the same step and leaf), 1 for
+m, 2 for sqrt(v). ``moment8_eligible``, ``moment8_init`` and
+``moment8_unpack`` are the reference's (:173, :182, :192), so the
+leaves with int8 moments and their state are the same in both packages.
+
+``fused_adamw_update.launches`` and ``fused_adamw_update8.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["fused_adamw_update", "fused_adamw_update_plain",
-           "philox_words", "stochastic_round_bf16"]
+__all__ = ["INV127", "fused_adamw_update", "fused_adamw_update8",
+           "fused_adamw_update8_plain", "fused_adamw_update_plain",
+           "moment8_eligible", "moment8_init", "moment8_unpack",
+           "philox_words", "stochastic_round_bf16", "uniform01"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = 0xFFFFFFFF
@@ -48,14 +63,17 @@ def _mulhilo(a: int, b):
     return hi, lo
 
 
-def philox_words(n: int, key: int, device) -> torch.Tensor:
-    """The ``n`` 32-bit words (in int64) that the kernel draws for flat
-    elements ``0..n-1`` under ``key``: Philox4x32-10 with key
-    ``(key, 0)`` and counter ``(e // 4, 0, 0)``, word ``e % 4``."""
+def philox_words(n: int, key: int, device, key_hi: int = 0,
+                 stream: int = 0) -> torch.Tensor:
+    """The ``n`` 32-bit words (in int64) that the kernels draw for flat
+    elements ``0..n-1``: Philox4x32-10 with key ``(key, key_hi)`` and
+    counter ``(e // 4 low, e // 4 high, stream, 0)``, word ``e % 4``
+    (``csrc/philox.cuh``)."""
     grp = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     c0, c1 = grp & _MASK, grp >> 32
-    c2 = c3 = torch.zeros_like(grp)
-    k0, k1 = key & _MASK, 0
+    c2 = torch.full_like(grp, stream & _MASK)
+    c3 = torch.zeros_like(grp)
+    k0, k1 = key & _MASK, key_hi & _MASK
     for r in range(10):
         if r:
             k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
@@ -75,6 +93,18 @@ def stochastic_round_bf16(x: torch.Tensor, words: torch.Tensor
     top = y >> 16
     top = top - ((top >> 15) << 16)          # to the int16 bit pattern
     return top.to(torch.int16).view(torch.bfloat16).reshape(x.shape)
+
+
+# f32(1/127): XLA compiles the reference's per-row and per-column
+# `where(amax == 0, 1, amax) / 127` into a product with it
+INV127 = float(np.float32(1 / 127))
+
+
+def uniform01(words: torch.Tensor) -> torch.Tensor:
+    """The reference kernels' uniform in [0, 1) from 32-bit words (int64):
+    ``bitcast(0x3F800000 | bits >> 9) - 1`` (``csrc/philox.cuh``)."""
+    return ((words >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
 
 
 def _key(seed: int, leaf_id: int) -> int:
@@ -185,3 +215,188 @@ def fused_adamw_update(p, g, m, v, scalars, *, lr: float, wd: float,
 
 
 fused_adamw_update.launches = 0
+
+
+# -- int8 moments ------------------------------------------------------------
+def _tile(n: int, candidates):
+    for c in candidates:
+        if n % c == 0:
+            return c
+    return None
+
+
+def _row_block(R: int, C: int):
+    """The reference's full-row block (``fused_adamw.py:165``)."""
+    for br in (512, 256, 128, 64, 32, 16, 8):
+        if R % br == 0 and br * C <= (1 << 18):
+            return br
+    return None
+
+
+def moment8_eligible(p) -> bool:
+    """The leaves that keep int8 moments, exactly the reference's rule
+    (``fused_adamw_eligible`` :84 and a full-row block that fits
+    ``_row_block``): at least 2-D and 65536 elements, the last dim a
+    multiple of 128 and the rest a multiple of 8. ``p``: a tensor or a
+    shape."""
+    shape = tuple(p.shape) if hasattr(p, "shape") else tuple(p)
+    size = 1
+    for d in shape:
+        size *= d
+    if len(shape) < 2 or size < (1 << 16):
+        return False
+    C = shape[-1]
+    R = size // C
+    return C % 128 == 0 and R % 8 == 0 \
+        and _tile(C, (2048, 1024, 512, 384, 256, 128)) is not None \
+        and _tile(R, (512, 256, 128, 64, 32, 16, 8)) is not None \
+        and _row_block(R, C) is not None
+
+
+def moment8_init(p):
+    """Zero int8-moment state for one eligible leaf: ``(m_q, m_scale,
+    v_q, v_scale)``, ``[R, C]`` int8 and per-row ``[R, 1]`` f32 (1/127),
+    on ``p``'s device."""
+    C = p.shape[-1]
+    R = p.numel() // C
+
+    def zeros():
+        return torch.zeros((R, C), dtype=torch.int8, device=p.device)
+
+    def scale():
+        return torch.full((R, 1), 1.0 / 127.0, dtype=torch.float32,
+                          device=p.device)
+    return zeros(), scale(), zeros(), scale()
+
+
+def moment8_unpack(mq, msc, vq, vsc, shape):
+    """Dequantize int8 moment state to f32 ``(m, v)`` of ``shape``."""
+    m = (mq.float() * msc).reshape(shape)
+    s = (vq.float() * vsc).reshape(shape)
+    return m, (s * s).reshape(shape)
+
+
+def fused_adamw_update8_plain(p, g, mq, msc, vq, vsc, scalars, *,
+                              lr: float, wd: float, b1: float, b2: float,
+                              eps: float = 1e-8, stoch_round: bool = False,
+                              leaf_id: int = 0, seed: int = 0):
+    """The int8-moment kernel's function in plain PyTorch, in place: the
+    same f32 operations in the kernel's order. Returns ``(p, m_q,
+    m_scale, v_q, v_scale)``."""
+    R, C = mq.shape
+    scale, inv_bc1, inv_bc2, lr_mult = scalars.float().unbind()
+    lr_t = lr_mult * lr
+    decay = 1 - lr_t * wd
+    gs = g.float().reshape(R, C) * scale
+    m = mq.float() * msc
+    vsq = vq.float() * vsc
+    v = vsq * vsq
+    m2 = m * b1 + gs * (1 - b1)
+    v2 = v * b2 + gs * (1 - b2) * gs
+    num = m2 * inv_bc1 * lr_t
+    den = torch.sqrt(v2 * inv_bc2) + eps
+    p2 = p.float().reshape(R, C) * decay - num / den
+    key = _key(seed, leaf_id)
+    if stoch_round:
+        p.copy_(stochastic_round_bf16(
+            p2, philox_words(p2.numel(), key, p2.device)).reshape(p.shape))
+    else:
+        p.copy_(p2.reshape(p.shape))
+    s2 = torch.sqrt(v2)
+    for x, q, sc, lo, stream in ((m2, mq, msc, -127, 1),
+                                 (s2, vq, vsc, 0, 2)):
+        amax = (x.abs() if lo else x).amax(dim=1, keepdim=True)
+        new = torch.where(amax == 0, torch.ones_like(amax), amax) \
+            * torch.full_like(amax, INV127)
+        u = uniform01(philox_words(x.numel(), key, x.device,
+                                   stream=stream)).view(R, C)
+        q.copy_(torch.clamp(torch.floor(x / new + u), lo, 127))
+        sc.copy_(new)
+    return p, mq, msc, vq, vsc
+
+
+def _check_cuda8(p, g, mq, msc, vq, vsc, scalars, stoch_round):
+    R, C = mq.shape if mq.dim() == 2 else (0, 0)
+    ok = (p.dtype in _DTYPES and g.dtype in _DTYPES
+          and mq.dtype == vq.dtype == torch.int8
+          and msc.dtype == vsc.dtype == torch.float32
+          and mq.dim() == 2 and vq.shape == mq.shape
+          and msc.shape == vsc.shape == (R, 1)
+          and p.numel() == g.numel() == R * C and p.shape[-1] == C
+          and g.shape == p.shape)
+    if not ok:
+        raise ValueError(
+            f"fused_adamw8 kernel takes float32/bfloat16 p, g of one shape "
+            f"[..., C], int8 codes [R, C] and f32 scales [R, 1]; got p "
+            f"{p.dtype}{tuple(p.shape)}, g {g.dtype}{tuple(g.shape)}, m_q "
+            f"{mq.dtype}{tuple(mq.shape)}, m_scale {msc.dtype}"
+            f"{tuple(msc.shape)}, v_q {vq.dtype}{tuple(vq.shape)}, v_scale "
+            f"{vsc.dtype}{tuple(vsc.shape)}")
+    if C % 4 or C > 28672:
+        raise ValueError(f"fused_adamw8 kernel keeps two f32 rows in "
+                         f"shared memory: C % 4 == 0 and C <= 28672; got "
+                         f"C={C}")
+    if stoch_round and p.dtype != torch.bfloat16:
+        raise ValueError("stochastic rounding writes a bfloat16 p; got "
+                         f"{p.dtype}")
+    for name, t in (("p", p), ("g", g), ("m_q", mq), ("m_scale", msc),
+                    ("v_q", vq), ("v_scale", vsc)):
+        if not t.is_contiguous() or t.device != p.device:
+            raise ValueError(f"fused_adamw8 kernel needs {name} contiguous "
+                             f"on {p.device}")
+    if scalars.dtype != torch.float32 or scalars.numel() != 4 \
+            or scalars.device != p.device or not scalars.is_contiguous():
+        raise ValueError("scalars must be 4 contiguous float32 values on "
+                         "p's device")
+
+
+def _adamw8_cuda(p, g, mq, msc, vq, vsc, scalars, lr, wd, b1, b2, eps,
+                 stoch_round, leaf_id, seed):
+    _check_cuda8(p, g, mq, msc, vq, vsc, scalars, stoch_round)
+    lib = _build.load("fused_adamw8")
+    fn = lib.ptt_fused_adamw8
+    if fn.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 7 + [ctypes.c_longlong, i, i, i] + [f] * 7 \
+            + [ctypes.c_uint, i, vp]
+        fn.restype = i
+        lib.ptt_cuda_error_string.argtypes = [i]
+        lib.ptt_cuda_error_string.restype = ctypes.c_char_p
+    R, C = mq.shape
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = fn(p.data_ptr(), g.data_ptr(), mq.data_ptr(), msc.data_ptr(),
+                 vq.data_ptr(), vsc.data_ptr(), scalars.data_ptr(), R, C,
+                 _DTYPES[p.dtype], _DTYPES[g.dtype], lr, wd, b1, 1 - b1,
+                 b2, 1 - b2, eps, _key(seed, leaf_id), int(stoch_round),
+                 stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_adamw8 kernel launch failed: CUDA error {err} "
+            f"({lib.ptt_cuda_error_string(err).decode()})")
+    fused_adamw_update8.launches += 1
+    return p, mq, msc, vq, vsc
+
+
+def fused_adamw_update8(p, g, mq, msc, vq, vsc, scalars, *, lr: float,
+                        wd: float, b1: float, b2: float, eps: float = 1e-8,
+                        stoch_round: bool = False, leaf_id: int = 0,
+                        seed: int = 0):
+    """One-pass AdamW with int8 moment storage on one leaf, in place;
+    returns ``(p, m_q, m_scale, v_q, v_scale)``. ``mq``/``vq`` ``[R, C]``
+    int8 codes of m and sqrt(v), ``msc``/``vsc`` their ``[R, 1]`` f32
+    scales (``moment8_init``); otherwise as ``fused_adamw_update``. CPU
+    tensors take the plain version, CUDA tensors the kernel."""
+    args = dict(lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
+                stoch_round=stoch_round, leaf_id=leaf_id, seed=seed)
+    tensors = (p, g, mq, msc, vq, vsc, scalars)
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return fused_adamw_update8_plain(*tensors, **args)
+    if devices == {"cuda"}:
+        return _adamw8_cuda(*tensors, **args)
+    raise ValueError(f"fused_adamw_update8 takes tensors all on the CPU or "
+                     f"all on CUDA; got {sorted(devices)}")
+
+
+fused_adamw_update8.launches = 0

@@ -198,9 +198,9 @@ def test_converter_refuses_missed_transpose_and_wrong_names(ref):
 
 
 @pytest.mark.parametrize("kw", [
-    {"quant8": "wgrad"}, {"moment8": True}, {"remat": "save_main"},
+    {"quant8": True}, {"quant8": "dgrad"}, {"remat": "save_qkv_ffn"},
     {"moe_experts": 4}, {"pipeline_schedule": "1f1b"}, {"microbatches": 2},
-    {"ce_int8": True}, {"fuse_gelu_quant": True},
+    {"ce_int8": True}, {"fuse_ln_quant": True},
     {"int8_guard_period": 10}, {"fused_optimizer": False},
     {"layer_unroll": 1}])
 def test_later_slice_options_raise(kw):
