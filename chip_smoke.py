@@ -32,6 +32,13 @@ then exits non-zero and prints no result):
              then the phase fails), and the bound: the larger of bytes
              / 3.35 TB/s and the operations at their peak rates (H100
              SXM data sheet).
+   kernels, rows 10 and 11 — LayerNorm + row quantize and the SR column
+             quantize of LN(x) from its row statistics, bit for bit
+             against their plain versions at the trainer's [6144, 2048]
+             (LN1's and LN2's g and b) and on a constant row and a
+             g = b = 0 column; row 11 under row 12's SR laws; ms beside
+             the bound, the plain version and the unfused pair each
+             replaces.
 4. serve   — Llama ~1.1B at full width (vocab 32000, hidden 2048, FFN
              5504, 16 heads of 128, 16 layers, bf16; random weights
              from seed 0) served by ServingEngine(kv_layout="contiguous",
@@ -61,23 +68,37 @@ then exits non-zero and prints no result):
              weights from seed 0) on one fixed batch of 6 x 1024 tokens
              from numpy.random.RandomState(0) (bench.py's): 2 warm-up
              steps, then 5 counted steps with the launch counts set to
-             0 just before and read just after: per step exactly 24
+             0 just before and read just after, each exactly as
+             expected_launches derives it from the code (per step 24
              flash forward, 24 flash backward, 216 row, 72 column and
              144 SR column quantize, 98 int8-moment AdamW and 194 AdamW
-             launches. Every loss is finite and step 7's is below step
+             launches). Every loss is finite and step 7's is below step
              1's. Step ms, tokens/s, peak device memory.
 8. train-flagship-profile — one step of it under torch.profiler: device
              ms, busy share, top kernels, and device ms by kernel
              family (flash forward and backward, both AdamW kernels,
-             the quantize kernels, int8 and bf16 GEMMs, the rest).
-9. train-check-flagship — the same recipe at 2 layers: one step's loss
-             and every gradient through the kernels against the
-             all-plain route (every quantize wrapper and the packed
-             attention through their plain versions) on the card,
-             within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL.
-10-12. train, train-profile, train-check — the same for the bf16
-             path (no int8, no int8 moments, no remat): 24 flash
-             forward, 24 flash backward and 292 AdamW launches per step.
+             rows 10-11, the other quantize kernels, int8 and bf16
+             GEMMs, the rest).
+9-10. train-flagship-ln, -profile — the same with fuse_ln_quant=True
+             and fuse_bwd_colq=True: per step 168 row, 72 column, 96 SR
+             column quantize, 48 row-10 and 48 row-11 launches; its
+             losses within LN_TRACK_TOL of train-flagship's, step by
+             step.
+11-12. train, train-profile — the bf16 path (no int8, no int8 moments,
+             no remat): 24 flash forward, 24 flash backward and 292
+             AdamW launches per step.
+13. train-guard — the drift guard at full width (quant8="wgrad",
+             moment8, ce_int8, remat off, period 1, threshold 1e-9) for
+             4 steps: it falls "wgrad" -> "dgrad" -> exact, each step's
+             launches asserted (its tier's plus its probe's), ms per
+             step beside the tier.
+14. train-check-* — 2 layers of the trainer: one step's loss and every
+             gradient through the kernels against the all-plain route
+             (every quantize wrapper and the packed attention through
+             their plain versions) on the card, within TRAIN_LOSS_TOL
+             and TRAIN_GRAD_TOL, for the flagship recipe, the bf16 path,
+             fuse_ln_quant with fuse_bwd_colq on and off,
+             fuse_gelu_quant=False, ce_int8, quant8=True and "dgrad".
 
 Then the line {"phase": "profiler", ...} (how many traces came back
 without device time, or short of events, and were taken again), the
@@ -504,16 +525,13 @@ def sr_laws(torch, name, x, q, scale, act) -> dict:
     return {"floor_or_ceil": True, "zero_columns": int(zero.sum())}
 
 
-def sr_unbiased(torch, gen) -> dict:
-    """The SR kernel's mean over SR_UNBIASED_SEEDS seeds equals the
-    input within 4 standard errors: [1024, 256] bf16, gelu fused."""
-    from paddle_tpu_torch.ops.quant_matmul import (_apply_act,
-                                                   sr_quantize_colwise)
-    x = quant_input(torch, 1024, 256, gen, zero_col=False)
-    exact = _apply_act(x.float(), "gelu")
+def sr_unbiased(torch, quantize, exact) -> dict:
+    """An SR quantize's mean over SR_UNBIASED_SEEDS seeds equals the
+    exact values within 4 standard errors; ``quantize(seed)`` returns
+    (codes, scale) of ``exact``."""
     acc = torch.zeros_like(exact, dtype=torch.float64)
     for seed in range(SR_UNBIASED_SEEDS):
-        q, scale = sr_quantize_colwise(x, seed * 7919 + 1, act="gelu")
+        q, scale = quantize(seed * 7919 + 1)
         acc += (q.float() * scale).double()
     mean = acc / SR_UNBIASED_SEEDS
     # one draw's error is uniform within one step (scale): sd <= scale/2
@@ -526,6 +544,15 @@ def sr_unbiased(torch, gen) -> dict:
                              f"errors, mean bias {bias} steps")
     return {"seeds": SR_UNBIASED_SEEDS, "worst_se": worst,
             "mean_bias_steps": bias}
+
+
+def sr_unbiased_gelu(torch, gen) -> dict:
+    """Row 12 unbiased: [1024, 256] bf16, gelu fused."""
+    from paddle_tpu_torch.ops.quant_matmul import (_apply_act,
+                                                   sr_quantize_colwise)
+    x = quant_input(torch, 1024, 256, gen, zero_col=False)
+    return sr_unbiased(torch, lambda seed: sr_quantize_colwise(
+        x, seed, act="gelu"), _apply_act(x.float(), "gelu"))
 
 
 def phase_kernels_quant(torch):
@@ -568,10 +595,118 @@ def phase_kernels_quant(torch):
             del x
         result = {"phase": "kernels", "name": name, "cases": rows}
         if sr:
-            result["unbiased"] = sr_unbiased(torch, gen)
+            result["unbiased"] = sr_unbiased_gelu(torch, gen)
         emit(result)
         out[name] = rows
     return out
+
+
+# rows 10 and 11 at the qkv and ffn1 sites of GPT-1.3B: x is the pre-LN
+# residual stream [M_TOK, D_MODEL] bf16, g and b LN1's or LN2's; and a
+# small case with a constant row (variance 0) and a column with g = b = 0
+LN_CASES = [(M_TOK, D_MODEL, "qkv site: LN1 of the block input", False),
+            (M_TOK, D_MODEL, "ffn1 site: LN2 of the attention residual",
+             False),
+            (256, D_MODEL, "a constant row and a g = b = 0 column", True)]
+# scalar operations per element beyond the quantize's, from
+# csrc/quantize.cu: row 10's two sums (add; subtract, multiply, add) and
+# the affine map (subtract, 2 multiplies, add); row 11's affine map
+LN10_OPS, LN11_OPS = 8, 4
+
+
+def ln_input(torch, R, C, gen, edge: bool):
+    """bf16 pre-LN activations of the trainer's kind (per-row offset and
+    spread), gains near 1 and biases near 0; ``edge``: row 3 constant,
+    column 5 with g = b = 0."""
+    x = (torch.randn(R, C, device="cuda", generator=gen)
+         * (0.5 + 2 * torch.rand(R, 1, device="cuda", generator=gen))
+         + torch.randn(R, 1, device="cuda", generator=gen)).bfloat16()
+    g = 1 + 0.1 * torch.randn(C, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(C, device="cuda", generator=gen)
+    if edge:
+        x[3] = 0.75
+        g[5] = b[5] = 0
+    return x, g, b
+
+
+def phase_kernels_ln(torch):
+    """Kernel rows 10 and 11 against their plain versions bit for bit
+    (codes, scales and row 10's mean and rstd), row 11 under row 12's SR
+    laws on the card, and, at the trainer's shape, device ms of kernel,
+    plain version and the unfused pair each replaces (the port's
+    LayerNorm, then row 8; LayerNorm's output from the statistics, then
+    row 12: what fuse_ln_quant=False / fuse_bwd_colq=False run), beside
+    the bound. No single PyTorch call computes either: library_ms null."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops.layer_norm import ln_apply, ln_fwd
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows10, rows11 = [], []
+    for i, (R, C, what, edge) in enumerate(LN_CASES):
+        x, g, b = ln_input(torch, R, C, gen, edge)
+        got = qm.ln_quantize_rowwise(x, g, b)
+        want = qm.ln_quantize_rowwise_plain(x, g, b)
+        torch.cuda.synchronize()
+        for part, a, w in zip(("codes", "scales", "mean", "rstd"), got, want):
+            if not torch.equal(a, w):
+                raise AssertionError(
+                    f"ln_quantize_rowwise {R}x{C} {what}: kernel {part} "
+                    f"differ from the plain version in "
+                    f"{int((a != w).sum())} of {a.numel()} elements")
+        mean, rstd = want[2], want[3]
+        seed = 2000 + i
+        args11 = (x, mean, rstd, g, b, seed)
+        got11 = qm.sr_quantize_colwise_ln(*args11)
+        check_equal(torch, f"sr_quantize_colwise_ln {R}x{C} {what}", got11,
+                    qm.sr_quantize_colwise_ln_plain(*args11))
+        h = ln_apply(x, mean, rstd, g, b)
+        laws = sr_laws(torch, "sr_quantize_colwise_ln", h, *got11, None)
+        r10 = {"shape": [R, C], "operand": what, "bitwise_equal": True,
+               "max_abs_err": 0.0}
+        r11 = dict(r10, laws=laws)
+        if edge:                 # LN(x) = b on the constant row 3
+            q, sc, m = got[:3]
+            if not (m[3].item() == 0.75 and torch.equal(
+                    q[3].float(), torch.round(b / sc[3]).clamp(-127, 127))
+                    and not q[:, 5].any()):
+                raise AssertionError("ln_quantize_rowwise: the constant "
+                                     "row or the g = b = 0 column is off")
+        else:
+            n = R * C
+            b10 = bound(n * 2 + n + 12 * R + 8 * C, 0,
+                        scalar_ops=n * (RTN_OPS + LN10_OPS))
+            b11 = bound(n * 2 + n + 8 * R + 12 * C, 0,
+                        scalar_ops=n * (SR_OPS + PHILOX_OPS + LN11_OPS))
+            r10.update({
+                "ms": device_ms(torch, lambda: qm.ln_quantize_rowwise(
+                    x, g, b), 10),
+                "plain_ms": device_ms(torch, lambda: qm.
+                                      ln_quantize_rowwise_plain(x, g, b), 2),
+                "unfused_pair_ms": device_ms(torch, lambda: qm.quantize_rows(
+                    ln_fwd(x, g, b)[0]), 10),
+                "library_ms": None, "bound_ms": b10[0], "bound_by": b10[1]})
+            r11.update({
+                "ms": device_ms(torch, lambda: qm.sr_quantize_colwise_ln(
+                    *args11), 10),
+                "plain_ms": device_ms(torch, lambda: qm.
+                                      sr_quantize_colwise_ln_plain(*args11), 2),
+                "unfused_pair_ms": device_ms(
+                    torch, lambda: qm.sr_quantize_colwise(
+                        ln_apply(x, mean, rstd, g, b).to(x.dtype), seed), 10),
+                "library_ms": None, "bound_ms": b11[0], "bound_by": b11[1]})
+        rows10.append(r10)
+        rows11.append(r11)
+        del x, got, want, got11, h
+    x, g, b = ln_input(torch, 1024, 256, gen, False)
+    _, _, mean, rstd = qm.ln_quantize_rowwise(x, g, b)
+    unbiased = sr_unbiased(
+        torch, lambda seed: qm.sr_quantize_colwise_ln(x, mean, rstd, g, b,
+                                                      seed),
+        ln_apply(x, mean, rstd, g, b))
+    emit({"phase": "kernels", "name": "ln_quantize_rowwise",
+          "cases": rows10})
+    emit({"phase": "kernels", "name": "sr_quantize_colwise_ln",
+          "cases": rows11, "unbiased": unbiased})
+    return {"ln_quantize_rowwise": rows10, "sr_quantize_colwise_ln": rows11}
 
 
 def phase_int_mm(torch):
@@ -779,6 +914,8 @@ def kernel_wrappers() -> dict:
             "quantize_rows": qm.quantize_rows,
             "quantize_cols": qm.quantize_cols,
             "sr_quantize_colwise": qm.sr_quantize_colwise,
+            "ln_quantize_rowwise": qm.ln_quantize_rowwise,
+            "sr_quantize_colwise_ln": qm.sr_quantize_colwise_ln,
             "fused_adamw8": fused_adamw_update8}
 
 
@@ -915,17 +1052,42 @@ def gpt_1p3b_config(num_layers: int = 24):
 
 
 FLAGSHIP = dict(quant8="wgrad", moment8=True, remat="save_main")
+# the trainer's recipes by phase: build_flagship's; it with LayerNorm
+# fused into the qkv and ffn1 quantizes (rows 10, 11); the bf16 path;
+# and the drift guard's ladder, walked at a threshold every probe
+# exceeds (remat off: the ladder's lower tiers have no save_main yet)
+RECIPES = {
+    "train-flagship": FLAGSHIP,
+    "train-flagship-ln": dict(FLAGSHIP, fuse_ln_quant=True,
+                              fuse_bwd_colq=True),
+    "train": dict(remat=False),
+    "train-guard": dict(quant8="wgrad", moment8=True, ce_int8=True,
+                        remat=False, int8_guard_period=1,
+                        int8_guard_threshold=1e-9)}
+# 2-layer kernel-vs-plain checks: the recipes above, and the int8 tiers
+# and switches each on its own
+CHECKS = {
+    "train-check-flagship": FLAGSHIP,
+    "train-check": dict(remat=False),
+    "train-check-flagship-ln": RECIPES["train-flagship-ln"],
+    "train-check-flagship-ln-colq-off": dict(FLAGSHIP, fuse_ln_quant=True,
+                                             fuse_bwd_colq=False),
+    "train-check-gelu-unfused": dict(FLAGSHIP, fuse_gelu_quant=False),
+    "train-check-ce-int8": dict(FLAGSHIP, ce_int8=True),
+    "train-check-quant8-true": dict(quant8=True, remat=False),
+    "train-check-quant8-dgrad": dict(quant8="dgrad", remat=False)}
+# train-flagship-ln's losses against train-flagship's, step by step: the
+# fused sites quantize LN(x) in f32 where the unfused round it to bf16
+# first (tests/test_fuse_ln_modes.py holds the modes to the same bar)
+LN_TRACK_TOL = 0.05
 
 
-def gpt_trainer(torch, num_layers: int = 24, flagship: bool = True):
-    """build_flagship's trainer: bf16 masters with SR, bf16 moments, the
-    fused AdamW on every leaf, unchunked CE; lr 3e-4, wd 0.1, betas
-    (0.9, 0.95), clip 1.0. ``flagship``: its whole recipe, int8 matmuls
-    (quant8="wgrad", gelu fused into the ffn2 quantize), int8 moments
-    and remat="save_main"; else the bf16 path (none of the three)."""
+def gpt_trainer(torch, recipe: dict, num_layers: int = 24):
+    """build_flagship's trainer with ``recipe``'s switches: bf16 masters
+    with SR, bf16 moments, the fused AdamW on every leaf, unchunked CE;
+    lr 3e-4, wd 0.1, betas (0.9, 0.95), clip 1.0; weights from seed 0."""
     from paddle_tpu_torch.models.gpt import GPTTrainer
     gen = torch.Generator(device="cuda").manual_seed(0)
-    recipe = FLAGSHIP if flagship else dict(remat=False)
     return GPTTrainer(gpt_1p3b_config(num_layers), microbatches=1,
                       master_dtype="bfloat16", moment_dtype="bfloat16",
                       ce_chunks=1, layer_unroll="full", generator=gen,
@@ -939,21 +1101,60 @@ def train_batch(np):
 
 
 def expected_launches(tr) -> dict:
-    """Kernel launches per training step of ``tr``: one flash forward
-    and backward per layer; in int8 mode 9 row, 3 column and 6 SR column
-    quantizes per layer; one AdamW launch per leaf, int8-moment leaves
-    (moment8) on their own kernel."""
+    """Kernel launches per training step of ``tr`` at its current tier,
+    counted from the code: one flash forward and backward per layer; one
+    AdamW launch per leaf (int8-moment leaves, moment8, on their own
+    kernel); per layer and int8 site (qkv, ffn1, ffn2):
+    - quant8="wgrad": forward a row quantize of the activation (row 10
+      with LayerNorm fused at the qkv / ffn1 site) and a column quantize
+      of w; dgrad row quantizes of g and w; wgrad SR column quantizes of
+      the activation (row 11 at a fused site with fuse_bwd_colq) and g;
+    - "dgrad": forward as above, unfused; dgrad as above; wgrad exact;
+    - True: the forward only.
+    ce_int8 (``ce_chunks`` C): the forward a row quantize of x and, per
+    chunk, the chunk quantized per vocab entry (rows of a tied [V, D]
+    head, columns of a [D, V] one); the backward x again and per chunk
+    that quantize again (logits recomputed), dlg's rows and the chunk
+    quantized per model column (columns of the tied head, rows of the
+    other)."""
     L = tr.cfg.num_layers
-    leaves = 4 + 12 * L
     n8 = sum(isinstance(m, tuple) for m in tr.opt_state["m"])
-    int8 = tr.quant8 == "wgrad"
-    return {"flash_attention_fwd": L, "flash_attention_bwd": L,
-            "fused_adamw": leaves - n8, "quantize_rows": 9 * L * int8,
-            "quantize_cols": 3 * L * int8,
-            "sr_quantize_colwise": 6 * L * int8, "fused_adamw8": n8}
+    n = dict.fromkeys(kernel_wrappers(), 0)
+    n.update(flash_attention_fwd=L, flash_attention_bwd=L,
+             fused_adamw=4 + 12 * L - n8, fused_adamw8=n8)
+    if tr.quant8:
+        fused = sum(tr.fuse_ln_quant in (True, site)
+                    for site in ("qkv", "ffn1")) * (tr.quant8 == "wgrad")
+        n["ln_quantize_rowwise"] = fused * L
+        n["quantize_rows"] = (3 - fused) * L \
+            + 6 * L * (tr.quant8 in ("wgrad", "dgrad"))
+        n["quantize_cols"] = 3 * L
+        if tr.quant8 == "wgrad":
+            colq_ln = fused * tr.fuse_bwd_colq
+            n["sr_quantize_colwise_ln"] = colq_ln * L
+            n["sr_quantize_colwise"] = (6 - colq_ln) * L
+    if tr.ce_int8:
+        C = tr.ce_chunks
+        n["quantize_rows"] += 2 + C * (3 if tr.cfg.tie_embeddings else 2)
+        n["quantize_cols"] += C * (1 if tr.cfg.tie_embeddings else 2)
+    return n
 
 
-def phase_train(torch, np, tr, name: str):
+def guard_probe_launches(quant8) -> dict:
+    """The drift probe's launches (``GPTTrainer._probe``): row quantizes
+    of the cotangent and of wqkv; in "wgrad" mode SR column quantizes of
+    LN1's output and of the cotangent."""
+    n = dict.fromkeys(kernel_wrappers(), 0)
+    n["quantize_rows"] = 2
+    n["sr_quantize_colwise"] = 2 * (quant8 == "wgrad")
+    return n
+
+
+def phase_train(torch, np, tr, name: str, track=None):
+    """2 warm-up and STEPS counted steps at GPT-1.3B: launches exactly
+    as expected, finite losses, the last below the first; ``track``:
+    another recipe's losses on the same batch to stay within
+    LN_TRACK_TOL of, step by step. Returns (launches, losses)."""
     ids, labels = train_batch(np)
     losses = [tr.train_step(ids, labels) for _ in range(WARMUP)]
     torch.cuda.synchronize()
@@ -973,16 +1174,66 @@ def phase_train(torch, np, tr, name: str):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
+    result = {}
+    if track is not None:
+        diff = max(abs(a - b) for a, b in zip(losses, track))
+        if diff > LN_TRACK_TOL:
+            raise AssertionError(f"{name} losses {losses} leave the tracked "
+                                 f"{track} by {diff} > {LN_TRACK_TOL}")
+        result = {"tracked_losses": track, "track_max_abs_diff": diff,
+                  "track_tol": LN_TRACK_TOL}
     tokens = TRAIN_B * TRAIN_T * STEPS
     emit({"phase": name, "params": tr.n_params(), "batch": TRAIN_B,
-          "seq": TRAIN_T, "recipe": {"quant8": tr.quant8,
-                                     "moment8": tr.moment8,
-                                     "remat": tr.remat},
-          "steps": STEPS, "losses": losses,
+          "seq": TRAIN_T, "recipe": RECIPES[name],
+          "steps": STEPS, "losses": losses, **result,
           "step_ms": wall / STEPS * 1e3, "tokens_per_s": tokens / wall,
           "launches_per_step": {k: v / STEPS for k, v in counts.items()},
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return counts
+    return counts, losses
+
+
+GUARD_STEPS = 4
+
+
+def phase_train_guard(torch, np):
+    """The drift guard at GPT-1.3B full width (quant8="wgrad", moment8,
+    ce_int8, remat off), period 1, threshold 1e-9: the guard runs before
+    each step it guards, so step 1 trains at "dgrad" after the "wgrad"
+    probe, step 2 exact after the "dgrad" probe, steps 3-4 exact with
+    only ce_int8's quantizes. Each step's launches are asserted: its
+    tier's (expected_launches) plus its probe's."""
+    tr = gpt_trainer(torch, RECIPES["train-guard"])
+    ids, labels = train_batch(np)
+    steps = []
+    for i in range(GUARD_STEPS):
+        before = tr.quant8
+        probe = guard_probe_launches(before) if before else \
+            dict.fromkeys(kernel_wrappers(), 0)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = float(tr.train_step(ids, labels))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches()
+        want = {k: v + probe[k] for k, v in expected_launches(tr).items()}
+        if counts != want:
+            raise AssertionError(f"train-guard step {i + 1} (tier "
+                                 f"{tr.quant8!r}) launches {counts}, "
+                                 f"expected {want}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"train-guard step {i + 1}: loss {loss}")
+        steps.append({"step": i + 1, "probed_tier": before,
+                      "tier": tr.quant8, "loss": loss, "ms": ms,
+                      "launches": {k: v for k, v in counts.items() if v}})
+    events = [(e["from"], e["to"]) for e in tr.guard_events()]
+    if events != [("wgrad", "dgrad"), ("dgrad", False)]:
+        raise AssertionError(f"train-guard events {tr.guard_events()}")
+    emit({"phase": "train-guard", "recipe": RECIPES["train-guard"],
+          "events": tr.guard_events(), "steps": steps,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del tr
+    torch.cuda.empty_cache()
 
 
 # kernel families of a training step's trace, by name: the port's
@@ -993,6 +1244,9 @@ PROFILE_PARTS = {
     "flash_bwd_ms": ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
     "adamw_ms": ("adamw_kernel<",),
     "adamw8_ms": ("adamw8_kernel",),
+    # rows 10 and 11: the row kernel with LayerNorm, and the column pair
+    # with the LayerNorm prologue (template argument kLn = 2)
+    "ln_quantize_ms": ("rowq_ln_kernel", "_kernel<__nv_bfloat16, 2"),
     "quantize_ms": ("rowq_kernel", "col_amax_kernel", "col_cast_kernel"),
 }
 GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "sm80_")
@@ -1026,13 +1280,14 @@ def phase_train_profile(torch, np, tr, name: str):
 class plain_route:
     """Within the block every kernel of the training step runs its plain
     PyTorch version on the card: the quantize wrappers of
-    ops/quant_matmul.py, and the attention (through
+    ops/quant_matmul.py (and the int8 CE head's), and the attention (through
     flash_attention_fwd_plain under autograd on the bf16 path, and the
     plain packed forward and backward in the int8 block)."""
 
     def __enter__(self):
         import torch
         from paddle_tpu_torch.models import gpt as gpt_mod
+        from paddle_tpu_torch.ops import fused_ce
         from paddle_tpu_torch.ops import quant_matmul as qm
         from paddle_tpu_torch.ops.flash_attention import (
             flash_attention_bwd_plain, flash_attention_fwd_plain)
@@ -1060,7 +1315,13 @@ class plain_route:
                       (qm, "quantize_rows", qm.quantize_rows_plain),
                       (qm, "quantize_cols", qm.quantize_cols_plain),
                       (qm, "sr_quantize_colwise",
-                       qm.sr_quantize_colwise_plain)]
+                       qm.sr_quantize_colwise_plain),
+                      (qm, "ln_quantize_rowwise",
+                       qm.ln_quantize_rowwise_plain),
+                      (qm, "sr_quantize_colwise_ln",
+                       qm.sr_quantize_colwise_ln_plain),
+                      (fused_ce, "quantize_rows", qm.quantize_rows_plain),
+                      (fused_ce, "quantize_cols", qm.quantize_cols_plain)]
         self.saved = [(mod, attr, getattr(mod, attr), new)
                       for mod, attr, new in self.saved]
         for mod, attr, _, new in self.saved:
@@ -1073,38 +1334,40 @@ class plain_route:
         return False
 
 
-def phase_train_check(torch, np, flagship: bool):
-    """2 layers of the trainer: one step's loss and every gradient
-    through the kernels against the all-plain route on the card (the
-    quantize kernels equal their plain versions bit for bit, SR noise
-    included, so the two routes differ only where the attention rounds
-    P and dS to bf16), within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL."""
+def phase_train_check(torch, np, name: str, recipe: dict):
+    """2 layers of the trainer with ``recipe``: one step's loss and every
+    gradient through the kernels against the all-plain route on the card
+    (the quantize kernels equal their plain versions bit for bit, SR
+    noise included, so the two routes differ only where the attention
+    rounds P and dS to bf16), within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL."""
     from paddle_tpu_torch.models.gpt import flatten_params
-    tr = gpt_trainer(torch, num_layers=2, flagship=flagship)
+    tr = gpt_trainer(torch, recipe, num_layers=2)
     ids, labels = train_batch(np)
     loss, grads = tr.loss_and_grads(ids, labels)
     with plain_route():
         ploss, pgrads = tr.loss_and_grads(ids, labels)
     loss_diff = abs(float(loss) - float(ploss))
     worst, worst_name = 0.0, ""
-    for (name, _), a, b in zip(flatten_params(tr.params), grads, pgrads):
+    for (path, _), a, b in zip(flatten_params(tr.params), grads, pgrads):
         if not torch.isfinite(a).all():
-            raise AssertionError(f"non-finite gradient {name}")
+            raise AssertionError(f"{name}: non-finite gradient {path}")
         rel = ((a.float() - b.float()).norm()
                / b.float().norm().clamp_min(1e-30)).item()
         if rel > worst:
-            worst, worst_name = rel, name
+            worst, worst_name = rel, path
     if loss_diff > TRAIN_LOSS_TOL or worst > TRAIN_GRAD_TOL:
         raise AssertionError(
-            f"train-check: loss |diff| {loss_diff} (tol {TRAIN_LOSS_TOL}),"
+            f"{name}: loss |diff| {loss_diff} (tol {TRAIN_LOSS_TOL}),"
             f" worst gradient {worst_name} rel {worst} (tol "
             f"{TRAIN_GRAD_TOL})")
-    emit({"phase": "train-check" + ("-flagship" if flagship else ""),
-          "layers": 2, "loss": float(loss), "plain_loss": float(ploss),
+    emit({"phase": name, "recipe": recipe, "layers": 2,
+          "loss": float(loss), "plain_loss": float(ploss),
           "loss_abs_diff": loss_diff, "worst_grad_rel_diff": worst,
           "worst_grad": worst_name,
           "tolerance": {"loss_abs": TRAIN_LOSS_TOL,
                         "grad_rel_norm": TRAIN_GRAD_TOL}})
+    del tr, grads, pgrads
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1134,6 +1397,7 @@ def main() -> int:
     bwd_rows = phase_kernels_bwd(torch, F)
     adamw_rows = phase_kernels_adamw(torch)
     quant_rows = phase_kernels_quant(torch)
+    quant_rows.update(phase_kernels_ln(torch))
     phase_int_mm(torch)
     adamw8_rows = phase_kernels_adamw8(torch)
 
@@ -1147,19 +1411,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {"serve": serve_launches}
-    for flagship, path in ((True, "train-flagship"), (False, "train")):
-        tr = gpt_trainer(torch, flagship=flagship)
-        launches[path] = phase_train(torch, np, tr, path)
+    losses = {}
+    for path in ("train-flagship", "train-flagship-ln", "train"):
+        tr = gpt_trainer(torch, RECIPES[path])
+        launches[path], losses[path] = phase_train(
+            torch, np, tr, path, track=losses.get("train-flagship")
+            if path == "train-flagship-ln" else None)
         phase_train_profile(torch, np, tr, path + "-profile")
         del tr
         torch.cuda.empty_cache()
-        phase_train_check(torch, np, flagship)
+    phase_train_guard(torch, np)
+    for name, recipe in CHECKS.items():
+        phase_train_check(torch, np, name, recipe)
 
-    def entry(kernel, source, replaces, rows, main):
+    def entry(kernel, source, replaces, rows, main, path="train-flagship"):
         return {"name": kernel, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": launches["train-flagship"][kernel],
+                "launches": launches[path][kernel],
+                "launches_from": path,
                 "launches_by_path": {p: counts.get(kernel, 0)
                                      for p, counts in launches.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1188,6 +1458,14 @@ def main() -> int:
         entry("quantize_cols", "quantize.cu",
               "paddle_tpu/ops/quant_matmul.py:129", quant_rows[
                   "quantize_cols"], largest(quant_rows["quantize_cols"])),
+        entry("ln_quantize_rowwise", "quantize.cu",
+              "paddle_tpu/ops/quant_matmul.py:215",
+              quant_rows["ln_quantize_rowwise"],
+              quant_rows["ln_quantize_rowwise"][0], "train-flagship-ln"),
+        entry("sr_quantize_colwise_ln", "quantize.cu",
+              "paddle_tpu/ops/quant_matmul.py:296",
+              quant_rows["sr_quantize_colwise_ln"],
+              quant_rows["sr_quantize_colwise_ln"][0], "train-flagship-ln"),
         entry("sr_quantize_colwise", "quantize.cu",
               "paddle_tpu/ops/quant_matmul.py:447",
               quant_rows["sr_quantize_colwise"],

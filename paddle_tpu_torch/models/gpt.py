@@ -1,10 +1,11 @@
 """GPT pretraining step on one device.
 
-Counterpart of ``paddle_tpu/models/gpt.py``: ``GPTConfig`` (:82),
-``_layer_norm`` (:1530) and ``GPTTrainer``, the one-device form of
+Counterpart of ``paddle_tpu/models/gpt.py``: ``GPTConfig`` (:82) and
+``GPTTrainer``, the one-device form of
 ``GPTSpmdTrainer`` (:345) at ``layer_unroll="full"`` with no mesh. The
 step is the reference's: token + position embedding, pre-LN blocks
-(LayerNorm with f32 statistics, the fused qkv projection, causal flash
+(LayerNorm with f32 statistics from ``ops/layer_norm.py``, the fused
+qkv projection, causal flash
 attention straight off the packed ``[B, T, 3*H*D]`` projection, the
 output projection, a tanh-gelu FFN), a final LayerNorm, the fused
 vocab-chunked cross-entropy against the tied embedding, then AdamW:
@@ -19,33 +20,51 @@ Parameters keep the reference's pytree: a dict with ``wte [V, D]``,
 keys at every level, ``gpt.py:1314-1319``), so both draw the same SR
 streams per (step, leaf).
 
-The flagship recipe of ``bench.py:build_flagship`` is ported as well:
+The int8 switches of the reference trainer are ported:
 
-- ``quant8="wgrad"``: the qkv (site 1), ffn1 (site 2) and ffn2 (site
-  3, ``int8_gelu_linear_all8`` on the pre-gelu ``ffn1_out``: the gelu
-  runs inside the quantize kernels, ``fuse_gelu_quant``) products take
-  int8 in the forward, the dgrad and the wgrad (``ops/quant_matmul.py``,
-  ``_mm`` :775); ``wproj`` and the CE head stay bf16 matmuls. Seeds:
-  ``(step + 1) * 40503`` per step (``step`` before the update,
-  :1378), ``+ 16 * layer`` per layer (:996), ``* 8 + site`` per site,
-  int32-wrapped as the reference's ``jnp.int32`` arithmetic.
+- ``quant8="wgrad"`` (``bench.py:build_flagship``): the qkv (site 1),
+  ffn1 (site 2) and ffn2 (site 3) products take int8 in the forward, the
+  dgrad and the wgrad (``ops/quant_matmul.py``, ``_mm`` :775); ``wproj``
+  and the CE head stay bf16 matmuls. Seeds: ``(step + 1) * 40503`` per
+  step (``step`` before the update, :1378), ``+ 16 * layer`` per layer
+  (:996), ``* 8 + site`` per site, int32-wrapped as the reference's
+  ``jnp.int32`` arithmetic. By default the ffn2 site takes gelu inside
+  its quantize kernels (``fuse_gelu_quant``; ``False`` runs gelu in the
+  compute dtype and ``int8_linear_all8``, :859-866).
+  ``fuse_ln_quant`` (``True``, ``"qkv"``, ``"ffn1"``; :586-610) fuses
+  LayerNorm into the qkv and/or ffn1 sites' quantize
+  (``int8_ln_linear_all8``: kernel row 10 in the forward, and with
+  ``fuse_bwd_colq`` row 11 in the wgrad).
+- ``quant8=True`` (``int8_linear``: int8 forward, exact backward) and
+  ``quant8="dgrad"`` (``int8_linear_dgrad8``: int8 dgrad as well) on
+  the three sites of the autograd block.
+- ``ce_int8``: the CE head's logits and ``dx`` as int8 products
+  (``ops/fused_ce.py``), on any tier.
+- The drift guard (``int8_guard_period``, ``int8_guard_threshold``,
+  :1412-1490): before every ``period``-th step a probe measures the
+  relative error of layer 0's int8 qkv dgrad (and wgrad in "wgrad"
+  mode) on the batch; above the threshold ``quant8`` falls one tier
+  ("wgrad" -> "dgrad" -> exact, True -> exact) for that step and the
+  rest, logged in ``guard_events()``.
 - ``moment8=True``: the leaves ``moment8_eligible`` picks keep m and
   sqrt(v) as int8 codes with per-row scales (``(q, scale)`` pairs in
   ``opt_state``, :641) and take the int8-moment AdamW kernel; the
   others keep ``moment_dtype`` moments and the AdamW kernel (:1322).
-- ``remat="save_main"`` (:1021): per layer the backward keeps the block
-  input, ``qkv_out``, the flash out and lse, and ``ffn1_out``, and
-  recomputes LayerNorm 1, the ``wproj`` product with its residual add
-  and LayerNorm 2. It never runs the flash forward, the qkv or ffn1
-  products or their quantize kernels again.
+- ``remat="save_main"`` (:1021) with ``quant8="wgrad"``: per layer the
+  backward keeps the block input, ``qkv_out``, the flash out and lse,
+  and ``ffn1_out`` (and a fused site's row statistics), and recomputes
+  LayerNorm 1, the ``wproj`` product with its residual add and
+  LayerNorm 2 (where not fused). It never runs the flash forward, the
+  qkv or ffn1 products or their quantize kernels again.
 
 The int8 block is one ``torch.autograd.Function`` with an explicit
-backward (``_Int8Block``), so the remat recompute is exactly the three
-cheap ops above: with remat off it saves those three results instead.
+backward (``_Int8Block``), so the remat recompute is exactly the cheap
+ops above: with remat off it saves those results instead.
 
 On a CPU device every kernel runs its plain version. Arguments this
-slice does not port raise ``NotImplementedError`` naming the slice that
-brings them.
+slice does not port (the other remat policies, ``save_main`` off
+``quant8="wgrad"`` and so the guard under it, MoE, pipelines) raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -63,9 +82,13 @@ from ..ops.flash_attention import (flash_attention_qkv_fused,
 from ..ops.fused_adamw import (fused_adamw_update, fused_adamw_update8,
                                moment8_eligible, moment8_init)
 from ..ops.fused_ce import fused_softmax_cross_entropy
-from ..ops.quant_matmul import (int8_gelu_linear_all8_bwd,
-                                int8_linear_all8_bwd, int8_matmul,
-                                layer_seed, site_seed, step_seed)
+from ..ops.layer_norm import layer_norm, ln_bwd, ln_fwd
+from ..ops.quant_matmul import (int8_dgrad, int8_dot_dequant,
+                                int8_gelu_linear_all8_bwd, int8_linear,
+                                int8_linear_all8_bwd, int8_linear_dgrad8,
+                                int8_ln_linear_all8_bwd, int8_ln_matmul,
+                                int8_matmul, layer_seed, site_seed,
+                                sr_quantize_colwise, step_seed)
 
 __all__ = ["GPTConfig", "GPTTrainer", "block_shapes", "flatten_params",
            "layer_norm", "top_shapes"]
@@ -125,50 +148,6 @@ def flatten_params(params) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
-class _LayerNorm(torch.autograd.Function):
-    """The reference's ``_layer_norm`` (f32 statistics, ``(xhat * g +
-    b)`` rounded to x's dtype) with an explicit backward that saves
-    only x and the per-row mean and rstd: autograd of the plain
-    formula would keep three f32 copies of x per call."""
-
-    @staticmethod
-    def forward(ctx, x, g, b, eps):
-        y, mean, rstd = _ln_fwd(x, g, b, eps)
-        ctx.save_for_backward(x, g, mean, rstd)
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        return (*_ln_bwd(*ctx.saved_tensors, dy), None)
-
-
-def _ln_fwd(x, g, b, eps: float = 1e-5):
-    """LayerNorm's output and its per-row f32 mean and rstd."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = xf.var(-1, unbiased=False, keepdim=True)
-    rstd = torch.rsqrt(var + eps)
-    return ((xf - mean) * rstd * g + b).to(x.dtype), mean, rstd
-
-
-def _ln_bwd(x, g, mean, rstd, dy):
-    """LayerNorm's ``(dx, dg, db)`` from x and the saved row statistics."""
-    xhat = (x.float() - mean) * rstd
-    dyf = dy.float()
-    lead = tuple(range(x.dim() - 1))
-    dg = (dyf * xhat).sum(lead)
-    db = dyf.sum(lead)
-    dxhat = dyf * g.float()
-    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return dx.to(x.dtype), dg.to(g.dtype), db.to(g.dtype)
-
-
-def layer_norm(x, g, b, eps: float = 1e-5):
-    """LayerNorm over the last dim with f32 statistics (``gpt.py:1530``)."""
-    return _LayerNorm.apply(x, g, b, eps)
-
-
 # leaves of one block in the order _Int8Block takes them
 _BLOCK_KEYS = ("ln1_g", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "ln2_g",
                "ln2_b", "win", "bin", "wout", "bout")
@@ -179,74 +158,144 @@ def _sum_lead(t):
     return t.sum(tuple(range(t.dim() - 1)))
 
 
+@dataclasses.dataclass(frozen=True)
+class _BlockOpts:
+    """What one ``_Int8Block`` fuses and keeps: LayerNorm into the qkv
+    (site 1) and ffn1 (site 2) quantizes (``fuse_ln_quant``), row 11 in
+    their wgrad (``fuse_bwd_colq``), gelu into the ffn2 quantize
+    (``fuse_gelu_quant``), and the ``save_main`` policy."""
+    fuse_qkv: bool
+    fuse_ffn1: bool
+    fuse_bwd_colq: bool
+    fuse_gelu: bool
+    save_main: bool
+
+
 class _Int8Block(torch.autograd.Function):
     """One pre-LN block of the ``quant8="wgrad"`` recipe (``_block``
-    :819 with ``fuse_gelu_quant``) with an explicit backward.
+    :819) with an explicit backward.
 
     Forward: LN1, qkv = int8(h1 @ wqkv) + bqkv, packed flash attention
     (out, lse), xm = x + attn @ wproj + bproj, LN2, a = int8(h2 @ win) +
-    bin (``ffn1_out``), y = xm + int8(gelu(a) @ wout) + bout. It saves
-    the block input, qkv, out, lse and a; with ``save_main`` that is all
-    (the reference's policy, :1021), without it also h1, xm, h2 and the
-    two LayerNorms' row statistics. The backward recomputes what was not
-    saved (LN1, the wproj product with its residual add, LN2), then runs
-    the int8 backward of each site, the flash backward and the
-    LayerNorm backwards. ``seed`` is the layer's int seed."""
+    bin (``ffn1_out``), y = xm + int8(gelu(a) @ wout) + bout. A site with
+    LayerNorm fused (``int8_ln_linear_all8``) runs LN and its quantize
+    as kernel row 10 and keeps the rows' mean and rstd ([M, 1] f32, 24 KB
+    at GPT-1.3B) in place of h; the ffn2 site takes gelu inside its
+    quantizes (``int8_gelu_linear_all8``), or with ``fuse_gelu=False``
+    gelu(a) in x's dtype and ``int8_linear_all8`` (:859-866).
+
+    Saved: the block input, qkv, out, lse, a and the fused sites' row
+    statistics; with ``save_main`` that is all (the reference's policy,
+    :1021), without it also xm, an unfused site's LN output and
+    statistics, and gelu(a) when it is not fused. The backward
+    recomputes what was not saved (the wproj product with its residual
+    add, an unfused site's LN, gelu(a)), then runs each site's int8
+    backward, the flash backward and the LayerNorm backwards. ``seed``
+    is the layer's int seed."""
 
     @staticmethod
-    def forward(ctx, x, seed, num_heads, save_main, *leaves):
+    def forward(ctx, x, seed, num_heads, opts, *leaves):
         w = dict(zip(_BLOCK_KEYS, leaves))
-        h1, mean1, rstd1 = _ln_fwd(x, w["ln1_g"], w["ln1_b"])
-        qkv = int8_matmul(h1, w["wqkv"]) + w["bqkv"]
+        keep = {}
+        if opts.fuse_qkv:
+            qkv, keep["mean1"], keep["rstd1"] = int8_ln_matmul(
+                x, w["ln1_g"], w["ln1_b"], w["wqkv"])
+        else:
+            h1, mean1, rstd1 = ln_fwd(x, w["ln1_g"], w["ln1_b"])
+            qkv = int8_matmul(h1, w["wqkv"])
+            if not opts.save_main:
+                keep.update(h1=h1, mean1=mean1, rstd1=rstd1)
+        qkv = qkv + w["bqkv"]
         scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * num_heads))
         out, lse = flash_qkv_packed_fwd(qkv, num_heads, True, scale)
         xm = x + out.reshape(x.shape[:-1] + (-1,)) @ w["wproj"] \
             + w["bproj"]
-        h2, mean2, rstd2 = _ln_fwd(xm, w["ln2_g"], w["ln2_b"])
-        a = int8_matmul(h2, w["win"]) + w["bin"]
-        y = xm + int8_matmul(a, w["wout"], "gelu") + w["bout"]
-        kept = () if save_main else (h1, mean1, rstd1, xm, h2, mean2, rstd2)
-        ctx.save_for_backward(x, qkv, out, lse, a, *kept, *leaves)
+        if not opts.save_main:
+            keep["xm"] = xm
+        if opts.fuse_ffn1:
+            a, keep["mean2"], keep["rstd2"] = int8_ln_matmul(
+                xm, w["ln2_g"], w["ln2_b"], w["win"])
+        else:
+            h2, mean2, rstd2 = ln_fwd(xm, w["ln2_g"], w["ln2_b"])
+            a = int8_matmul(h2, w["win"])
+            if not opts.save_main:
+                keep.update(h2=h2, mean2=mean2, rstd2=rstd2)
+        a = a + w["bin"]
+        if opts.fuse_gelu:
+            o = int8_matmul(a, w["wout"], "gelu")
+        else:
+            act = TF.gelu(a, approximate="tanh")
+            o = int8_matmul(act, w["wout"])
+            if not opts.save_main:
+                keep["act"] = act
+        y = xm + o + w["bout"]
+        keep.update(x=x, qkv=qkv, out=out, lse=lse, a=a)
+        ctx.names = tuple(keep)
+        ctx.save_for_backward(*keep.values(), *leaves)
         ctx.seed, ctx.num_heads, ctx.scale = seed, num_heads, scale
-        ctx.save_main = save_main
+        ctx.opts = opts
         return y
 
     @staticmethod
     def backward(ctx, dy):
         saved = ctx.saved_tensors
-        x, qkv, out, lse, a = saved[:5]
-        w = dict(zip(_BLOCK_KEYS, saved[-len(_BLOCK_KEYS):]))
-        attn = out.reshape(x.shape[:-1] + (-1,))
-        if ctx.save_main:
-            h1, mean1, rstd1 = _ln_fwd(x, w["ln1_g"], w["ln1_b"])
-            xm = x + attn @ w["wproj"] + w["bproj"]
-            h2, mean2, rstd2 = _ln_fwd(xm, w["ln2_g"], w["ln2_b"])
-        else:
-            h1, mean1, rstd1, xm, h2, mean2, rstd2 = saved[5:12]
+        t = dict(zip(ctx.names, saved))
+        w = dict(zip(_BLOCK_KEYS, saved[len(ctx.names):]))
+        opts = ctx.opts
+        x, qkv, a = t["x"], t["qkv"], t["a"]
+        attn = t["out"].reshape(x.shape[:-1] + (-1,))
+        if opts.save_main:           # recompute what the policy drops
+            t["xm"] = x + attn @ w["wproj"] + w["bproj"]
+            for k, xin, fused in (("1", x, opts.fuse_qkv),
+                                  ("2", t["xm"], opts.fuse_ffn1)):
+                if not fused:
+                    t["h" + k], t["mean" + k], t["rstd" + k] = ln_fwd(
+                        xin, w[f"ln{k}_g"], w[f"ln{k}_b"])
+            if not opts.fuse_gelu:
+                t["act"] = TF.gelu(a, approximate="tanh")
+        xm = t["xm"]
         s1, s2, s3 = (site_seed(ctx.seed, k) for k in (1, 2, 3))
         g = {"bout": _sum_lead(dy)}
-        da, g["wout"] = int8_gelu_linear_all8_bwd(a, w["wout"], s3, dy)
+        if opts.fuse_gelu:
+            da, g["wout"] = int8_gelu_linear_all8_bwd(a, w["wout"], s3, dy)
+        else:
+            dact, g["wout"] = int8_linear_all8_bwd(t["act"], w["wout"], s3,
+                                                   dy)
+            da = torch.ops.aten.gelu_backward(dact, a, approximate="tanh")
         g["bin"] = _sum_lead(da)
-        dh2, g["win"] = int8_linear_all8_bwd(h2, w["win"], s2, da)
-        dxm, g["ln2_g"], g["ln2_b"] = _ln_bwd(xm, w["ln2_g"], mean2, rstd2,
-                                              dh2)
+
+        def ln_site(k, xin, wname, seed, dout):
+            """(dx, dg, db, dw) of LN{k} and the int8 product after it."""
+            gk, bk = w[f"ln{k}_g"], w[f"ln{k}_b"]
+            if "h" + k not in t:             # LayerNorm fused (row 10)
+                return int8_ln_linear_all8_bwd(
+                    xin, gk, bk, w[wname], seed, t["mean" + k],
+                    t["rstd" + k], dout, opts.fuse_bwd_colq)
+            dh, dw = int8_linear_all8_bwd(t["h" + k], w[wname], seed, dout)
+            return (*ln_bwd(xin, gk, t["mean" + k], t["rstd" + k], dh), dw)
+        dxm, g["ln2_g"], g["ln2_b"], g["win"] = ln_site("2", xm, "win", s2,
+                                                        da)
         dxm = dy + dxm
         g["bproj"] = _sum_lead(dxm)
         D = dxm.shape[-1]
         g["wproj"] = attn.reshape(-1, attn.shape[-1]).t() \
             @ dxm.reshape(-1, D)
-        dqkv = flash_qkv_packed_bwd(qkv, out, lse, dxm @ w["wproj"].t(),
-                                    ctx.num_heads, True, ctx.scale)
+        dqkv = flash_qkv_packed_bwd(qkv, t["out"], t["lse"],
+                                    dxm @ w["wproj"].t(), ctx.num_heads,
+                                    True, ctx.scale)
         g["bqkv"] = _sum_lead(dqkv)
-        dh1, g["wqkv"] = int8_linear_all8_bwd(h1, w["wqkv"], s1, dqkv)
-        dx, g["ln1_g"], g["ln1_b"] = _ln_bwd(x, w["ln1_g"], mean1, rstd1,
-                                             dh1)
+        dx, g["ln1_g"], g["ln1_b"], g["wqkv"] = ln_site("1", x, "wqkv", s1,
+                                                        dqkv)
         return (dxm + dx, None, None, None, *(g[k] for k in _BLOCK_KEYS))
 
 
 def _not_ported(what: str, slice_: str):
     raise NotImplementedError(
         f"GPTTrainer: {what} is not in this slice of the port ({slice_})")
+
+
+_REMAT_SLICE = "the remat slice, ROADMAP Queue 1"
+_QUANT8 = (False, True, "dgrad", "wgrad")
 
 
 class GPTTrainer:
@@ -258,11 +307,13 @@ class GPTTrainer:
     ``master_dtype=bfloat16`` stores the masters at compute precision
     and updates them with stochastic rounding (the flagship recipe);
     float32 masters are cast to ``cfg.dtype`` inside the step and take
-    f32 gradients and exact updates. ``quant8="wgrad"``, ``moment8``
-    and ``remat="save_main"`` are the flagship's int8 matmuls, int8
-    moments and selective remat (see the module docstring). ``params``
-    (a dict in the reference's layout, e.g. from ``models.convert``)
-    replaces the random initialisation."""
+    f32 gradients and exact updates. ``quant8`` (the int8 tiers),
+    ``fuse_gelu_quant``, ``fuse_ln_quant``, ``fuse_bwd_colq``,
+    ``ce_int8``, ``moment8``, ``remat="save_main"`` and the drift guard
+    (``int8_guard_period``, ``int8_guard_threshold``) are the
+    reference's switches (see the module docstring). ``params`` (a dict
+    in the reference's layout, e.g. from ``models.convert``) replaces
+    the random initialisation."""
 
     def __init__(self, cfg: GPTConfig, microbatches: Optional[int] = 1,
                  learning_rate: float = 3e-4, weight_decay: float = 0.1,
@@ -276,45 +327,66 @@ class GPTTrainer:
                  ce_int8: bool = False, fuse_gelu_quant: Any = None,
                  fuse_ln_quant: Any = None, fuse_bwd_colq: Any = None,
                  lr_schedule: Optional[Callable[[float], Any]] = None,
-                 int8_guard_period: int = 0, device=None,
+                 int8_guard_period: int = 0,
+                 int8_guard_threshold: float = 0.10, device=None,
                  params: Optional[Dict[str, Any]] = None,
                  generator: Optional[torch.Generator] = None):
-        if quant8 and quant8 != "wgrad":
-            _not_ported(f"quant8={quant8!r}", "a later trainer slice; "
-                        "quant8='wgrad' is ported")
+        if not isinstance(quant8, str):
+            quant8 = bool(quant8)
+        if quant8 not in _QUANT8:
+            raise ValueError(f"quant8 must be False, True, 'dgrad' or "
+                             f"'wgrad'; got {quant8!r}")
         if remat and remat != "save_main":
-            _not_ported(f"remat={remat!r}", "a later trainer slice; "
+            _not_ported(f"remat={remat!r}", _REMAT_SLICE + "; "
                         "remat='save_main' is ported")
         if remat and quant8 != "wgrad":
-            _not_ported("remat='save_main' without quant8='wgrad'",
-                        "a later trainer slice")
-        if int8_guard_period:
-            _not_ported("int8_guard_period", "a later trainer slice")
+            _not_ported("remat='save_main' off quant8='wgrad'",
+                        _REMAT_SLICE)
+        if remat and int8_guard_period:
+            _not_ported("the int8 drift guard under remat='save_main' (its "
+                        "ladder falls to quant8='dgrad')", _REMAT_SLICE)
+        # the reference's checks (gpt.py:555-610), in its order
         if fuse_gelu_quant and quant8 != "wgrad":
             raise ValueError(
                 "fuse_gelu_quant rides the all-int8 recipe: it needs "
                 "quant8='wgrad'")
-        if quant8 == "wgrad" and fuse_gelu_quant is False:
-            _not_ported("quant8='wgrad' with fuse_gelu_quant=False",
-                        "a later trainer slice; the ffn2 site fuses gelu")
-        if ce_int8 or fuse_ln_quant or fuse_bwd_colq:
-            _not_ported("ce_int8, fuse_ln_quant and fuse_bwd_colq",
-                        "a later trainer slice (kernel rows 10 and 11)")
+        if fuse_gelu_quant is None:
+            fuse_gelu_quant = quant8 == "wgrad"
+        if fuse_ln_quant and quant8 != "wgrad":
+            raise ValueError(
+                "fuse_ln_quant rides the all-int8 recipe: it needs "
+                "quant8='wgrad' (the fused op quantizes both the fwd row "
+                "and the wgrad SR column streams)")
+        if fuse_ln_quant is None:
+            fuse_ln_quant = False
+        if fuse_ln_quant not in (True, False, "qkv", "ffn1"):
+            raise ValueError(f"fuse_ln_quant must be True/False/'qkv'/"
+                             f"'ffn1', got {fuse_ln_quant!r}")
         if moe_experts:
-            _not_ported("moe_experts", "MoE slice")
+            _not_ported("moe_experts", "the multi-GPU training slice")
         if pipeline_schedule != "gpipe" or microbatches not in (None, 1):
             _not_ported("pipeline schedules and microbatches",
-                        "multi-GPU training slice")
+                        "the multi-GPU training slice")
         if not fused_optimizer:
-            _not_ported("the unfused optimizer", "this slice runs the "
-                        "fused AdamW kernel on every leaf")
+            _not_ported("the unfused optimizer", "no slice brings it: the "
+                        "port runs the fused AdamW kernel on every leaf")
         if layer_unroll != "full":
-            _not_ported(f"layer_unroll={layer_unroll!r}",
-                        "the port keeps per-layer parameters only")
+            _not_ported(f"layer_unroll={layer_unroll!r}", "no slice brings "
+                        "it: the port keeps per-layer parameters only")
         if cfg.dropout:
-            _not_ported("dropout", "the reference trainer has none")
+            _not_ported("dropout", "no slice brings it: the reference "
+                        "trainer has none")
         self.cfg = cfg
         self.quant8, self.remat, self.moment8 = quant8, remat, bool(moment8)
+        self.ce_int8 = bool(ce_int8)
+        self.fuse_gelu_quant = bool(fuse_gelu_quant)
+        self.fuse_ln_quant = fuse_ln_quant
+        # None: the reference's default, its PTPU_FUSE_BWD_COLQ unset
+        self.fuse_bwd_colq = bool(fuse_bwd_colq)
+        self.int8_guard_period = int(int8_guard_period)
+        self.int8_guard_threshold = float(int8_guard_threshold)
+        self._guard_events: List[Dict[str, Any]] = []
+        self._host_step = 0
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(cfg.dtype)
         self.master_dtype = resolve_dtype(master_dtype)
@@ -377,16 +449,34 @@ class GPTTrainer:
         return TF.embedding(input_ids, wte.to(self.dtype)) + \
             wpe.to(self.dtype)[:T][None]
 
+    def _mm(self, a, w):
+        """One block product on the autograd path (``_mm`` :775) at the
+        quant8 tiers below "wgrad": int8 forward with an exact backward
+        (True), int8 dgrad as well ("dgrad"), or a plain matmul."""
+        if self.quant8 == "dgrad":
+            return int8_linear_dgrad8(a, w)
+        if self.quant8:
+            return int8_linear(a, w)
+        return a @ w
+
     def _attn_sublayer(self, x, bp):
         """ln1 + qkv + attention + proj + residual on ``[B, T, D]``,
         attention straight off the packed projection (the reference's
         hsplit path)."""
         dt = x.dtype
         h = layer_norm(x, bp["ln1_g"], bp["ln1_b"])
-        qkv = h @ bp["wqkv"].to(dt) + bp["bqkv"].to(dt)
+        qkv = self._mm(h, bp["wqkv"].to(dt)) + bp["bqkv"].to(dt)
         attn = flash_attention_qkv_fused(qkv, self.cfg.num_heads,
                                          causal=True)
         return x + attn @ bp["wproj"].to(dt) + bp["bproj"].to(dt)
+
+    def _block_opts(self) -> _BlockOpts:
+        f = self.fuse_ln_quant
+        return _BlockOpts(fuse_qkv=f in (True, "qkv"),
+                          fuse_ffn1=f in (True, "ffn1"),
+                          fuse_bwd_colq=self.fuse_bwd_colq,
+                          fuse_gelu=self.fuse_gelu_quant,
+                          save_main=self.remat == "save_main")
 
     def _block(self, x, bp, seed=None):
         """One block; ``seed`` is the layer's SR seed in int8 mode."""
@@ -395,12 +485,12 @@ class GPTTrainer:
             leaves = [bp[k] if k.startswith("ln") else bp[k].to(dt)
                       for k in _BLOCK_KEYS]
             return _Int8Block.apply(x, seed, self.cfg.num_heads,
-                                    self.remat == "save_main", *leaves)
+                                    self._block_opts(), *leaves)
         x = self._attn_sublayer(x, bp)
         h = layer_norm(x, bp["ln2_g"], bp["ln2_b"])
-        a = TF.gelu(h @ bp["win"].to(dt) + bp["bin"].to(dt),
+        a = TF.gelu(self._mm(h, bp["win"].to(dt)) + bp["bin"].to(dt),
                     approximate="tanh")
-        return x + a @ bp["wout"].to(dt) + bp["bout"].to(dt)
+        return x + self._mm(a, bp["wout"].to(dt)) + bp["bout"].to(dt)
 
     def _forward_loss(self, params, input_ids, labels, seed=None):
         """The step's loss; ``seed`` is the step's SR seed in int8 mode
@@ -414,7 +504,7 @@ class GPTTrainer:
         head = params["wte"] if vm else params["head"]
         return fused_softmax_cross_entropy(
             x, head.to(self.dtype), labels, n_chunks=self.ce_chunks,
-            vocab_major=vm)
+            int8=self.ce_int8, vocab_major=vm)
 
     # -- optimizer ---------------------------------------------------------
     def _adamw(self, grads: List[torch.Tensor]) -> None:
@@ -466,11 +556,67 @@ class GPTTrainer:
             p.grad = None
         return loss.detach(), grads
 
+    # -- the int8 drift guard --------------------------------------------
+    def _probe(self, input_ids) -> float:
+        """The drift probe (``_build_guard`` :1412): the relative error of
+        the int8 dgrad of layer 0's qkv product, with the current
+        weights, the batch's LN1 output and a Gaussian cotangent; in
+        "wgrad" mode the larger of that and the SR int8 wgrad's (seeds
+        ``step`` and ``step + 1``). The cotangent comes from a
+        ``torch.Generator`` seeded by the optimizer step, so it is not
+        the reference's ``jax.random`` draw: the two agree in
+        distribution only."""
+        step = int(self.opt_state["step"])
+        ids = torch.as_tensor(input_ids).to(self.device, torch.long)
+        with torch.no_grad():
+            x = self._embed(self.params["wte"], self.params["wpe"], ids)
+            bp = self.params["blocks"]["layer_000"]
+            h = layer_norm(x, bp["ln1_g"], bp["ln1_b"])
+            w = bp["wqkv"].to(h.dtype)
+            D, N = w.shape
+            gen = torch.Generator(self.device).manual_seed(step)
+            g2 = torch.randn((h.numel() // D, N), generator=gen,
+                             device=self.device).to(h.dtype)
+            h2 = h.reshape(-1, D)
+
+            def rel(approx, exact):
+                return (approx - exact).norm() / (exact.norm() + 1e-30)
+            err = rel(int8_dgrad(g2, w), (g2 @ w.t()).float())
+            if self.quant8 == "wgrad":
+                hq, hs = sr_quantize_colwise(h2, step)
+                gq, gs = sr_quantize_colwise(g2, step + 1)
+                dw = int8_dot_dequant(hq.t(), hs.reshape(-1, 1), gq, gs)
+                err = torch.maximum(err, rel(dw, (h2.t() @ g2).float()))
+        return float(err)
+
+    def _run_guard(self, input_ids) -> float:
+        """Measure the drift; above the threshold fall one int8 tier
+        (``_run_guard`` :1466: "wgrad" -> "dgrad" -> exact, True ->
+        exact) and log it. Returns the measured relative error."""
+        r = self._probe(input_ids)
+        if r > self.int8_guard_threshold:
+            nxt = {"wgrad": "dgrad", "dgrad": False}.get(self.quant8, False)
+            self._guard_events.append(
+                {"step": int(self.opt_state["step"]), "rel_err": r,
+                 "from": self.quant8, "to": nxt})
+            self.quant8 = nxt
+        return r
+
+    def guard_events(self) -> List[Dict[str, Any]]:
+        """The drift guard's fallbacks: ``[{step, rel_err, from, to}]``."""
+        return list(self._guard_events)
+
     def train_step(self, input_ids, labels) -> torch.Tensor:
         """One AdamW step on a ``[B, T]`` batch; returns the loss (a
-        0-dim tensor on the device, before the update)."""
+        0-dim tensor on the device, before the update). With
+        ``int8_guard_period`` the drift guard runs first every that many
+        calls, and may lower ``quant8`` for this step and the rest."""
+        if self.quant8 and self.int8_guard_period and \
+                self._host_step % self.int8_guard_period == 0:
+            self._run_guard(input_ids)
         loss, grads = self.loss_and_grads(input_ids, labels)
         self._adamw(grads)
+        self._host_step += 1
         return loss
 
     def n_params(self) -> int:

@@ -5,8 +5,10 @@ Counterpart of ``paddle_tpu/ops`` for the kernels ported so far:
 ``_fa_forward_qkvpacked``, ``_fa_backward_hsplit``), ``fused_adamw``
 (``fused_adamw.py`` ``fused_adamw_update`` and ``fused_adamw_update8``)
 and ``quant_matmul`` (``quant_matmul.py`` ``_rowq_call``, ``_colq_call``,
-``_sr_colq_pallas`` and the all-int8 linears over ``torch._int_mm``);
-``fused_ce`` is the reference's chunked cross-entropy (plain matmuls).
+``_rowq_ln_call``, ``_sr_colq_ln_pallas``, ``_sr_colq_pallas`` and the
+int8 linears over ``torch._int_mm``); ``fused_ce`` is the reference's
+chunked cross-entropy (plain or int8 matmuls) and ``layer_norm`` the
+trainer's LayerNorm (plain PyTorch).
 ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
 """
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
@@ -15,13 +17,19 @@ from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
 from .fused_adamw import (fused_adamw_update, fused_adamw_update8,
                           fused_adamw_update8_plain, fused_adamw_update_plain)
 from .fused_ce import fused_softmax_cross_entropy
-from .quant_matmul import (int8_gelu_linear_all8, int8_linear_all8,
-                           quantize_cols, quantize_rows, sr_quantize_colwise)
+from .layer_norm import layer_norm
+from .quant_matmul import (int8_gelu_linear_all8, int8_linear,
+                           int8_linear_all8, int8_linear_dgrad8,
+                           int8_ln_linear_all8, ln_quantize_rowwise,
+                           quantize_cols, quantize_rows, sr_quantize_colwise,
+                           sr_quantize_colwise_ln)
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_qkv_fused", "fused_adamw_update",
            "fused_adamw_update8", "fused_adamw_update8_plain",
            "fused_adamw_update_plain", "fused_softmax_cross_entropy",
-           "int8_gelu_linear_all8", "int8_linear_all8", "quantize_cols",
-           "quantize_rows", "sr_quantize_colwise"]
+           "int8_gelu_linear_all8", "int8_linear", "int8_linear_all8",
+           "int8_linear_dgrad8", "int8_ln_linear_all8", "layer_norm",
+           "ln_quantize_rowwise", "quantize_cols", "quantize_rows",
+           "sr_quantize_colwise", "sr_quantize_colwise_ln"]

@@ -19,6 +19,17 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   Philox4x32-10 keyed by ``(seed mod 2**32, 1)`` with the flat
   row-major element index as the counter (``ops/fused_adamw.py:
   philox_words``), so the noise depends on (seed, element) only;
+- the LayerNorm-fused quantizes: ``ln_quantize_rowwise`` (:239, the
+  kernel of ``_rowq_ln_call`` :215, row 10: LayerNorm and row 8's RTN
+  in one read of the pre-LN x, also returning the rows' mean and
+  rstd) and ``sr_quantize_colwise_ln`` (:313, the kernel of
+  ``_sr_colq_ln_pallas`` :296, row 11: row 12's SR column quantize of
+  ``((x - mean) * rstd) * g + b`` from those statistics, drawing row
+  12's Philox words, so the fused and the unfused wgrad quantize of
+  one activation take the same noise). Row 10's kernel sums a row in a
+  fixed order (each of 256 threads its own strided elements one by
+  one, then ``block_sum``'s butterfly and warp order); its plain
+  version sums in that order too, so the two agree bit for bit;
 - the matmul core ``int8_dot_dequant`` (:327): an XLA ``dot_general``
   in the reference, here ``torch._int_mm`` (int8 x int8 -> int32, exact:
   6144 * 127**2 < 2**31) and the f32 epilogue ``y * a_scale *
@@ -28,14 +39,20 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   forward's B (w's codes), and the wgrad's A (``q.t()`` of the
   activation's codes) and B (g's codes) then need no copy; the dgrad's
   B is the transpose of the row-major codes of w;
-- ``int8_linear_all8`` (:491) and ``int8_gelu_linear_all8`` (:536) as
-  ``torch.autograd.Function``s: the forward runs RTN int8 (per-row x,
+- ``int8_linear_all8`` (:491), ``int8_gelu_linear_all8`` (:536) and
+  ``int8_ln_linear_all8`` (:608) as ``torch.autograd.Function``s: the
+  forward runs RTN int8 (per-row x, or LayerNorm(x) through row 10,
   per-column w); dgrad a per-row int8 of ``g`` and of ``w`` along axis
-  1; wgrad an SR per-column int8 of the saved activation (gelu fused
-  for ffn2) and of ``g``. The seed is a Python int and takes no
-  gradient. ``int8_linear_all8_bwd`` and ``int8_gelu_linear_all8_bwd``
-  are their backward passes, for callers that save their own
-  residuals (the GPT trainer's remat).
+  1 (then LayerNorm's backward from the saved statistics); wgrad an SR
+  per-column int8 of the saved activation (gelu fused for ffn2;
+  LayerNorm fused through row 11 with ``fuse_bwd_colq``, else
+  LayerNorm's output made once and row 12) and of ``g``. The seed is a
+  Python int and takes no gradient. The ``*_bwd`` functions are their
+  backward passes, for callers that save their own residuals (the GPT
+  trainer's int8 block);
+- the lower tiers ``int8_linear`` (:351, int8 forward, exact backward)
+  and ``int8_linear_dgrad8`` (:376, int8 forward and dgrad, exact
+  wgrad), on rows 8 and 9.
 
 All scale arithmetic is f32 in the reference's op order: ``scale =
 where(amax == 0, 1, amax) * f32(1/127)``, the product XLA compiles the
@@ -46,8 +63,9 @@ PyTorch on CUDA turns a division by a Python scalar into a product with
 its reciprocal).
 CPU tensors take the plain versions; a CUDA tensor launches the kernel
 (``csrc/quantize.cu``) or raises. ``quantize_rows.launches``,
-``quantize_cols.launches`` and ``sr_quantize_colwise.launches`` count
-kernel launches.
+``quantize_cols.launches``, ``sr_quantize_colwise.launches``,
+``ln_quantize_rowwise.launches`` and ``sr_quantize_colwise_ln.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
@@ -55,22 +73,29 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.nn import functional as TF
 
 from . import _build
 from .fused_adamw import INV127, philox_words, uniform01
+from .layer_norm import LN_EPS, ln_apply, ln_bwd
 
-__all__ = ["int8_dot_dequant", "int8_gelu_linear_all8",
-           "int8_gelu_linear_all8_bwd", "int8_linear_all8",
-           "int8_linear_all8_bwd", "int8_matmul", "layer_seed",
+__all__ = ["int8_dgrad", "int8_dot_dequant", "int8_gelu_linear_all8",
+           "int8_gelu_linear_all8_bwd", "int8_linear", "int8_linear_all8",
+           "int8_linear_all8_bwd", "int8_linear_dgrad8", "int8_ln_linear_all8",
+           "int8_ln_linear_all8_bwd", "int8_ln_matmul", "int8_matmul",
+           "layer_seed", "ln_quantize_rowwise", "ln_quantize_rowwise_plain",
            "quantize_cols", "quantize_cols_plain", "quantize_rows",
            "quantize_rows_plain", "quantize_rowwise",
            "quantize_rowwise_fast", "site_seed", "sr_quantize_colwise",
+           "sr_quantize_colwise_ln", "sr_quantize_colwise_ln_plain",
            "sr_quantize_colwise_plain", "step_seed", "wgrad_seeds",
            "wrap_int32"]
 
 _MASK = 0xFFFFFFFF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {None: 0, "gelu": 1}
+_ACT_LN = 2                           # the column kernels' LayerNorm prologue
+_THREADS = 256                        # threads of a row-kernel block
 _GELU_C = 0.7978845608028654          # sqrt(2 / pi)
 
 
@@ -170,6 +195,53 @@ def sr_quantize_colwise_plain(x2, seed: int, act=None):
     return _column_major(q.to(torch.int8)), scale
 
 
+def _kernel_row_sums(v, vec: int):
+    """Row sums of ``v [M, K]`` (f32) in row 10's kernel order, ``[M,
+    1]``: thread t of 256 adds elements ``t * vec + j``, then ``(t +
+    256) * vec + j``, ..., one by one from 0 (``vec`` = 16 bytes of x);
+    then ``block_sum``: within each warp lane l adds lane l + 16, then
+    l + 8, 4, 2, 1 (the butterfly as lane 0 sees it); then the 8 warps'
+    sums in order."""
+    M, K = v.shape
+    v = TF.pad(v, (0, (-K) % (_THREADS * vec))).view(M, -1, _THREADS, vec)
+    acc = torch.zeros((M, _THREADS), dtype=torch.float32, device=v.device)
+    for it in range(v.shape[1]):
+        for j in range(vec):
+            acc = acc + v[:, it, :, j]
+    lanes = acc.view(M, _THREADS // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    warps = lanes[..., 0]
+    total = warps[:, 0]
+    for w in range(1, warps.shape[1]):
+        total = total + warps[:, w]
+    return total[:, None]
+
+
+def ln_quantize_rowwise_plain(x2, g, b):
+    """Kernel row 10 in plain PyTorch: LayerNorm of ``x2 [M, K]`` (f32
+    statistics, eps 1e-5) and the per-row RTN of its f32 output: ``(q
+    [M, K] int8, scale, mean, rstd [M, 1] f32)``. Sums in the kernel's
+    order; ``rstd = 1 / sqrt(var + eps)`` (correctly rounded)."""
+    xf = x2.float()
+    vec = 16 // x2.element_size()
+    k = torch.full((xf.shape[0], 1), float(xf.shape[1]), device=xf.device)
+    mean = _kernel_row_sums(xf, vec) / k
+    xc = xf - mean
+    var = _kernel_row_sums(xc * xc, vec) / k
+    rstd = torch.ones_like(var) / torch.sqrt(var + LN_EPS)
+    q, scale = quantize_rowwise(ln_apply(xf, mean, rstd, g, b), 1)
+    return q, scale, mean, rstd
+
+
+def sr_quantize_colwise_ln_plain(x2, mean, rstd, g, b, seed: int):
+    """Kernel row 11 in plain PyTorch: row 12's SR column quantize of
+    ``((x2 - mean) * rstd) * g + b`` in f32 (``mean``, ``rstd`` [M, 1]
+    f32, ``g``, ``b`` [C]): ``(q [M, C] int8, column-major, scale [1, C]
+    f32)``, the noise of row 12 at the same seed."""
+    return sr_quantize_colwise_plain(ln_apply(x2, mean, rstd, g, b), seed)
+
+
 # -- kernels ------------------------------------------------------------------
 def _check_cuda(what: str, x2) -> None:
     if x2.dtype not in _DTYPES or x2.dim() != 2:
@@ -190,8 +262,11 @@ def _lib():
         lib.ptt_quantize_rows.argtypes = [vp, vp, vp, ll, i, i, i, vp]
         lib.ptt_quantize_rows.restype = i
         lib.ptt_quantize_cols.argtypes = [vp, vp, vp, vp, ll, i, i, i, i,
-                                          ctypes.c_uint, vp]
+                                          ctypes.c_uint, vp, vp, vp, vp, vp]
         lib.ptt_quantize_cols.restype = i
+        lib.ptt_quantize_rows_ln.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll,
+                                             i, i, vp]
+        lib.ptt_quantize_rows_ln.restype = i
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -208,12 +283,22 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# a block's shared memory on Hopper after the opt-in (232,448 bytes),
+# less the block reductions' static scratch: the row kernels stage a row
+# of K floats there (the int8 CE head's dlg rows have K = vocab, 50304)
+_ROW_MAX_K = (232448 - 64) // 4
+
+
+def _row_smem_check(what: str, K: int) -> None:
+    if K > _ROW_MAX_K:
+        raise ValueError(f"{what} kernel stages a row of K <= {_ROW_MAX_K} "
+                         f"floats in shared memory; got K={K}")
+
+
 def _rows_cuda(x2, act):
     _check_cuda("quantize_rows", x2)
     M, K = x2.shape
-    if K > 49152:
-        raise ValueError(f"quantize_rows kernel stages a row of K <= "
-                         f"49152 floats in shared memory; got K={K}")
+    _row_smem_check("quantize_rows", K)
     q = torch.empty((M, K), dtype=torch.int8, device=x2.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x2.device)
     lib = _lib()
@@ -226,13 +311,48 @@ def _rows_cuda(x2, act):
     return q, scale
 
 
-def _cols_cuda(x2, act, seed):
-    what = "quantize_cols" if seed is None else "sr_quantize_colwise"
+def _f32_vector(what: str, name: str, t, n: int, device):
+    """A LayerNorm parameter or statistic as the kernels take it: f32,
+    contiguous, ``n`` values, on ``device`` (a tensor elsewhere raises)."""
+    if t.device != device or t.numel() != n:
+        raise ValueError(f"{what} kernel: {name} must hold {n} values on "
+                         f"{device}; got {tuple(t.shape)} on {t.device}")
+    return t.reshape(n).float().contiguous()
+
+
+def _rows_ln_cuda(x2, g, b):
+    what = "ln_quantize_rowwise"
+    _check_cuda(what, x2)
+    M, K = x2.shape
+    _row_smem_check(what, K)
+    g, b = (_f32_vector(what, n, t, K, x2.device)
+            for n, t in (("g", g), ("b", b)))
+    q = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    scale, mean, rstd = (torch.empty((M, 1), dtype=torch.float32,
+                                     device=x2.device) for _ in range(3))
+    lib = _lib()
+    with torch.cuda.device(x2.device):
+        err = lib.ptt_quantize_rows_ln(
+            x2.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
+            scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(), M, K,
+            _DTYPES[x2.dtype], _stream(x2))
+    _raise_on(err, lib, what)
+    return q, scale, mean, rstd
+
+
+def _cols_cuda(x2, act, seed, ln=()):
+    """Rows 9 and 12, or row 11 when ``ln`` holds (mean, rstd, g, b)."""
+    what = "quantize_cols" if seed is None else \
+        "sr_quantize_colwise_ln" if ln else "sr_quantize_colwise"
     _check_cuda(what, x2)
     R, C = x2.shape
     if R % 16:
         raise ValueError(f"{what} kernel writes the codes column-major in "
                          f"16-row pieces: rows % 16 == 0; got {R}")
+    if ln:
+        ln = [_f32_vector(what, name, t, n, x2.device) for name, t, n in
+              zip(("mean", "rstd", "g", "b"), ln, (R, R, C, C))]
+    ln_ptrs = [t.data_ptr() for t in ln] if ln else [None] * 4
     qt = torch.empty((C, R), dtype=torch.int8, device=x2.device)
     scale = torch.empty((1, C), dtype=torch.float32, device=x2.device)
     amax = torch.empty(C, dtype=torch.float32, device=x2.device)
@@ -240,8 +360,9 @@ def _cols_cuda(x2, act, seed):
     with torch.cuda.device(x2.device):
         err = lib.ptt_quantize_cols(
             x2.data_ptr(), qt.data_ptr(), scale.data_ptr(), amax.data_ptr(),
-            R, C, _DTYPES[x2.dtype], _ACTS[act], int(seed is not None),
-            0 if seed is None else int(seed) & _MASK, _stream(x2))
+            R, C, _DTYPES[x2.dtype], _ACT_LN if ln else _ACTS[act],
+            int(seed is not None), 0 if seed is None else int(seed) & _MASK,
+            *ln_ptrs, _stream(x2))
     _raise_on(err, lib, what)
     return qt.t(), scale
 
@@ -297,6 +418,36 @@ def sr_quantize_colwise(x2, seed: int, act=None):
 sr_quantize_colwise.launches = 0
 
 
+def ln_quantize_rowwise(x2, g, b):
+    """LayerNorm (f32 statistics, eps 1e-5, gain ``g`` and bias ``b``
+    [K]) and the per-row symmetric int8 RTN of its f32 output, for ``x2
+    [M, K]`` in one read: ``(q [M, K] int8, scale [M, 1], mean [M, 1],
+    rstd [M, 1])``, all f32 but q."""
+    if _device(x2) == "cpu":
+        return ln_quantize_rowwise_plain(x2, g, b)
+    out = _rows_ln_cuda(x2, g, b)
+    ln_quantize_rowwise.launches += 1
+    return out
+
+
+ln_quantize_rowwise.launches = 0
+
+
+def sr_quantize_colwise_ln(x2, mean, rstd, g, b, seed: int):
+    """``sr_quantize_colwise`` of LayerNorm(``x2``) from its row
+    statistics (``mean``, ``rstd`` [M, 1] f32, as ``ln_quantize_rowwise``
+    returns them) and ``g``, ``b`` [C], without the LN output in memory:
+    ``(q [M, C] int8, stored column-major, scale [1, C] f32)``."""
+    if _device(x2) == "cpu":
+        return sr_quantize_colwise_ln_plain(x2, mean, rstd, g, b, seed)
+    out = _cols_cuda(x2, None, int(seed), (mean, rstd, g, b))
+    sr_quantize_colwise_ln.launches += 1
+    return out
+
+
+sr_quantize_colwise_ln.launches = 0
+
+
 def quantize_rowwise_fast(x, axis: int, act=None):
     """``quantize_rowwise`` through the kernels: ``axis`` the last dim
     (any leading dims; optional ``act``) or 0 of a 2-D tensor."""
@@ -333,7 +484,7 @@ def int8_matmul(x, w, act=None):
     return y.reshape(*lead, w.shape[1])
 
 
-def _dgrad(g2, w):
+def int8_dgrad(g2, w):
     """``g [M, N] @ w [K, N].T`` in int8: per-row scales on ``g`` and on
     ``w`` along its axis 1; f32 ``[M, K]``."""
     gq, gs = quantize_rows(g2)
@@ -341,13 +492,19 @@ def _dgrad(g2, w):
     return int8_dot_dequant(gq, gs, wq.t(), ws.reshape(1, -1))
 
 
+def _sr_wgrad(aq, a_scale, g2, g_seed: int):
+    """``a.T @ g`` from the SR codes of ``a [M, K]`` (column-major, scales
+    ``[1, K]``) and an SR quantize of ``g [M, N]``; f32 ``[K, N]``."""
+    gq, g_s = sr_quantize_colwise(g2, g_seed)
+    return int8_dot_dequant(aq.t(), a_scale.reshape(-1, 1), gq, g_s)
+
+
 def _wgrad(a2, g2, seed: int, act=None):
     """``act(a) [M, K].T @ g [M, N]`` in int8 with SR per-column scales
     along the token axis; f32 ``[K, N]``."""
     a_seed, g_seed = wgrad_seeds(seed)
     aq, a_s = sr_quantize_colwise(a2, a_seed, act)
-    gq, g_s = sr_quantize_colwise(g2, g_seed)
-    return int8_dot_dequant(aq.t(), a_s.reshape(-1, 1), gq, g_s)
+    return _sr_wgrad(aq, a_s, g2, g_seed)
 
 
 def int8_linear_all8_bwd(x, w, seed: int, g):
@@ -355,7 +512,7 @@ def int8_linear_all8_bwd(x, w, seed: int, g):
     seed)``: ``(dx in x.dtype, dw in w.dtype)``."""
     K, N = w.shape
     g2 = g.reshape(-1, N)
-    dx = _dgrad(g2, w).to(x.dtype).reshape(x.shape)
+    dx = int8_dgrad(g2, w).to(x.dtype).reshape(x.shape)
     dw = _wgrad(x.reshape(-1, K), g2, seed)
     return dx, dw.to(w.dtype)
 
@@ -366,10 +523,46 @@ def int8_gelu_linear_all8_bwd(x, w, seed: int, g):
     int8 of gelu(x) fused in the column quantize."""
     K, N = w.shape
     g2 = g.reshape(-1, N)
-    da = _dgrad(g2, w).reshape(x.shape)
+    da = int8_dgrad(g2, w).reshape(x.shape)
     dx = torch.ops.aten.gelu_backward(da, x.float(), approximate="tanh")
     dw = _wgrad(x.reshape(-1, K), g2, seed, act="gelu")
     return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def int8_ln_matmul(x, g_ln, b_ln, w):
+    """The forward of ``int8_ln_linear_all8``: LayerNorm(x) ``[..., K] @ w
+    [K, N]`` through row 10 and RTN int8, output in ``x.dtype``, and the
+    row statistics ``(mean, rstd)`` ``[M, 1]`` f32 (``_int8_matmul_ln``
+    :600)."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    q, s, mean, rstd = ln_quantize_rowwise(x.reshape(-1, K), g_ln, b_ln)
+    wq, ws = quantize_cols(w)
+    y = int8_dot_dequant(q, s, wq, ws, out_dtype=x.dtype)
+    return y.reshape(*lead, w.shape[1]), mean, rstd
+
+
+def int8_ln_linear_all8_bwd(x, g_ln, b_ln, w, seed: int, mean, rstd, g,
+                            fuse_bwd_colq: bool):
+    """The backward of ``int8_ln_linear_all8`` (``_bwd_ln_all8`` :644)
+    from its residuals and the forward's row statistics: ``(dx, dg_ln,
+    db_ln, dw)``. The dgrad is int8 per-row, cast to x's dtype and taken
+    through LayerNorm's backward; the wgrad quantizes LayerNorm(x) by
+    SR, fused from the statistics (row 11) with ``fuse_bwd_colq``, else
+    made once in x's dtype and quantized by row 12."""
+    K, N = w.shape
+    x2, g2 = x.reshape(-1, K), g.reshape(-1, N)
+    stats = x.shape[:-1] + (1,)
+    dh = int8_dgrad(g2, w).to(x.dtype).reshape(x.shape)
+    dx, dg_ln, db_ln = ln_bwd(x, g_ln, mean.reshape(stats),
+                              rstd.reshape(stats), dh)
+    a_seed, g_seed = wgrad_seeds(seed)
+    if fuse_bwd_colq:
+        hq, hs = sr_quantize_colwise_ln(x2, mean, rstd, g_ln, b_ln, a_seed)
+    else:
+        h = ln_apply(x2, mean, rstd, g_ln, b_ln).to(x.dtype)
+        hq, hs = sr_quantize_colwise(h, a_seed)
+    dw = _sr_wgrad(hq, hs, g2, g_seed)
+    return dx, dg_ln, db_ln, dw.to(w.dtype)
 
 
 class _Int8LinearAll8(torch.autograd.Function):
@@ -399,3 +592,61 @@ def int8_gelu_linear_all8(x, w, seed: int):
     """``int8_linear_all8(gelu(x), w, seed)`` with the tanh-gelu computed
     inside the quantize kernels: ``x`` is the pre-activation."""
     return _Int8LinearAll8.apply(x, w, int(seed), "gelu")
+
+
+class _Int8LnLinearAll8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g_ln, b_ln, w, seed, fuse_bwd_colq):
+        y, mean, rstd = int8_ln_matmul(x, g_ln, b_ln, w)
+        ctx.save_for_backward(x, g_ln, b_ln, w, mean, rstd)
+        ctx.seed, ctx.fuse_bwd_colq = seed, fuse_bwd_colq
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, g_ln, b_ln, w, mean, rstd = ctx.saved_tensors
+        grads = int8_ln_linear_all8_bwd(x, g_ln, b_ln, w, ctx.seed, mean,
+                                        rstd, g, ctx.fuse_bwd_colq)
+        return (*grads, None, None)
+
+
+def int8_ln_linear_all8(x, g_ln, b_ln, w, seed: int,
+                        fuse_bwd_colq: bool = False):
+    """``int8_linear_all8(layer_norm(x, g_ln, b_ln), w, seed)`` with the
+    LayerNorm inside the quantize kernels: ``x`` is the pre-LN input and
+    no LN output is written in the forward. Differentiable in ``x``,
+    ``g_ln``, ``b_ln`` and ``w``; ``fuse_bwd_colq`` picks the wgrad's
+    quantize (see ``int8_ln_linear_all8_bwd``; the reference's default,
+    its environment's ``PTPU_FUSE_BWD_COLQ`` unset, is False)."""
+    return _Int8LnLinearAll8.apply(x, g_ln, b_ln, w, int(seed),
+                                   bool(fuse_bwd_colq))
+
+
+class _Int8Linear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, dgrad8):
+        ctx.save_for_backward(x, w)
+        ctx.dgrad8 = dgrad8
+        return int8_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        K, N = w.shape
+        g2 = g.reshape(-1, N)
+        dx = int8_dgrad(g2, w) if ctx.dgrad8 else g2 @ w.t()
+        dw = x.reshape(-1, K).t() @ g2
+        return dx.to(x.dtype).reshape(x.shape), dw.to(w.dtype), None
+
+
+def int8_linear(x, w):
+    """``x [..., K] @ w [K, N]`` through RTN int8 in the forward; the
+    backward is exact in the input dtype (``int8_linear`` :351)."""
+    return _Int8Linear.apply(x, w, False)
+
+
+def int8_linear_dgrad8(x, w):
+    """``int8_linear`` with the activation gradient in int8 as well
+    (per-row scales on the cotangent and on ``w`` along N); the weight
+    gradient stays exact (``int8_linear_dgrad8`` :376)."""
+    return _Int8Linear.apply(x, w, True)

@@ -198,12 +198,16 @@ def test_converter_refuses_missed_transpose_and_wrong_names(ref):
 
 
 @pytest.mark.parametrize("kw", [
-    {"quant8": True}, {"quant8": "dgrad"}, {"remat": "save_qkv_ffn"},
+    {"remat": True}, {"remat": "save_dots"}, {"remat": "save_qkv_ffn"},
     {"moe_experts": 4}, {"pipeline_schedule": "1f1b"}, {"microbatches": 2},
-    {"ce_int8": True}, {"fuse_ln_quant": True},
-    {"int8_guard_period": 10}, {"fused_optimizer": False},
-    {"layer_unroll": 1}])
+    {"remat": "save_main"}, {"remat": "save_main", "quant8": "dgrad"},
+    {"remat": "save_main", "quant8": "wgrad", "int8_guard_period": 10},
+    {"fused_optimizer": False}, {"layer_unroll": 1}])
 def test_later_slice_options_raise(kw):
+    # the int8 tiers, fuse_ln_quant, ce_int8 and the drift guard are
+    # ported (test_torch_gpt_int8_tiers.py); remat policies, save_main
+    # off quant8="wgrad" (and so the guard under it), MoE and pipelines
+    # are later slices
     with pytest.raises(NotImplementedError, match="slice"):
         GPTTrainer(GPTConfig(**TINY, dtype="float32"), device="cpu", **kw)
 
