@@ -18,7 +18,8 @@ then exits non-zero and prints no result):
              bits), AdamW on the trainer's 2048x8192 and 50304x2048
              leaves (p, m, v bit for bit, stochastic rounding on), the
              int8 quantize kernels at every shape the flagship trainer
-             gives them (row and column round-to-nearest, column
+             and Int8Linear's decode path give them (row and column
+             round-to-nearest, column
              stochastic rounding with and without gelu: codes and
              scales bit for bit, the SR laws on the card), the int8
              GEMM (torch._int_mm, a library call) in the layouts the
@@ -39,6 +40,12 @@ then exits non-zero and prints no result):
              g = b = 0 column; row 11 under row 12's SR laws; ms beside
              the bound, the plain version and the unfused pair each
              replaces.
+   kernels, row 7 — int4_matmul against its plain version at Llama-1B's
+             four linear shapes (down_proj at group 64), M in {1, 8, 16,
+             512} and a ragged 300, within one bf16 step of the output's
+             magnitude, an all-zero group at scale 1; ms beside the
+             bound, the plain version, torch._weight_int4pack_mm (a
+             yardstick the port never calls) and the bf16 linear.
 4. serve   — Llama ~1.1B at full width (vocab 32000, hidden 2048, FFN
              5504, 16 heads of 128, 16 layers, bf16; random weights
              from seed 0) served by ServingEngine(kv_layout="contiguous",
@@ -59,6 +66,21 @@ then exits non-zero and prints no result):
              over 16 slots and of one 512-bucket prefill, from
              torch.profiler (after the counted run, so it changes none
              of the numbers above).
+6a. serve-int4 — serve's 16 requests through ServingEngine(
+             weight_only_int4(model, group=128)): int4_matmul exactly
+             113 launches (16 layers x 7 linears + lm_head) per model
+             call, one call per prefill and decode step; flash 16 x 16;
+             tokens/s, TTFT, weight bytes against bf16's.
+6b. check-int4 — as check, for the int4 engine; the int4 prefill logits
+             through the kernel against the plain route within
+             INT4_ROUTE_TOL; last-logit parity against bf16 (printed).
+6c. decode — bench_llama_decode.py's phases: generate() at a 64-token
+             prompt and 128 new tokens, batch 1 and 8, in bf16,
+             weight_only_int8 and weight_only_int4, launches asserted
+             (113 int4_matmul or 113 quantize_rows a model call), the
+             int8 prefill logits equal through row 8's kernel and its
+             plain version, and generate() profiled (5 new tokens less
+             1) for device ms a decode step.
 7. train-flagship — bench.py:build_flagship's whole recipe: GPTTrainer
              at GPT-3 1.3B width and depth (vocab 50304, hidden 2048,
              24 layers, 16 heads of 128, max_seq_len 1024, tied
@@ -103,8 +125,9 @@ then exits non-zero and prints no result):
 Then the line {"phase": "profiler", ...} (how many traces came back
 without device time, or short of events, and were taken again), the
 line {"kernels": [...]}
-(launches from the train-flagship phase, every path's beside them; ms
-and bounds at the trainer's shapes), the
+(launches from the train-flagship phase, int4_matmul's from
+serve-int4, every path's beside them; ms and bounds at the trainer's
+shapes, int4_matmul's at lm_head's decode shape), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device":
 {...}}. Needs a CUDA device and the repository checkout beside this
 file; imports nothing of JAX.
@@ -474,6 +497,12 @@ ROWQ_CASES = [(M_TOK, D_MODEL, False, "activation (qkv, ffn1 fwd)"),
               (D_MODEL, 3 * D_MODEL, False, "wqkv along axis 1 (dgrad)"),
               (D_MODEL, F_FFN, False, "win along axis 1 (dgrad)"),
               (F_FFN, D_MODEL, False, "wout along axis 1 (dgrad)")]
+# and Int8Linear's dynamic quantize on the decode path (Llama-1B through
+# weight_only_int8 and generate(), prompt 64, batch 1 and 8): prefill
+# M = 64 and 512, decode steps M = 1 and 8; K = 2048 (the hidden width)
+# and 5504 (down_proj's input)
+ROWQ_CASES += [(M, K, False, f"Int8Linear x, decode path (M={M})")
+               for M in (1, 8, 64, 512) for K in (2048, 5504)]
 COLQ_CASES = [(D_MODEL, 3 * D_MODEL, False, "wqkv (fwd)"),
               (D_MODEL, F_FFN, False, "win (fwd)"),
               (F_FFN, D_MODEL, False, "wout (fwd)")]
@@ -908,6 +937,7 @@ def kernel_wrappers() -> dict:
                                                       flash_attention_fwd)
     from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
                                                   fused_adamw_update8)
+    from paddle_tpu_torch.ops.int4_matmul import int4_matmul
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
             "fused_adamw": fused_adamw_update,
@@ -916,7 +946,8 @@ def kernel_wrappers() -> dict:
             "sr_quantize_colwise": qm.sr_quantize_colwise,
             "ln_quantize_rowwise": qm.ln_quantize_rowwise,
             "sr_quantize_colwise_ln": qm.sr_quantize_colwise_ln,
-            "fused_adamw8": fused_adamw_update8}
+            "fused_adamw8": fused_adamw_update8,
+            "int4_matmul": int4_matmul}
 
 
 def reset_launches() -> None:
@@ -1041,6 +1072,401 @@ def phase_check(torch, np, model, prompts, reqs):
           "pad_logits_max_abs_diff": pad_diff,
           "route_logits_max_abs_diff": diff, "route_tol": ROUTE_TOL,
           "route_argmax_equal": int(kern.argmax()) == int(plain.argmax())})
+
+
+# -- weight-only int4 and int8 serving (Llama-1B, kernel row 7) -------------
+INT4_GROUP = 128                 # bench_llama_decode.py's weight_only_int4
+# Llama-1B's linears: (K, N, the group Int4Linear gives them, which)
+INT4_SHAPES = [(2048, 2048, 128, "q/k/v/o_proj"),
+               (2048, 5504, 128, "gate/up_proj"),
+               (5504, 2048, 64, "down_proj (K/2 = 2752: group 128 -> 64)"),
+               (2048, 32000, 128, "lm_head")]
+INT4_MS = (1, 8, 16, 512)         # decode batches 1 and 8, 16 slots, prefill
+INT4_RAGGED = (300, 5504, 2048, 64)
+# the linears of one Llama-1B model call: 7 a layer and lm_head
+LINEARS_PER_LAYER = 7
+# prefill logits of the int4 model, kernel route vs plain route (every
+# int4_matmul through int4_matmul_plain): one bf16 step per linear in
+# another summation order, over 16 layers, as ROUTE_TOL
+INT4_ROUTE_TOL = 0.125
+DECODE_PROMPT, DECODE_NEW, DECODE_BATCHES = 64, 128, (1, 8)
+DECODE_WARM, DECODE_PROFILE_STEPS = 4, 4
+
+
+def int4_operands(torch, M, K, N, group, gen):
+    """bf16 x [M, K] and the codes and scales of an f32 weight [K, N] of
+    Llama's init scale, with one all-zero group (column 5, group 1)."""
+    from paddle_tpu_torch.ops.int4_matmul import (pack_rows_int4,
+                                                  quantize_int4_rows)
+    w = torch.randn(K, N, device="cuda", generator=gen) \
+        * math.sqrt(2.0 / (K + N))
+    w[group:2 * group, 5] = 0
+    q, s = quantize_int4_rows(w, group)
+    x = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
+    return x, pack_rows_int4(q), s, q, w.bfloat16()
+
+
+def int4pack_operands(torch, q, s, group):
+    """The same weight in torch._weight_int4pack_mm's layout (codes + 8 in
+    natural K order, two to a byte along K; bf16 scales, zero points 0)."""
+    u = q.t().to(torch.int32) + 8                        # [N, K]
+    packed = torch._convert_weight_to_int4pack(
+        ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous(), 8)
+    sz = torch.zeros(*s.shape, 2, dtype=torch.bfloat16, device=s.device)
+    sz[..., 0] = s
+    return packed, sz
+
+
+def phase_kernels_int4(torch):
+    """Kernel row 7 against its plain version on the card at Llama-1B's
+    four linear shapes, M in INT4_MS and one ragged M, within one bf16
+    step of the output's largest magnitude; the zero group at scale 1
+    with codes 0. Device ms of kernel, plain version, the library's
+    int4 GEMM (torch._weight_int4pack_mm on the same codes, bf16 scales,
+    zero points 0: a yardstick the port never calls) and the bf16 linear
+    the unquantized model runs (x @ W in bf16), beside the bound."""
+    from paddle_tpu_torch.ops.int4_matmul import (int4_matmul,
+                                                  int4_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(M, K, N, g, what) for K, N, g, what in INT4_SHAPES
+             for M in INT4_MS]
+    cases.append(INT4_RAGGED + ("down_proj, ragged M",))
+    rows = []
+    for M, K, N, group, what in cases:
+        x, p, s, q, wb = int4_operands(torch, M, K, N, group, gen)
+        got = int4_matmul(x, p, s, group)
+        want = int4_matmul_plain(x, p, s, group)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = bf16_step(want.float())
+        if err > tol:
+            raise AssertionError(f"int4_matmul {M}x{K}x{N} ({what}): max "
+                                 f"|kernel - plain| {err} > {tol}")
+        if not (s[1, 5].item() == 1.0 and not q[group:2 * group, 5].any()):
+            raise AssertionError("int4: the all-zero group is not at scale "
+                                 "1 with codes 0")
+        packed, sz = int4pack_operands(torch, q, s, group)
+        lib = lambda: torch._weight_int4pack_mm(x, packed, group, sz)
+        lib_err = (lib().float() - want.float()).abs().max().item()
+        b_ms, b_by = bound(M * K * 2 + K // 2 * N + K // group * N * 4
+                           + M * N * 2, 2 * M * K * N)
+        rows.append({
+            "M": M, "K": K, "N": N, "group": group, "linear": what,
+            "max_abs_err": err, "tolerance": tol,
+            "ms": device_ms(torch, lambda: int4_matmul(x, p, s, group), 20),
+            "plain_ms": device_ms(torch, lambda: int4_matmul_plain(
+                x, p, s, group), 3),
+            "library_ms": device_ms(torch, lib, 20),
+            "library_max_abs_err": lib_err,
+            "bf16_linear_ms": device_ms(torch, lambda: x @ wb, 20),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del x, p, s, q, wb, packed, sz, got, want
+    emit({"phase": "kernels", "name": "int4_matmul",
+          "library": "torch._weight_int4pack_mm",
+          "tolerance": "one bf16 step of the output's largest magnitude",
+          "cases": rows})
+    return rows
+
+
+def weight_bytes(model) -> int:
+    """Bytes of the model's parameters and persistent buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+def phase_serve_int4(torch, np, model, prompts):
+    """serve's 16 requests through ServingEngine(weight_only_int4(model,
+    group=128)): every request's token count; int4_matmul exactly 113
+    launches (16 layers x 7 linears + lm_head) per model call, one call
+    per prefill and per decode step, and flash_attention_fwd 16 layers x
+    16 prefills."""
+    from paddle_tpu_torch.ops.int4_matmul import int4_matmul
+    from paddle_tpu_torch.quantization import weight_only_int4
+    from paddle_tpu_torch.serving import ServingEngine
+    qmodel = weight_only_int4(model, group=INT4_GROUP, inplace=False)
+    cfg = model.config
+    news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
+    warm = ServingEngine(qmodel, kv_layout="contiguous", max_slots=2,
+                         max_len=MAX_LEN, min_bucket=MIN_BUCKET)
+    for p in prompts[:2]:
+        warm.submit(p, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(qmodel, kv_layout="contiguous", max_slots=SLOTS,
+                           max_len=MAX_LEN, min_bucket=MIN_BUCKET)
+    reqs = [engine.submit(p, max_new_tokens=n)
+            for p, n in zip(prompts, news)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    for r, n in zip(reqs, news):
+        if not (r.finished and r.finish_reason == "length"
+                and len(r.output_ids) == n):
+            raise AssertionError(
+                f"serve-int4 request {r.rid}: {r.finish_reason}, "
+                f"{len(r.output_ids)} of {n} tokens")
+    m = engine.metrics.summary()
+    # all 16 requests are admitted in the first step; the decode runs
+    # until the longest has its tokens (its first came from its prefill)
+    decode_steps = max(news) - 1
+    if m["steps"] != decode_steps:
+        raise AssertionError(f"serve-int4: {m['steps']} engine steps, "
+                             f"expected {decode_steps}")
+    L = cfg.num_hidden_layers
+    per_call = L * LINEARS_PER_LAYER + 1
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update(flash_attention_fwd=L * len(reqs),
+                int4_matmul=per_call * (len(reqs) + decode_steps))
+    if counts != want:
+        raise AssertionError(f"serve-int4 launches {counts}, expected "
+                             f"{want}")
+    emit({"phase": "serve-int4", "group": INT4_GROUP,
+          "requests": len(reqs), "tokens": m["total_tokens"],
+          "wall_s": wall, "tokens_per_s": m["tokens_per_s"],
+          "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+          "tok_latency_p50_s": m["tok_latency_p50_s"],
+          "decode_steps": decode_steps, "prefills": len(reqs),
+          "int4_launches_per_model_call": per_call,
+          "launches": {k: v for k, v in counts.items() if v},
+          "weight_gb": weight_bytes(qmodel) / 1e9,
+          "bf16_weight_gb": weight_bytes(model) / 1e9,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return qmodel, reqs, counts
+
+
+class module_plain_route:
+    """Within the block ``module.<name>`` is ``plain``: every layer of
+    ``module`` that calls the kernel's wrapper by that name computes
+    through its plain version instead."""
+
+    def __init__(self, module, name: str, plain):
+        self.mod, self.name, self.plain = module, name, plain
+
+    def __enter__(self):
+        self.old = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.plain)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.old)
+        return False
+
+
+def int4_plain_route():
+    """Every Int4Linear through int4_matmul_plain."""
+    from paddle_tpu_torch.ops.int4_matmul import int4_matmul_plain
+    from paddle_tpu_torch.quantization import int4_layers
+    return module_plain_route(int4_layers, "int4_matmul", int4_matmul_plain)
+
+
+def int8_plain_route():
+    """Every Int8Linear's dynamic quantize through quantize_rows_plain."""
+    from paddle_tpu_torch.ops.quant_matmul import quantize_rows_plain
+    from paddle_tpu_torch.quantization import int8_layers
+    return module_plain_route(int8_layers, "quantize_rows", quantize_rows_plain)
+
+
+def last_logit_parity(torch, np, ref_model, model):
+    """_decode_phase.py:60-67's parity: the last-token logits of a
+    64-token prompt from RandomState(0), max |diff| / max |ref| against
+    the bf16 model, and whether the argmax agrees (printed, not gated:
+    random weights leave near-tied logits)."""
+    cfg = model.config
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, DECODE_PROMPT)), device=model.device)
+    with torch.inference_mode():
+        lb = ref_model(ids)[0, -1].double()
+        li = model(ids)[0, -1].double()
+    rel = ((lb - li).abs().max() / lb.abs().max().clamp_min(1e-9)).item()
+    return {"last_logit_rel_err": rel,
+            "argmax_same": int(lb.argmax()) == int(li.argmax())}
+
+
+def phase_check_int4(torch, np, model, qmodel, prompts, reqs):
+    """The int4 engine's first tokens against its own bucket-padded
+    prefill, padded against unpadded prefill logits within one bf16 step,
+    one prompt's prefill logits through the kernel against the plain
+    route within INT4_ROUTE_TOL; the parity against bf16, printed."""
+    from paddle_tpu_torch.serving import bucket_for
+    pad_diff = 0.0
+    for p, r in zip(prompts, reqs):
+        n = len(p)
+        padded = np.zeros(bucket_for(n, MIN_BUCKET, MAX_LEN), np.int64)
+        padded[:n] = p
+        eng = prefill_logits(torch, qmodel, padded, False, n)
+        if int(eng.argmax()) != r.output_ids[0]:
+            raise AssertionError(
+                f"serve-int4 request {r.rid}: first token "
+                f"{r.output_ids[0]} is not the argmax of its own "
+                f"bucket-padded prefill ({int(eng.argmax())})")
+        diff = (prefill_logits(torch, qmodel, p, False) - eng).abs().max() \
+            .item()
+        if diff > bf16_step(eng):
+            raise AssertionError(
+                f"serve-int4 request {r.rid}: padded and unpadded prefill "
+                f"logits differ by {diff} (> one bf16 step, "
+                f"{bf16_step(eng)})")
+        pad_diff = max(pad_diff, diff)
+    ids = prompts[PROMPT_LENS.index(300)]
+    kern = prefill_logits(torch, qmodel, ids, False)
+    with int4_plain_route():
+        plain = prefill_logits(torch, qmodel, ids, False)
+    diff = (kern - plain).abs().max().item()
+    if diff > INT4_ROUTE_TOL:
+        raise AssertionError(f"int4 prefill logits, kernel vs plain route: "
+                             f"max |diff| {diff} > {INT4_ROUTE_TOL}")
+    emit({"phase": "check-int4", "first_tokens_exact": len(reqs),
+          "pad_logits_max_abs_diff": pad_diff,
+          "route_logits_max_abs_diff": diff, "route_tol": INT4_ROUTE_TOL,
+          "route_argmax_equal": int(kern.argmax()) == int(plain.argmax()),
+          "vs_bf16": last_logit_parity(torch, np, model, qmodel)})
+
+
+def decode_step_trace(torch, m, ids):
+    """Device ms by kernel, and wall s, of DECODE_PROFILE_STEPS decode
+    steps of the entry point itself: a profiled ``generate()`` of 1 +
+    DECODE_PROFILE_STEPS new tokens less a profiled ``generate()`` of one
+    (the prefill and the first token). Every kernel of a decode step runs
+    once a step, so a kernel whose count the two traces put apart by a
+    number DECODE_PROFILE_STEPS does not divide marks a trace short of
+    events: both are taken again, PROFILE_TRIES times in all, then
+    raises."""
+    global SHORT_TRACES
+    steps = DECODE_PROFILE_STEPS
+    for _ in range(PROFILE_TRIES):
+        runs = []
+        for new in (1 + steps, 1):
+            wall, ev = traced(torch, lambda new=new: lambda: m.generate(
+                ids, max_new_tokens=new), with_cpu=True)
+            runs.append((wall, {e.key: (e.count, e.self_device_time_total)
+                                for e in ev}))
+        (wall, full), (wall1, first) = runs
+        short = [(k[:60], c - first.get(k, (0, 0))[0])
+                 for k, (c, _) in full.items()
+                 if (c - first.get(k, (0, 0))[0]) % steps]
+        short += [(k[:60], -c) for k, (c, _) in first.items()
+                  if k not in full]
+        if not short:
+            ms = {k: (t - first.get(k, (0, 0))[1]) / 1e3
+                  for k, (_, t) in full.items()}
+            return wall - wall1, ms
+        SHORT_TRACES += 1
+        print(f"chip_smoke: decode traces short of {steps} steps: "
+              f"{short}; tracing again", file=sys.stderr, flush=True)
+    raise RuntimeError(f"torch.profiler traced no whole decode steps in "
+                       f"{PROFILE_TRIES} pairs of traces")
+
+
+def decode_share(by_kernel: dict) -> dict:
+    """Device ms of decode steps by part: the int4 kernel, or the int8
+    path's quantize kernel and int8 GEMMs, or the bf16 GEMMs."""
+    parts = {"int4_matmul_ms": 0.0, "quantize_rows_ms": 0.0,
+             "int8_gemm_ms": 0.0, "bf16_gemm_ms": 0.0}
+    for k, ms in by_kernel.items():
+        low = k.lower()
+        if "int4_mm_kernel" in k or "int4_reduce_kernel" in k:
+            parts["int4_matmul_ms"] += ms
+        elif "rowq_kernel" in k:
+            parts["quantize_rows_ms"] += ms
+        elif any(n in low for n in GEMM_NAMES):
+            part = "int8_gemm_ms" if any(n in low for n in INT8_NAMES) \
+                else "bf16_gemm_ms"
+            parts[part] += ms
+    return parts
+
+
+def int8_route_check(torch, np, m) -> bool:
+    """A 64-token prompt's prefill logits of the int8 model with every
+    dynamic quantize through row 8's kernel, and through its plain
+    version: the codes and scales agree bit for bit (kernels phase), and
+    the int8 product and dequant that follow are the same calls, so the
+    logits must be equal."""
+    ids = np.random.RandomState(1).randint(0, m.config.vocab_size,
+                                           DECODE_PROMPT)
+    kern = prefill_logits(torch, m, ids, False)
+    with int8_plain_route():
+        plain = prefill_logits(torch, m, ids, False)
+    if not torch.equal(kern, plain):
+        raise AssertionError(
+            f"int8 prefill logits, row 8's kernel vs its plain version: "
+            f"max |diff| {(kern - plain).abs().max().item()}, expected 0")
+    return True
+
+
+def phase_decode(torch, np, model):
+    """bench_llama_decode.py's phases: generate() at a 64-token prompt and
+    128 new tokens, batch 1 and 8, for bf16, weight_only_int8 and
+    weight_only_int4(group=128); a short warm-up, then one counted run
+    (tokens/s, launches exactly as derived: per model call 113 int4_matmul
+    or 113 quantize_rows launches, and 16 flash launches for the
+    prefill); then DECODE_PROFILE_STEPS decode steps of generate() under
+    the profiler (device ms per step, busy share, the quantized path's
+    share). The int8 model's prefill logits through row 8's kernel must
+    equal those through its plain version bit for bit."""
+    from paddle_tpu_torch.quantization import (weight_only_int4,
+                                               weight_only_int8)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    per_call = L * LINEARS_PER_LAYER + 1
+    rng = np.random.RandomState(0)
+    total = dict.fromkeys(kernel_wrappers(), 0)
+    out = {}
+    for precision in ("bf16", "int8", "int4"):
+        m = model if precision == "bf16" else \
+            weight_only_int8(model, inplace=False) if precision == "int8" \
+            else weight_only_int4(model, group=INT4_GROUP, inplace=False)
+        res = {"weight_gb": weight_bytes(m) / 1e9}
+        if precision != "bf16":
+            res.update(last_logit_parity(torch, np, model, m))
+        if precision == "int8":
+            res["route_logits_equal"] = int8_route_check(torch, np, m)
+        for bs in DECODE_BATCHES:
+            ids = torch.as_tensor(rng.randint(
+                0, cfg.vocab_size, (bs, DECODE_PROMPT)), device=model.device)
+            m.generate(ids, max_new_tokens=DECODE_WARM)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            toks = m.generate(ids, max_new_tokens=DECODE_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            want = dict.fromkeys(kernel_wrappers(), 0)
+            want["flash_attention_fwd"] = L
+            if precision == "int4":
+                want["int4_matmul"] = per_call * DECODE_NEW
+            elif precision == "int8":
+                want["quantize_rows"] = per_call * DECODE_NEW
+            if counts != want:
+                raise AssertionError(f"decode {precision} bs {bs}: launches "
+                                     f"{counts}, expected {want}")
+            if toks.shape != (bs, DECODE_PROMPT + DECODE_NEW):
+                raise AssertionError(f"decode {precision}: {toks.shape}")
+            for k, v in counts.items():
+                total[k] += v
+            pwall, by_kernel = decode_step_trace(torch, m, ids)
+            dev = sum(by_kernel.values())
+            res[f"bs{bs}"] = {
+                "tokens_per_s": bs * DECODE_NEW / wall, "wall_s": wall,
+                "device_ms_per_step": dev / DECODE_PROFILE_STEPS,
+                "wall_ms_per_step_profiled": pwall * 1e3
+                / DECODE_PROFILE_STEPS,
+                "device_busy_share": dev / (pwall * 1e3),
+                "ms_per_step_by_part": {
+                    k: v / DECODE_PROFILE_STEPS
+                    for k, v in decode_share(by_kernel).items()}}
+        out[precision] = res
+        if m is not model:
+            del m
+        torch.cuda.empty_cache()
+    emit({"phase": "decode", "prompt": DECODE_PROMPT, "new": DECODE_NEW,
+          "int4_group": INT4_GROUP, **out})
+    return total
 
 
 def gpt_1p3b_config(num_layers: int = 24):
@@ -1400,6 +1826,7 @@ def main() -> int:
     quant_rows.update(phase_kernels_ln(torch))
     phase_int_mm(torch)
     adamw8_rows = phase_kernels_adamw8(torch)
+    int4_rows = phase_kernels_int4(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlamaForCausalLM(llama_1b_config(), dtype="bfloat16",
@@ -1407,10 +1834,15 @@ def main() -> int:
     prompts, reqs, serve_launches = phase_serve(torch, np, model)
     phase_check(torch, np, model, prompts, reqs)
     phase_profile(torch, model, prompts)
+    launches = {"serve": serve_launches}
+    qmodel, qreqs, launches["serve-int4"] = phase_serve_int4(
+        torch, np, model, prompts)
+    phase_check_int4(torch, np, model, qmodel, prompts, qreqs)
+    del qmodel, qreqs
+    launches["decode"] = phase_decode(torch, np, model)
     del model, reqs
     torch.cuda.empty_cache()
 
-    launches = {"serve": serve_launches}
     losses = {}
     for path in ("train-flagship", "train-flagship-ln", "train"):
         tr = gpt_trainer(torch, RECIPES[path])
@@ -1472,7 +1904,11 @@ def main() -> int:
               largest(quant_rows["sr_quantize_colwise"])),
         entry("fused_adamw8", "fused_adamw8.cu",
               "paddle_tpu/ops/fused_adamw.py:222", adamw8_rows,
-              largest(adamw8_rows))]})
+              largest(adamw8_rows)),
+        entry("int4_matmul", "int4_matmul.cu",
+              "paddle_tpu/ops/int4_matmul.py:118", int4_rows,
+              next(r for r in int4_rows if r["M"] == SLOTS
+                   and r["N"] == 32000), "serve-int4")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

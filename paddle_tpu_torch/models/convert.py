@@ -11,6 +11,14 @@ one; the only layout change is the linear weights: the reference's
 ``torch.nn.Linear`` stores ``[out, in]``, so every ``*_proj.weight``
 and ``lm_head.weight`` is transposed. ``Embedding`` keeps
 ``[vocab, hidden]``. Names or shapes that do not match raise.
+A weight-only quantized reference model (``weight_only_int4`` or
+``weight_only_int8``) carries across too: each linear whose state holds
+``<name>.wq`` and ``<name>.w_scale`` becomes an ``Int4Linear`` (packed
+``uint8`` codes; the group read off the shapes) or an ``Int8Linear``
+(``int8`` codes, dynamic activation scales: the reference keeps a static
+scale outside its state) holding those codes and scales as they are, no
+re-quantization; both packages lay them out ``[in, out]``, so nothing of
+theirs is transposed.
 
 ``gpt_trainer_from_jax_params`` takes ``GPTSpmdTrainer.params`` as
 numpy and returns a ``GPTTrainer`` holding them; both packages keep
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, resolve_dtype
+from ..quantization import Int4Linear, Int8Linear
 from .gpt import (GPTConfig, GPTTrainer, block_shapes, flatten_params,
                   top_shapes)
 from .llama import LlamaConfig, LlamaForCausalLM
@@ -48,9 +57,37 @@ def _is_linear_weight(name: str) -> bool:
     return name.endswith("_proj.weight") or name == "lm_head.weight"
 
 
+def _swap_quantized(model: LlamaForCausalLM, np_state) -> None:
+    """Replace each linear that ``np_state`` holds as weight-only codes
+    (``<name>.wq``, ``<name>.w_scale``) by the quantized layer holding
+    them; a name that is no linear of the model, a missing scale, an
+    unknown code dtype or a shape off the linear's raises."""
+    for name in sorted(n[:-3] for n in np_state if n.endswith(".wq")):
+        linear = model.get_submodule(name)
+        if not isinstance(linear, torch.nn.Linear):
+            raise KeyError(f"{name}.wq: {name} is no linear of the model")
+        wq = torch.tensor(np.asarray(np_state[name + ".wq"]))
+        scale = torch.tensor(_np32(np_state[name + ".w_scale"]))
+        kinds = {torch.uint8: Int4Linear, torch.int8: Int8Linear}
+        if wq.dtype not in kinds:
+            raise ValueError(f"{name}.wq: codes of dtype {wq.dtype}; "
+                             f"expected uint8 (int4) or int8")
+        layer = kinds[wq.dtype].from_codes(wq, scale, linear.bias)
+        if (layer.in_features, layer.out_features) != (
+                linear.in_features, linear.out_features):
+            raise ValueError(
+                f"{name}: codes for a {layer.in_features} x "
+                f"{layer.out_features} weight; the model's linear is "
+                f"{linear.in_features} x {linear.out_features}")
+        parent, _, child = name.rpartition(".")
+        setattr(model.get_submodule(parent), child,
+                layer.to(linear.weight.device))
+
+
 def llama_from_jax_state(np_state: Dict[str, np.ndarray], cfg: LlamaConfig,
                          device=None, dtype=None) -> LlamaForCausalLM:
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
+    _swap_quantized(model, np_state)
     state = {}
     for name, arr in np_state.items():
         t = torch.tensor(_np32(arr))        # a copy the model owns

@@ -436,7 +436,9 @@ class LlamaForCausalLM(nn.Module):
         # round the buffer up, as the reference does for its programs
         max_len = min(cfg.max_position_embeddings, ((want + 63) // 64) * 64)
         D = cfg.head_dim
-        kv = self.llama.layers[0].self_attn.k_proj.weight.shape[0] // D
+        # k_proj may be an nn.Linear or a weight-only quantized layer
+        # (quantization/): both have out_features
+        kv = self.llama.layers[0].self_attn.k_proj.out_features // D
         w = self.llama.embed_tokens.weight
         return [(torch.zeros(B, max_len, kv, D, dtype=w.dtype,
                              device=w.device),

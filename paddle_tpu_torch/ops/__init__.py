@@ -6,7 +6,10 @@ Counterpart of ``paddle_tpu/ops`` for the kernels ported so far:
 (``fused_adamw.py`` ``fused_adamw_update`` and ``fused_adamw_update8``)
 and ``quant_matmul`` (``quant_matmul.py`` ``_rowq_call``, ``_colq_call``,
 ``_rowq_ln_call``, ``_sr_colq_ln_pallas``, ``_sr_colq_pallas`` and the
-int8 linears over ``torch._int_mm``); ``fused_ce`` is the reference's
+int8 linears over ``torch._int_mm``) and ``int4_matmul``
+(``int4_matmul.py`` ``int4_matmul``, the weight-only int4 matmul, with
+its torch quantizers; imported from its module, whose name it shares);
+``fused_ce`` is the reference's
 chunked cross-entropy (plain or int8 matmuls) and ``layer_norm`` the
 trainer's LayerNorm (plain PyTorch).
 ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.

@@ -96,8 +96,10 @@ class _ModelAdapter:
         self.head = model._head
         self.num_layers = len(backbone.layers)
         self.head_dim = cfg.head_dim
-        kw = backbone.layers[0].self_attn.k_proj.weight      # [out, in]
-        self.kv_heads = kw.shape[0] // cfg.head_dim
+        # an nn.Linear or a weight-only Int4Linear / Int8Linear: all
+        # have out_features
+        kp = backbone.layers[0].self_attn.k_proj
+        self.kv_heads = kp.out_features // cfg.head_dim
         self.max_positions = cfg.max_position_embeddings
         w = backbone.embed_tokens.weight
         self.dtype, self.device = w.dtype, w.device
