@@ -40,12 +40,27 @@ then exits non-zero and prints no result):
              g = b = 0 column; row 11 under row 12's SR laws; ms beside
              the bound, the plain version and the unfused pair each
              replaces.
+   kernels-attn — the flash kernels at head_dims off {64, 128, 256}
+             (32, 80, 96 and 64 in bf16, run at the next tile width) and
+             in f32 (64 and 128, f32 FMAs on the CUDA cores), causal and
+             not, forward and backward against the plain versions (the
+             backward the same bits twice); ms beside the bound, the
+             plain version and PyTorch's SDPA (a yardstick).
    kernels, row 7 — int4_matmul against its plain version at Llama-1B's
              four linear shapes (down_proj at group 64), M in {1, 8, 16,
              512} and a ragged 300, within one bf16 step of the output's
              magnitude, an all-zero group at scale 1; ms beside the
              bound, the plain version, torch._weight_int4pack_mm (a
              yardstick the port never calls) and the bf16 linear.
+   kernels-bn, row 15 — the four BatchNorm kernels (stats, apply, gsum,
+             dx) against their plain versions at the 12 BN shapes of
+             ResNet-50 at batch 256, bf16 with relu on and off, apply
+             also f32: apply and dx bit for bit, the sums within
+             BN_SUM_TOL, two runs the same bits; ms beside the bytes
+             bound at every shape, the BN ms of a step at 53 layers;
+             plain, torch.var_mean / torch.addcmul and cuDNN's
+             F.batch_norm forward and backward (yardsticks) at the stem
+             and layer4 shapes.
 4. serve   — Llama ~1.1B at full width (vocab 32000, hidden 2048, FFN
              5504, 16 heads of 128, 16 layers, bf16; random weights
              from seed 0) served by ServingEngine(kv_layout="contiguous",
@@ -122,11 +137,34 @@ then exits non-zero and prints no result):
              fuse_ln_quant with fuse_bwd_colq on and off,
              fuse_gelu_quant=False, ce_int8, quant8=True and "dgrad".
 
+15. train-resnet50 — bench_resnet50.py:build_train_step's recipe:
+             resnet50 (weights from seed 0), Momentum(lr 0.01),
+             amp.decorate O2 bf16, TrainStep with CrossEntropyLoss, at
+             batch 256 x 3x224x224 from numpy.random.RandomState(0): 2
+             warm-up and 5 counted steps, exactly 53 launches of each BN
+             kernel a step and no other port kernel, finite losses;
+             img/s, step ms, peak memory.
+16. train-resnet50-profile — one step under torch.profiler: device ms
+             by family (cuDNN convolutions forward, dgrad, wgrad and
+             their NCHW/NHWC layout passes, the BN kernels, GEMMs,
+             elementwise, reductions, the rest), busy share, top
+             kernels; the Momentum update alone in a second trace.
+17. infer-resnet50 — the bench's inference phase: eval mode, fp32,
+             batch 256, torch.inference_mode(), img/s (BN through
+             kernel 2 in f32, 53 launches a forward); whether cuDNN ran
+             the convolutions in TF32 (PyTorch's default) is printed.
+18. train-check-resnet — ResNet-50 cut to one block a stage, batch 64,
+             cuDNN deterministic without TF32: one step through the BN
+             kernels twice (the same bits) and against the plain BN
+             route, in f32 and under O2 (the loss, every gradient, the
+             running statistics; tolerances at RESNET_F32_TOL).
+
 Then the line {"phase": "profiler", ...} (how many traces came back
 without device time, or short of events, and were taken again), the
 line {"kernels": [...]}
 (launches from the train-flagship phase, int4_matmul's from
-serve-int4, every path's beside them; ms and bounds at the trainer's
+serve-int4, the BN kernels' from train-resnet50, every path's beside
+them; ms and bounds at the trainer's
 shapes, int4_matmul's at lm_head's decode shape), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device":
 {...}}. Needs a CUDA device and the repository checkout beside this
@@ -134,6 +172,7 @@ file; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -937,6 +976,7 @@ def kernel_wrappers() -> dict:
                                                       flash_attention_fwd)
     from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
                                                   fused_adamw_update8)
+    from paddle_tpu_torch.ops import batch_norm as bn
     from paddle_tpu_torch.ops.int4_matmul import int4_matmul
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
@@ -947,7 +987,9 @@ def kernel_wrappers() -> dict:
             "ln_quantize_rowwise": qm.ln_quantize_rowwise,
             "sr_quantize_colwise_ln": qm.sr_quantize_colwise_ln,
             "fused_adamw8": fused_adamw_update8,
-            "int4_matmul": int4_matmul}
+            "int4_matmul": int4_matmul,
+            "bn_stats": bn.bn_stats, "bn_apply": bn.bn_apply,
+            "bn_gsum": bn.bn_gsum, "bn_dx": bn.bn_dx}
 
 
 def reset_launches() -> None:
@@ -1796,6 +1838,574 @@ def phase_train_check(torch, np, name: str, recipe: dict):
     torch.cuda.empty_cache()
 
 
+# ---- Part A: flash attention at every head_dim and in f32 ----
+
+# (D, dtype, causal) at B=4, S=512, H=8: head_dims off the reference
+# kernel's {64, 128, 256} in bf16 (tile widths 32, 96, 96 and 64), and
+# f32 (f32 FMAs on the CUDA cores)
+ATTN_CASES = [(32, "bfloat16", True), (80, "bfloat16", True),
+              (96, "bfloat16", False), (64, "bfloat16", False),
+              (64, "float32", True), (128, "float32", False)]
+ATTN_SHAPE = (4, 512, 8)
+F32_TOL = 1e-4                   # f32 kernels vs plain (atol=rtol)
+
+
+def attn_bound(B, S, H, D, causal, itemsize, backward: bool):
+    """flash_bound / flash_bwd_bound, with f32 matmuls counted at the
+    scalar f32 rate (the f32 kernels use no tensor cores)."""
+    n_bytes = (8 if backward else 4) * B * S * H * D * itemsize \
+        + B * H * S * 4
+    flops = (10 if backward else 4) * B * H * score_pairs(S, causal) * D
+    if itemsize == 4:
+        return bound(n_bytes, 0, scalar_ops=flops)
+    return bound(n_bytes, flops)
+
+
+def phase_kernels_attn(torch, F):
+    """Part A of the flash kernels: head_dim 32, 80, 96 and 64 in bf16
+    and f32 at 64 and 128, causal and not, forward and backward, against
+    the plain versions (bf16 at OUT_TOL / GRAD_TOL, f32 at F32_TOL); the
+    backward gives the same bits twice; ms beside the bound, the plain
+    version and PyTorch's SDPA (a yardstick)."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, H = ATTN_SHAPE
+    rows = []
+    for D, dt, causal in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=g)
+                       .to(dtype) for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+        ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+        grads = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash backward D={D} {dt}: two runs "
+                                 f"gave different bits")
+        otol = F32_TOL if dt == "float32" else OUT_TOL
+        gtol = F32_TOL if dt == "float32" else GRAD_TOL
+        torch.testing.assert_close(out.float(), ref.float(), atol=otol,
+                                   rtol=otol)
+        torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, plain):
+            torch.testing.assert_close(
+                a.float(), b.float(), atol=gtol, rtol=gtol,
+                msg=lambda m: f"{name} D={D} {dt}: {m}")
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+        lib_do = do.transpose(1, 2)
+        item = q.element_size()
+        fb, fby = attn_bound(B, S, H, D, causal, item, False)
+        bb, bby = attn_bound(B, S, H, D, causal, item, True)
+        rows.append({
+            "B": B, "S": S, "H": H, "D": D, "dtype": dt, "causal": causal,
+            "fwd": {"max_abs_err": (out.float() - ref.float()).abs().max()
+                    .item(),
+                    "ms": device_ms(torch, lambda: flash_attention_fwd(
+                        q, k, v, causal=causal), 10),
+                    "plain_ms": device_ms(torch, lambda: (
+                        flash_attention_fwd_plain(q, k, v, causal)), 3),
+                    "library_ms": device_ms(torch, lambda: (
+                        F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=causal)), 10),
+                    "bound_ms": fb, "bound_by": fby},
+            "bwd": {"max_abs_err": max(
+                        (a.float() - b.float()).abs().max().item()
+                        for a, b in zip(grads, plain)),
+                    "bitwise_repeatable": True,
+                    "ms": device_ms(torch, lambda: flash_attention_bwd(
+                        q, k, v, out, lse, do, causal), 5),
+                    "plain_ms": device_ms(torch, lambda: (
+                        flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                  causal)), 3),
+                    "library_ms": device_ms(torch, lambda: (
+                        torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                            retain_graph=True)), 5),
+                    "bound_ms": bb, "bound_by": bby}})
+        del grads, again, plain, lib_out
+    emit({"phase": "kernels-attn",
+          "tolerance": {"bf16_out_atol_rtol": OUT_TOL,
+                        "bf16_grad_atol_rtol": GRAD_TOL,
+                        "f32_atol_rtol": F32_TOL, "lse_atol": LSE_TOL},
+          "cases": rows})
+    return rows
+
+
+# ---- row 15: the BatchNorm kernels ----
+
+RESNET_B, RESNET_HW = 256, 224
+# (C, S) of ResNet-50's 53 BatchNorms at 224x224, with how many layers
+# have each shape: the stem; layer1-4's bn1/bn2/bn3 and downsample BNs
+# (a stage's first bn1 sees the previous stage's resolution): 2.845 G
+# values a step at batch 256
+BN_SHAPES = [(64, 12544, 1), (64, 3136, 6), (128, 3136, 1), (256, 3136, 4),
+             (128, 784, 7), (256, 784, 1), (512, 784, 5), (256, 196, 11),
+             (512, 196, 1), (1024, 196, 7), (512, 49, 5), (2048, 49, 4)]
+BN_LAYERS = 53
+BN_SUM_TOL = 1e-5               # kernel vs plain sums, relative to max|.|
+BN_TIMED = ((64, 12544), (2048, 49))   # plain and library timed here
+
+
+def bn_bytes(kernel: str, n: int, C: int, item: int) -> int:
+    """Bytes the kernel must move for n values: stats reads x; apply
+    reads x and writes y; gsum reads dy and x; dx reads dy and x and
+    writes dx; plus its [C] f32 vectors (2 in or out each)."""
+    per = {"bn_stats": 1, "bn_apply": 2, "bn_gsum": 2, "bn_dx": 3}[kernel]
+    vecs = {"bn_stats": 2, "bn_apply": 2, "bn_gsum": 4, "bn_dx": 5}[kernel]
+    return per * n * item + vecs * C * 4
+
+
+def check_sums(torch, name, got, want) -> float:
+    err = 0.0
+    for a, b in zip(got, want):
+        scale = b.abs().max().clamp_min(1.0)
+        e = ((a - b).abs().max() / scale).item()
+        if e > BN_SUM_TOL:
+            raise AssertionError(f"{name}: sums off by {e} of their max "
+                                 f"(tol {BN_SUM_TOL})")
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def phase_kernels_bn(torch, F):
+    """Each BN kernel against its plain version at the 12 BN shapes of
+    ResNet-50 at batch 256 ([256, C, S]), bf16 with relu on and off (the
+    training step), kernel 2 also f32 (the eval phase): apply and dx bit
+    for bit (the same rounded operations), the sums within BN_SUM_TOL of
+    their largest magnitude (the same terms in another order); two runs
+    give the same bits. ms beside the bytes bound at every shape; the
+    plain versions and library calls (torch.var_mean for stats,
+    torch.addcmul for apply; cuDNN's F.batch_norm(training=True) forward
+    and backward as a yardstick for each pair) at the stem and layer4
+    shapes. Returns {kernel: rows}."""
+    from paddle_tpu_torch.ops import batch_norm as bn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = {k: [] for k in ("bn_stats", "bn_apply", "bn_gsum", "bn_dx")}
+    per_step = dict.fromkeys(rows, 0.0)
+    bound_step = dict.fromkeys(rows, 0.0)
+    cudnn = []
+    for C, S, layers in BN_SHAPES:
+        N = RESNET_B
+        x = (torch.randn(N, C, S, device=dev, generator=g) * 2 + 0.3) \
+            .bfloat16()
+        dy = torch.randn(N, C, S, device=dev, generator=g).bfloat16()
+        scale = torch.rand(C, device=dev, generator=g) + 0.5
+        shift = torch.randn(C, device=dev, generator=g)
+        A, B, D = (torch.randn(C, device=dev, generator=g) for _ in range(3))
+        x32 = x.float()
+        timed = (C, S) in BN_TIMED
+        for relu in (True, False):
+            rf = (scale, shift) if relu else None
+            runs = [(bn.bn_stats(x), bn.bn_apply(x, scale, shift, relu),
+                     bn.bn_gsum(dy, x, rf), bn.bn_dx(dy, x, A, B, D, rf))
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            (s, y, gs, dx), (s2, y2, gs2, dx2) = runs
+            if not all(torch.equal(a, b) for a, b in
+                       zip((*s, y, *gs, dx), (*s2, y2, *gs2, dx2))):
+                raise AssertionError(f"BN kernels [{N}, {C}, {S}] relu="
+                                     f"{relu}: two runs gave other bits")
+            if not torch.equal(y, bn.bn_apply_plain(x, scale, shift, relu)):
+                raise AssertionError(f"bn_apply [{N}, {C}, {S}] relu={relu}"
+                                     f" differs from its plain version")
+            if not torch.equal(dx, bn.bn_dx_plain(dy, x, A, B, D, rf)):
+                raise AssertionError(f"bn_dx [{N}, {C}, {S}] relu={relu} "
+                                     f"differs from its plain version")
+            errs = {"bn_stats": check_sums(torch, "bn_stats", s,
+                                           bn.bn_stats_plain(x)),
+                    "bn_apply": 0.0, "bn_dx": 0.0,
+                    "bn_gsum": check_sums(torch, "bn_gsum", gs,
+                                          bn.bn_gsum_plain(dy, x, rf))}
+            if relu:
+                calls = {
+                    "bn_stats": (lambda: bn.bn_stats(x),
+                                 lambda: bn.bn_stats_plain(x),
+                                 lambda: torch.var_mean(x, dim=(0, 2))),
+                    "bn_apply": (lambda: bn.bn_apply(x, scale, shift, True),
+                                 lambda: bn.bn_apply_plain(x, scale, shift,
+                                                           True),
+                                 lambda: torch.addcmul(
+                                     shift.view(1, -1, 1), x,
+                                     scale.view(1, -1, 1))),
+                    "bn_gsum": (lambda: bn.bn_gsum(dy, x, (scale, shift)),
+                                lambda: bn.bn_gsum_plain(dy, x,
+                                                         (scale, shift)),
+                                None),
+                    "bn_dx": (lambda: bn.bn_dx(dy, x, A, B, D,
+                                               (scale, shift)),
+                              lambda: bn.bn_dx_plain(dy, x, A, B, D,
+                                                     (scale, shift)),
+                              None)}
+                for k, (kern, plain, lib) in calls.items():
+                    b_ms, b_by = bound(bn_bytes(k, N * C * S, C, 2), 0)
+                    ms = device_ms(torch, kern, 10)
+                    per_step[k] += ms * layers
+                    bound_step[k] += b_ms * layers
+                    rows[k].append({
+                        "shape": [N, C, S], "dtype": "bfloat16",
+                        "relu": True, "layers": layers,
+                        "max_abs_err": errs[k], "bitwise_repeatable": True,
+                        "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "plain_ms": device_ms(torch, plain, 3)
+                        if timed else None,
+                        "library_ms": device_ms(torch, lib, 10)
+                        if timed and lib is not None else None})
+            else:
+                for k in rows:
+                    rows[k][-1]["relu_off_max_abs_err"] = errs[k]
+        # kernel 2 in f32, as the eval phase runs it
+        y32 = bn.bn_apply(x32, scale, shift, True)
+        if not torch.equal(y32, bn.bn_apply_plain(x32, scale, shift, True)):
+            raise AssertionError(f"bn_apply f32 [{N}, {C}, {S}] differs")
+        rows["bn_apply"][-1]["f32_ms"] = device_ms(
+            torch, lambda: bn.bn_apply(x32, scale, shift, True), 10)
+        if timed:
+            w = torch.ones(C, device=dev, requires_grad=True)
+            b = torch.zeros(C, device=dev, requires_grad=True)
+            x4 = x.view(N, C, S, 1).detach().requires_grad_()
+            out = F.batch_norm(x4, None, None, w.bfloat16(), b.bfloat16(),
+                               training=True)
+            cudnn.append({"shape": [N, C, S],
+                          "fwd_ms": device_ms(torch, lambda: F.batch_norm(
+                              x4, None, None, w.bfloat16(), b.bfloat16(),
+                              training=True), 10),
+                          "bwd_ms": device_ms(torch, lambda: (
+                              torch.autograd.grad(out, (x4,),
+                                                  dy.view_as(out),
+                                                  retain_graph=True)), 10)})
+            del out, x4
+        del x, dy, x32, y32, runs
+    emit({"phase": "kernels-bn", "tolerance": {"sums_rel_max": BN_SUM_TOL,
+                                               "apply_dx": "bitwise"},
+          "rows": rows, "cudnn_batch_norm_yardstick": cudnn,
+          "ms_per_step_at_53_layers": per_step,
+          "bound_ms_per_step": bound_step,
+          "bn_ms_per_step": sum(per_step.values()),
+          "bn_bound_ms_per_step": sum(bound_step.values())})
+    return rows
+
+
+# ---- ResNet-50: AMP-O2 training and fp32 inference ----
+
+RESNET_WARMUP, RESNET_STEPS = 2, 5
+
+
+def resnet_data(np, torch, batch: int = RESNET_B, hw: int = RESNET_HW):
+    """bench_resnet50.py's data (np.random.rand images in [0, 1) and
+    randint labels), seeded here: the bench draws unseeded."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(batch, 3, hw, hw).astype(np.float32)
+    y = rng.randint(0, 1000, (batch,)).astype(np.int64)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def resnet_train_step(torch, model=None):
+    """bench_resnet50.py:build_train_step's recipe on the port: resnet50
+    (weights from seed 0), Momentum(lr 0.01), amp.decorate O2 bf16,
+    TrainStep with CrossEntropyLoss; returns (step, model, opt) where
+    step(x, y) runs under auto_cast O2."""
+    from paddle_tpu_torch import amp, jit, nn, optimizer
+    from paddle_tpu_torch.vision.models import resnet50
+    if model is None:
+        model = resnet50(generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    model.train()
+    opt = optimizer.Momentum(learning_rate=0.01,
+                             parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    train = jit.TrainStep(model, opt, nn.CrossEntropyLoss())
+
+    def step(x, y):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return train(x, y)
+    return step, model, opt
+
+
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_gsum", "bn_dx")
+
+
+def phase_train_resnet(torch, np):
+    """ResNet-50 AMP-O2 at batch 256, 3x224x224: 2 warm-up and 5 counted
+    steps, the launch counts set to 0 just before and read just after:
+    exactly 53 of each BN kernel a step and no other port kernel; every
+    loss finite. img/s, step ms, peak memory."""
+    step, model, opt = resnet_train_step(torch)
+    x, y = resnet_data(np, torch)
+    losses = [step(x, y) for _ in range(RESNET_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(RESNET_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({k: BN_LAYERS * RESNET_STEPS for k in BN_KERNELS})
+    if counts != want:
+        raise AssertionError(f"train-resnet50 launches {counts}, expected "
+                             f"{want} over {RESNET_STEPS} steps")
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train-resnet50: non-finite loss {losses}")
+    emit({"phase": "train-resnet50", "batch": RESNET_B,
+          "image": [3, RESNET_HW, RESNET_HW], "recipe": "AMP-O2 bf16, "
+          "Momentum(lr 0.01, 0.9), CrossEntropyLoss, TrainStep",
+          "params": sum(p.numel() for p in model.parameters()),
+          "steps": RESNET_STEPS, "losses": losses,
+          "step_ms": wall / RESNET_STEPS * 1e3,
+          "img_per_s": RESNET_B * RESNET_STEPS / wall,
+          "launches_per_step": {k: v / RESNET_STEPS
+                                for k, v in counts.items()},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "reductions": ["data from numpy.random.RandomState(0): the bench "
+                         "draws unseeded", "weights random from seed 0"]})
+    return counts, step, model, opt, (x, y)
+
+
+# kernel families of the ResNet step's trace by name
+RESNET_PARTS = (
+    ("bn_stats_ms", ("bn_partial_kernel<__nv_bfloat16, 8, false>",
+                     "bn_partial_kernel<__nv_bfloat16, 4, false>",
+                     "bn_partial_kernel<__nv_bfloat16, 2, false>",
+                     "bn_partial_kernel<__nv_bfloat16, 1, false>")),
+    ("bn_gsum_ms", ("bn_partial_kernel",)),
+    ("bn_sum_partials_ms", ("bn_sum_partials_kernel",)),
+    ("bn_apply_ms", ("bn_apply_kernel",)),
+    ("bn_dx_ms", ("bn_dx_kernel",)),
+    ("conv_dgrad_ms", ("dgrad",)),
+    ("conv_wgrad_ms", ("wgrad",)),
+    ("conv_fwd_ms", ("fprop", "implicit_convolve", "conv2d_grouped",
+                     "convolve")),
+    ("conv_layout_ms", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("gemm_ms", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("elementwise_ms", ("elementwise", "copy", "fill")),
+    ("reduce_ms", ("reduce", "softmax", "pool", "nll")),
+)
+
+
+def phase_train_resnet_profile(torch, step, opt, data):
+    """One step under torch.profiler: device ms by kernel family (each
+    BN kernel, stats and gsum by their kGrad template argument, and the
+    second pass they share; cuDNN convolutions forward, dgrad, wgrad and
+    their layout passes; elementwise, reductions, the rest), busy share,
+    top kernels; the optimizer's update alone in a second trace."""
+    x, y = data
+    wall, ev = traced(torch, lambda: lambda: step(x, y), with_cpu=True)
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    ms = {e.key: e.self_device_time_total / 1e3 for e in ev}
+    dev = sum(ms.values())
+    parts = {name: 0.0 for name, _ in RESNET_PARTS}
+    parts["other_ms"] = 0.0
+    for k, v in ms.items():
+        low = k.lower()
+        part = next((p for p, names in RESNET_PARTS
+                     if any(n.lower() in low for n in names)), "other_ms")
+        parts[part] += v
+    parts["bn_ms"] = sum(v for k, v in parts.items() if k.startswith("bn_"))
+    _, oev = traced(torch, lambda: opt.step, with_cpu=True)
+    emit({"phase": "train-resnet50-profile", "wall_ms": wall * 1e3,
+          "device_ms": dev, "device_busy_share": dev / (wall * 1e3),
+          **parts, "optimizer_step_device_ms": sum(
+              e.self_device_time_total for e in oev) / 1e3,
+          "top_kernels_ms": [(k[:100], v)
+                             for k, v in list(ms.items())[:16]]})
+
+
+def phase_infer_resnet(torch, np):
+    """bench_resnet50.py's inference phase (:48-61): eval mode, fp32,
+    batch 256, 224x224, in torch.inference_mode(): 2 warm-up and 10
+    timed forwards; BN runs kernel 2 in f32 (53 launches a forward).
+    cuDNN's fp32 convolutions run in TF32 when
+    torch.backends.cudnn.allow_tf32 (PyTorch's default), printed."""
+    from paddle_tpu_torch.ops import batch_norm as bn
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(generator=torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    x, _ = resnet_data(np, torch)
+    steps = 10
+    with torch.inference_mode():
+        for _ in range(2):
+            out = model(x)
+        torch.cuda.synchronize()
+        before = bn.bn_apply.launches
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = model(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (bn.bn_apply.launches - before) / steps
+    if launches != BN_LAYERS or out.shape != (RESNET_B, 1000) \
+            or out.dtype != torch.float32 or not torch.isfinite(out).all():
+        raise AssertionError(f"infer-resnet50: {launches} bn_apply "
+                             f"launches a forward, out {out.dtype}"
+                             f"{tuple(out.shape)}")
+    emit({"phase": "infer-resnet50", "batch": RESNET_B, "dtype": "float32",
+          "img_per_s": RESNET_B * steps / wall,
+          "forward_ms": wall / steps * 1e3,
+          "bn_apply_launches_per_forward": launches,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    del model, out
+
+
+class bn_plain_route:
+    """Within the block the four BN wrappers run their plain versions on
+    the card."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import batch_norm as bn
+        self.saved = {k: getattr(bn, k) for k in BN_KERNELS}
+        for k in BN_KERNELS:
+            setattr(bn, k, getattr(bn, k + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import batch_norm as bn
+        for k, fn in self.saved.items():
+            setattr(bn, k, fn)
+        return False
+
+
+RESNET_CHECK_B = 64
+# train-check-resnet tolerances, kernel route vs plain route (cuDNN
+# deterministic, no TF32). In f32 the routes differ only in the order of
+# the BN kernels' f32 sums: the loss and the running statistics to
+# RESNET_F32_TOL of their magnitude; the gradients to RESNET_F32_GRAD_TOL
+# of each one's norm, since the backward's per-channel sums of dy nearly
+# cancel (0.4% measured at seed 0, by this phase). Under O2 a bf16 y
+# also rounds the other way now and then, and each BN backward magnifies
+# such a change (dx = A dy + B x + D nearly cancels): 9% of the global
+# norm and up to 19% of one gradient's, measured by this phase, where
+# the reference's own O2 gradients differ from a float64 evaluation by
+# 25-30% (tests/test_torch_resnet.py): the loss within TRAIN_LOSS_TOL,
+# the global norm within RESNET_O2_GRAD_TOL, each gradient within
+# RESNET_O2_EACH_GRAD_TOL, the running statistics within RESNET_STAT_TOL
+RESNET_F32_TOL = 1e-5
+RESNET_F32_GRAD_TOL = 1e-2
+RESNET_O2_GRAD_TOL = 0.25
+RESNET_O2_EACH_GRAD_TOL = 0.5
+RESNET_STAT_TOL = 1e-3
+
+
+def resnet_check_run(torch, np, base, plain: bool, o2: bool):
+    """One TrainStep of a copy of ``base`` (kernel or plain BN route):
+    (loss, {name: gradient}, {name: running statistic}, BN param names)."""
+    import copy
+    from paddle_tpu_torch import jit, nn, optimizer
+    model = copy.deepcopy(base)
+    if o2:
+        step, model, opt = resnet_train_step(torch, model)
+    else:
+        opt = optimizer.Momentum(learning_rate=0.01,
+                                 parameters=model.parameters())
+        step = jit.TrainStep(model, opt, nn.CrossEntropyLoss())
+    x, y = resnet_data(np, torch, RESNET_CHECK_B)
+    with (bn_plain_route() if plain else contextlib.nullcontext()):
+        loss = float(step(x, y))
+    grads = {n: opt._accumulators[p]["velocity"].float().clone()
+             for n, p in model.named_parameters()}
+    stats = {n: b.clone() for n, b in model.named_buffers()}
+    bn_params = {n for n, p in model.named_parameters() if p.dim() == 1
+                 and not n.startswith("fc")}
+    return loss, grads, stats, bn_params
+
+
+class cudnn_exact:
+    """Within the block cuDNN picks deterministic algorithms and no TF32,
+    so two runs of one route give the same bits and the routes differ
+    only where the BN kernels and their plain versions do."""
+
+    def __enter__(self):
+        import torch
+        b = torch.backends.cudnn
+        self.saved = (b.deterministic, b.benchmark, b.allow_tf32)
+        b.deterministic, b.benchmark, b.allow_tf32 = True, False, False
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        b = torch.backends.cudnn
+        b.deterministic, b.benchmark, b.allow_tf32 = self.saved
+        return False
+
+
+def phase_train_check_resnet(torch, np):
+    """ResNet-50 cut to the first block of each stage, batch 64 at
+    224x224, weights from seed 0, cuDNN deterministic without TF32: one
+    TrainStep through the BN kernels twice (the same bits) and against
+    the same step with the four BN wrappers on their plain versions, in
+    f32 and under AMP O2 (the tolerances above)."""
+    from paddle_tpu_torch.vision.models import resnet50
+    base = resnet50(generator=torch.Generator(device="cuda").manual_seed(0))
+    for name in ("layer1", "layer2", "layer3", "layer4"):
+        setattr(base, name, getattr(base, name)[0:1])
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    out = {}
+    for o2 in (False, True):
+        with cudnn_exact():
+            (loss, grads, stats, bn_params), (loss2, grads2, _, _), \
+                (ploss, pgrads, pstats, _) = (
+                    resnet_check_run(torch, np, base, plain, o2)
+                    for plain in (False, False, True))
+        if loss2 != loss or not all(torch.equal(grads[n], grads2[n])
+                                    for n in grads):
+            raise AssertionError(f"train-check-resnet (o2={o2}): two runs "
+                                 f"of the kernel route gave other bits")
+        if not all(torch.isfinite(t).all() for t in grads.values()):
+            raise AssertionError("train-check-resnet: non-finite gradient")
+        diffs = {n: rel(grads[n], pgrads[n]) for n in grads}
+        glob = (sum((grads[n] - pgrads[n]).norm() ** 2 for n in grads)
+                / sum(pgrads[n].norm() ** 2 for n in grads)).sqrt().item()
+        bn_worst = max((diffs[n], n) for n in bn_params)
+        other_worst = max((d, n) for n, d in diffs.items()
+                          if n not in bn_params)
+        stat_worst = max((rel(stats[n], pstats[n]), n) for n in stats)
+        key = "o2" if o2 else "f32"
+        out[key] = {"loss": loss, "plain_loss": ploss,
+                    "loss_abs_diff": abs(loss - ploss),
+                    "grad_global_rel_diff": glob,
+                    "worst_bn_param_grad": bn_worst,
+                    "worst_other_grad": other_worst,
+                    "worst_stat": stat_worst,
+                    "grad_rel_diffs": sorted(
+                        ((round(d, 6), n) for n, d in diffs.items()),
+                        reverse=True)[:12]}
+        if o2:
+            ok = (abs(loss - ploss) <= TRAIN_LOSS_TOL
+                  and glob <= RESNET_O2_GRAD_TOL
+                  and max(diffs.values()) <= RESNET_O2_EACH_GRAD_TOL
+                  and stat_worst[0] <= RESNET_STAT_TOL)
+        else:
+            ok = (abs(loss - ploss) <= RESNET_F32_TOL * abs(ploss)
+                  and max(diffs.values()) <= RESNET_F32_GRAD_TOL
+                  and stat_worst[0] <= RESNET_F32_TOL)
+        out[key]["ok"] = ok
+    if not all(v["ok"] for v in out.values()):
+        raise AssertionError(f"train-check-resnet: {out}")
+    emit({"phase": "train-check-resnet", "blocks_per_stage": 1,
+          "batch": RESNET_CHECK_B, "cudnn": "deterministic, no TF32",
+          **out,
+          "tolerance": {"f32_loss_stat_rel": RESNET_F32_TOL,
+                        "f32_grad_rel_norm": RESNET_F32_GRAD_TOL,
+                        "o2_loss_abs": TRAIN_LOSS_TOL,
+                        "o2_grad_global_rel_norm": RESNET_O2_GRAD_TOL,
+                        "o2_grad_rel_norm": RESNET_O2_EACH_GRAD_TOL,
+                        "o2_stat_rel_norm": RESNET_STAT_TOL}})
+    del base
+    torch.cuda.empty_cache()
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1821,12 +2431,14 @@ def main() -> int:
 
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)
+    phase_kernels_attn(torch, F)
     adamw_rows = phase_kernels_adamw(torch)
     quant_rows = phase_kernels_quant(torch)
     quant_rows.update(phase_kernels_ln(torch))
     phase_int_mm(torch)
     adamw8_rows = phase_kernels_adamw8(torch)
     int4_rows = phase_kernels_int4(torch)
+    bn_rows = phase_kernels_bn(torch, F)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlamaForCausalLM(llama_1b_config(), dtype="bfloat16",
@@ -1855,6 +2467,14 @@ def main() -> int:
     phase_train_guard(torch, np)
     for name, recipe in CHECKS.items():
         phase_train_check(torch, np, name, recipe)
+
+    launches["train-resnet50"], step, model, opt, data = \
+        phase_train_resnet(torch, np)
+    phase_train_resnet_profile(torch, step, opt, data)
+    del step, model, opt, data
+    torch.cuda.empty_cache()
+    phase_infer_resnet(torch, np)
+    phase_train_check_resnet(torch, np)
 
     def entry(kernel, source, replaces, rows, main, path="train-flagship"):
         return {"name": kernel, "route": "cuda",
@@ -1908,7 +2528,10 @@ def main() -> int:
         entry("int4_matmul", "int4_matmul.cu",
               "paddle_tpu/ops/int4_matmul.py:118", int4_rows,
               next(r for r in int4_rows if r["M"] == SLOTS
-                   and r["N"] == 32000), "serve-int4")]})
+                   and r["N"] == 32000), "serve-int4"),
+        *(entry(k, "batch_norm.cu", f"paddle_tpu/ops/bn_pallas.py:{line}",
+                bn_rows[k], bn_rows[k][0], "train-resnet50")
+          for k, line in zip(BN_KERNELS, (117, 136, 149, 162)))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -18,6 +18,11 @@ This first slice serves Llama through the continuous-batching engine:
     engine = ServingEngine(model, kv_layout="contiguous", max_slots=16)
     req = engine.submit(prompt_ids, max_new_tokens=64)
     engine.run()
+
+Later slices train GPT (``models.gpt.GPTTrainer``), serve weight-only
+int4/int8 models (``quantization``), and train ResNet-50 with AMP O2
+(``vision.models.resnet50``, ``amp``, ``optimizer.Momentum``,
+``jit.TrainStep``).
 """
 from ._device import resolve_device, resolve_dtype
 

@@ -34,12 +34,26 @@
 //    dQ, accumulators are f32 (in shared memory) and rounded once at
 //    the end;
 //  - TILE SIZES DEPEND ON D, NEVER ON S: BQ = 64; BK = 64 for D <= 128
-//    and 32 for D = 256 (shared memory). The ragged last tile is
+//    and 32 above (shared memory). The ragged last tile is
 //    masked: keys >= S give P = 0, rows >= S have P = 0 and are never
 //    stored.
-// head_dim 64, 128 and 256, bf16 or f16. Inputs and outputs need a unit
-// stride in D and 16-byte aligned rows (the Python wrapper checks).
-// The launcher returns cudaGetLastError().
+// head_dim: any multiple of 8 up to 256 in bf16 or f16. The kernels are
+// instantiated at the tile widths D in {32, 64, 96, 128, 192, 256}, and a
+// call runs the smallest D >= head_dim: q, k, v and dO columns past the
+// true head_dim `hd` load as zeros (they add nothing to S or dP, and give
+// zero dq/dk/dv columns) and only the true width is stored; the scale
+// (1/sqrt(true head_dim)) comes from the caller.
+//
+// float32: `flash_bwd_*_f32_kernel` below, f32 FMAs on the CUDA cores
+// (no TF32), head_dim any multiple of 4 up to 256. The same two passes:
+// the dk/dv pass gives each warp one key row and streams 32-row q/dO
+// tiles (one query row per lane for S and dP, each lane owning
+// head_dim/32 columns of dk and dv); the dq pass gives each warp one
+// query row and streams 32-key k/v tiles. Each warp owns its output
+// rows and sums in a fixed order, so two runs give the same bits.
+//
+// Inputs and outputs need a unit stride in D and 16-byte aligned rows
+// (the Python wrapper checks). The launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -119,11 +133,12 @@ __device__ __forceinline__ void put(__half* p, float x) {
 }
 
 // Copy rows row0..row0+ROWS-1 of one head into a shared tile (pitch
-// LDT), 16 bytes per thread per step; rows past S are zero-filled.
+// LDT), 16 bytes per thread per step; rows past S and columns past the
+// true head_dim `hd` are zero-filled.
 template <int D, int ROWS, typename T>
 __device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long row_stride, int row0,
-                                          int S) {
+                                          int S, int hd) {
   constexpr int kVec = 8;
   constexpr int kPerRow = D / kVec;
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
@@ -131,23 +146,25 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
     const int c = (i % kPerRow) * kVec;
     const int s = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
+    if (s < S && c < hd) {
+      val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
+    }
     *reinterpret_cast<uint4*>(dst + r * Tile<D>::LDT + c) = val;
   }
 }
 
 // Round ROWS rows of an f32 shared accumulator to T and store them by
-// stride; rows past S are dropped.
+// stride; rows past S and columns past `hd` are dropped.
 template <int D, int ROWS, typename T>
 __device__ __forceinline__ void store_rows(T* dst, const float* src,
                                            long long row_stride, int row0,
-                                           int S) {
+                                           int S, int hd) {
   constexpr int kPerRow = D / 8;
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * 8;
     const int s = row0 + r;
-    if (s >= S) continue;
+    if (s >= S || c >= hd) continue;
     union {
       uint4 u;
       T e[8];
@@ -257,7 +274,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, Strides st,
+                      T* __restrict__ dv, int S, int H, int hd, Strides st,
                       float scale, int causal) {
   using t = Tile<D>;
   using L = SmemKV<D>;
@@ -284,8 +301,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qh = q + b * st.q_b + h * st.q_h;
   const T* doh = dout + b * st.do_b + h * st.do_h;
 
-  load_rows<D, t::BK>(sK, k + b * st.k_b + h * st.k_h, st.k_s, k0, S);
-  load_rows<D, t::BK>(sV, v + b * st.v_b + h * st.v_h, st.v_s, k0, S);
+  load_rows<D, t::BK>(sK, k + b * st.k_b + h * st.k_h, st.k_s, k0, S, hd);
+  load_rows<D, t::BK>(sV, v + b * st.v_b + h * st.v_h, st.v_s, k0, S, hd);
   zero_acc<D>(sdK, t::BK);
   zero_acc<D>(sdV, t::BK);
 
@@ -293,8 +310,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = causal ? k0 / kBQ : 0; i < nq; ++i) {
     const int q0 = i * kBQ;
     __syncthreads();                     // previous tile fully read
-    load_rows<D, kBQ>(sQ, qh, st.q_s, q0, S);
-    load_rows<D, kBQ>(sdO, doh, st.do_s, q0, S);
+    load_rows<D, kBQ>(sQ, qh, st.q_s, q0, S, hd);
+    load_rows<D, kBQ>(sdO, doh, st.do_s, q0, S, hd);
     load_stats(sl, sd, lse_h, delta_h, q0, S);
     __syncthreads();
     scores<D>(sQ, sdO, sK, sV, sS, sdP, sl, sd, sP, sdS, q0, k0, S, scale,
@@ -306,8 +323,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                               t::LDT, t::BK, D, kBQ, true);
   }
   __syncthreads();
-  store_rows<D, t::BK>(dk + b * st.dk_b + h * st.dk_h, sdK, st.dk_s, k0, S);
-  store_rows<D, t::BK>(dv + b * st.dv_b + h * st.dv_h, sdV, st.dv_s, k0, S);
+  store_rows<D, t::BK>(dk + b * st.dk_b + h * st.dk_h, sdK, st.dk_s, k0, S,
+                       hd);
+  store_rows<D, t::BK>(dv + b * st.dv_b + h * st.dv_h, sdV, st.dv_s, k0, S,
+                       hd);
 }
 
 template <int D, typename T>
@@ -316,7 +335,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, Strides st, float scale, int causal) {
+                    int S, int H, int hd, Strides st, float scale,
+                    int causal) {
   using t = Tile<D>;
   using L = SmemQ<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -338,8 +358,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kh = k + b * st.k_b + h * st.k_h;
   const T* vh = v + b * st.v_b + h * st.v_h;
 
-  load_rows<D, kBQ>(sQ, q + b * st.q_b + h * st.q_h, st.q_s, q0, S);
-  load_rows<D, kBQ>(sdO, dout + b * st.do_b + h * st.do_h, st.do_s, q0, S);
+  load_rows<D, kBQ>(sQ, q + b * st.q_b + h * st.q_h, st.q_s, q0, S, hd);
+  load_rows<D, kBQ>(sdO, dout + b * st.do_b + h * st.do_h, st.do_s, q0, S,
+                    hd);
   load_stats(sl, sd, lse + bh * S, delta + bh * S, q0, S);
   zero_acc<D>(sdQ, kBQ);
 
@@ -348,8 +369,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j <= j_last; ++j) {
     const int k0 = j * t::BK;
     __syncthreads();                     // previous tile fully read
-    load_rows<D, t::BK>(sK, kh, st.k_s, k0, S);
-    load_rows<D, t::BK>(sV, vh, st.v_s, k0, S);
+    load_rows<D, t::BK>(sK, kh, st.k_s, k0, S, hd);
+    load_rows<D, t::BK>(sV, vh, st.v_s, k0, S, hd);
     __syncthreads();
     scores<D>(sQ, sdO, sK, sV, sS, sdP, sl, sd, static_cast<T*>(nullptr),
               sdS, q0, k0, S, scale, causal);
@@ -358,14 +379,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                               t::LDT, kBQ, D, t::BK, true);
   }
   __syncthreads();
-  store_rows<D, kBQ>(dq + b * st.dq_b + h * st.dq_h, sdQ, st.dq_s, q0, S);
+  store_rows<D, kBQ>(dq + b * st.dq_b + h * st.dq_h, sdQ, st.dq_s, q0, S,
+                     hd);
 }
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, int B, int S, int H,
-                   const Strides& st, float scale, int causal,
+                   int hd, const Strides& st, float scale, int causal,
                    cudaStream_t stream) {
   auto kv_kernel = flash_bwd_dkdv_kernel<D, T>;
   auto q_kernel = flash_bwd_dq_kernel<D, T>;
@@ -384,21 +406,269 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 kv_grid((S + Tile<D>::BK - 1) / Tile<D>::BK, H, B);
   kv_kernel<<<kv_grid, kThreads, kv_smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, st, scale, causal);
+      S, H, hd, st, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 q_grid((S + kBQ - 1) / kBQ, H, B);
   q_kernel<<<q_grid, kThreads, q_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, st, scale,
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, hd, st, scale,
       causal);
   return cudaGetLastError();
+}
+
+// ---- float32: f32 FMAs on the CUDA cores, no TF32 ----
+
+constexpr int kF32Rows = 8;          // resident rows per block, one a warp
+constexpr int kF32Tile = 32;         // streamed rows per tile, one a lane
+constexpr int kF32Threads = kF32Rows * 32;
+constexpr int kF32Cols = 8;          // output columns per lane (256 / 32)
+
+// Both passes: 2 resident [8][hd] row sets and 2 streamed [32][hd + 1]
+// tiles (the odd pitch keeps a lane-per-row read free of bank
+// conflicts), plus the streamed rows' lse and delta.
+__host__ __device__ inline size_t f32_smem_bytes(int hd) {
+  return sizeof(float) * (2 * size_t(kF32Rows) * hd +
+                          2 * size_t(kF32Tile) * (hd + 1) + 2 * kF32Tile);
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
+                                              const float* src,
+                                              long long row_stride, int row0,
+                                              int S, int hd) {
+  const int per_row = hd / 4;
+  for (int i = threadIdx.x; i < ROWS * per_row; i += blockDim.x) {
+    const int r = i / per_row;
+    const int c = (i % per_row) * 4;
+    const int s = row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) {
+      val = *reinterpret_cast<const float4*>(src + s * row_stride + c);
+    }
+    float* d = dst + r * ld + c;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
+  }
+}
+
+__device__ __forceinline__ float dot_f32(const float* a, const float* b,
+                                         int hd) {
+  float s = 0.f;
+  for (int c = 0; c < hd; ++c) s = fmaf(a[c], b[c], s);
+  return s;
+}
+
+// dk/dv: warp w owns key row k0 + w; lane = query row of the q tile.
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int S, int H, int hd, Strides st, float scale,
+                          int causal) {
+  extern __shared__ __align__(16) float fsm[];
+  const int ld = hd + 1;
+  float* sK = fsm;
+  float* sV = sK + kF32Rows * hd;
+  float* sQ = sV + kF32Rows * hd;
+  float* sdO = sQ + kF32Tile * ld;
+  float* sl = sdO + kF32Tile * ld;
+  float* sd = sl + kF32Tile;
+
+  const int k0 = blockIdx.x * kF32Rows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kpos = k0 + warp;
+  const long long bh = (long long)b * H + h;
+  const float* qh = q + b * st.q_b + h * st.q_h;
+  const float* doh = dout + b * st.do_b + h * st.do_h;
+
+  load_rows_f32<kF32Rows>(sK, hd, k + b * st.k_b + h * st.k_h, st.k_s, k0, S,
+                          hd);
+  load_rows_f32<kF32Rows>(sV, hd, v + b * st.v_b + h * st.v_h, st.v_s, k0, S,
+                          hd);
+  const float* krow = sK + warp * hd;
+  const float* vrow = sV + warp * hd;
+  float ak[kF32Cols], av[kF32Cols];
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) ak[i] = av[i] = 0.f;
+
+  const int nq = (S + kF32Tile - 1) / kF32Tile;
+  for (int i0 = causal ? k0 / kF32Tile : 0; i0 < nq; ++i0) {
+    const int q0 = i0 * kF32Tile;
+    __syncthreads();                     // previous tile fully read
+    load_rows_f32<kF32Tile>(sQ, ld, qh, st.q_s, q0, S, hd);
+    load_rows_f32<kF32Tile>(sdO, ld, doh, st.do_s, q0, S, hd);
+    for (int r = threadIdx.x; r < kF32Tile; r += blockDim.x) {
+      const int s = q0 + r;
+      sl[r] = s < S ? lse[bh * S + s] : 0.f;
+      sd[r] = s < S ? delta[bh * S + s] : 0.f;
+    }
+    __syncthreads();
+    const int qpos = q0 + lane;
+    float p = 0.f;
+    float ds = 0.f;
+    if (qpos < S && kpos < S && (!causal || kpos <= qpos)) {
+      p = expf(dot_f32(sQ + lane * ld, krow, hd) * scale - sl[lane]);
+      ds = p * (dot_f32(sdO + lane * ld, vrow, hd) - sd[lane]) * scale;
+    }
+    // dV += P^T dO, dK += dS^T Q over the tile's rows, in row order
+    for (int jj = 0; jj < kF32Tile; ++jj) {
+      const float pj = __shfl_sync(0xffffffffu, p, jj);
+      const float dsj = __shfl_sync(0xffffffffu, ds, jj);
+      const float* qr = sQ + jj * ld;
+      const float* dor = sdO + jj * ld;
+#pragma unroll
+      for (int i = 0; i < kF32Cols; ++i) {
+        const int c = lane + 32 * i;
+        if (c < hd) {
+          av[i] = fmaf(pj, dor[c], av[i]);
+          ak[i] = fmaf(dsj, qr[c], ak[i]);
+        }
+      }
+    }
+  }
+  if (kpos >= S) return;
+  float* dkr = dk + b * st.dk_b + (long long)kpos * st.dk_s + h * st.dk_h;
+  float* dvr = dv + b * st.dv_b + (long long)kpos * st.dv_s + h * st.dv_h;
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    const int c = lane + 32 * i;
+    if (c < hd) {
+      dkr[c] = ak[i];
+      dvr[c] = av[i];
+    }
+  }
+}
+
+// dq: warp w owns query row q0 + w; lane = key row of the k tile.
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int S, int H, int hd,
+                        Strides st, float scale, int causal) {
+  extern __shared__ __align__(16) float fsm[];
+  const int ld = hd + 1;
+  float* sQ = fsm;
+  float* sdO = sQ + kF32Rows * hd;
+  float* sK = sdO + kF32Rows * hd;
+  float* sV = sK + kF32Tile * ld;
+
+  const int q0 = blockIdx.x * kF32Rows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qpos = q0 + warp;
+  const long long bh = (long long)b * H + h;
+  const float* kh = k + b * st.k_b + h * st.k_h;
+  const float* vh = v + b * st.v_b + h * st.v_h;
+
+  load_rows_f32<kF32Rows>(sQ, hd, q + b * st.q_b + h * st.q_h, st.q_s, q0, S,
+                          hd);
+  load_rows_f32<kF32Rows>(sdO, hd, dout + b * st.do_b + h * st.do_h,
+                          st.do_s, q0, S, hd);
+  const float row_lse = qpos < S ? lse[bh * S + qpos] : 0.f;
+  const float row_delta = qpos < S ? delta[bh * S + qpos] : 0.f;
+  const float* qrow = sQ + warp * hd;
+  const float* dorow = sdO + warp * hd;
+  float aq[kF32Cols];
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) aq[i] = 0.f;
+
+  const int nk = (S + kF32Tile - 1) / kF32Tile;
+  const int j_last =
+      causal ? min((q0 + kF32Rows - 1) / kF32Tile, nk - 1) : nk - 1;
+  for (int j = 0; j <= j_last; ++j) {
+    const int k0 = j * kF32Tile;
+    __syncthreads();                     // previous tile fully read
+    load_rows_f32<kF32Tile>(sK, ld, kh, st.k_s, k0, S, hd);
+    load_rows_f32<kF32Tile>(sV, ld, vh, st.v_s, k0, S, hd);
+    __syncthreads();
+    const int kpos = k0 + lane;
+    float ds = 0.f;
+    if (qpos < S && kpos < S && (!causal || kpos <= qpos)) {
+      const float p =
+          expf(dot_f32(qrow, sK + lane * ld, hd) * scale - row_lse);
+      ds = p * (dot_f32(dorow, sV + lane * ld, hd) - row_delta) * scale;
+    }
+    // dQ += dS K over the tile's keys, in key order
+    for (int jj = 0; jj < kF32Tile; ++jj) {
+      const float dsj = __shfl_sync(0xffffffffu, ds, jj);
+      const float* kr = sK + jj * ld;
+#pragma unroll
+      for (int i = 0; i < kF32Cols; ++i) {
+        const int c = lane + 32 * i;
+        if (c < hd) aq[i] = fmaf(dsj, kr[c], aq[i]);
+      }
+    }
+  }
+  if (qpos >= S) return;
+  float* dqr = dq + b * st.dq_b + (long long)qpos * st.dq_s + h * st.dq_h;
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    const int c = lane + 32 * i;
+    if (c < hd) dqr[c] = aq[i];
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dq, void* dk, void* dv,
+                       int B, int S, int H, int hd, const Strides& st,
+                       float scale, int causal, cudaStream_t stream) {
+  const int smem = static_cast<int>(f32_smem_bytes(hd));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
+  dim3 grid((S + kF32Rows - 1) / kF32Rows, H, B);
+  flash_bwd_dkdv_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, hd, st, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), S, H, hd, st,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+// The smallest instantiated tile width that holds head_dim `hd`.
+inline int tile_width(int hd) {
+  if (hd <= 32) return 32;
+  if (hd <= 64) return 64;
+  if (hd <= 96) return 96;
+  if (hd <= 128) return 128;
+  if (hd <= 192) return 192;
+  return 256;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bfloat16, 1 = float16. strides: 21 values, (batch, seq,
+// dtype: 0 = bfloat16, 1 = float16 (D a multiple of 8), 2 = float32 (D a
+// multiple of 4); D <= 256. strides: 21 values, (batch, seq,
 // head) for q, k, v, dout, dq, dk, dv in that order. Launches the dk/dv
 // pass, then the dq pass, on `stream`. Returns a cudaError_t.
 int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -412,16 +682,31 @@ int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
                    s[7],  s[8],  s[9],  s[10], s[11], s[12], s[13],
                    s[14], s[15], s[16], s[17], s[18], s[19], s[20]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || H < 1 || D < 1 || D > 256) {
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 2) {
+    if (D % 4) return cudaErrorInvalidValue;
+    return launch_f32(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, D, st,
+                      scale, causal, cs);
+  }
+  if (D % 8) return cudaErrorInvalidValue;
+  const int dp = tile_width(D);
 #define PTT_BWD_CASE(DIM, TYPE, CODE)                                       \
-  if (dtype == CODE && D == DIM)                                          \
+  if (dtype == CODE && dp == DIM)                                         \
     return launch<DIM, TYPE>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, \
-                             H, st, scale, causal, cs);
+                             H, D, st, scale, causal, cs);
+  PTT_BWD_CASE(32, __nv_bfloat16, 0)
   PTT_BWD_CASE(64, __nv_bfloat16, 0)
+  PTT_BWD_CASE(96, __nv_bfloat16, 0)
   PTT_BWD_CASE(128, __nv_bfloat16, 0)
+  PTT_BWD_CASE(192, __nv_bfloat16, 0)
   PTT_BWD_CASE(256, __nv_bfloat16, 0)
+  PTT_BWD_CASE(32, __half, 1)
   PTT_BWD_CASE(64, __half, 1)
+  PTT_BWD_CASE(96, __half, 1)
   PTT_BWD_CASE(128, __half, 1)
+  PTT_BWD_CASE(192, __half, 1)
   PTT_BWD_CASE(256, __half, 1)
 #undef PTT_BWD_CASE
   return cudaErrorInvalidValue;

@@ -31,10 +31,25 @@
 //    identical rows (the serving engine pads, generate() does not);
 //  - the ragged last tile is masked (keys >= S get the -1e30 of the TPU
 //    kernel, rows >= S are computed but never stored).
-// head_dim 64, 128 and 256 (the reference kernel's set; at 256 a block
-// takes 190 KB of shared memory). Inputs need a unit stride in D and
-// 16-byte aligned rows (the Python wrapper checks both). The launcher
-// returns cudaGetLastError().
+// head_dim: any multiple of 8 up to 256. The kernel is instantiated at
+// the tile widths DP in {32, 64, 96, 128, 192, 256} and a call runs the
+// smallest DP >= head_dim: loads past the true head_dim are zero-filled
+// (zero columns add nothing to QK^T and give zero output columns) and
+// only the true width is written back; the softmax scale comes from the
+// caller (1/sqrt(true head_dim)), never from DP. At DP = 256 a block
+// takes 190 KB of shared memory.
+//
+// float32 (q, k, v and out): `flash_fwd_f32_kernel` below, f32 FMAs on
+// the CUDA cores (no TF32), so it holds to the reference's f32 (its
+// interpret mode is exact f32) to ~1e-5. One query row per warp, eight
+// rows per block; k/v stream through shared memory in 32-key tiles, one
+// key per lane for the scores, and each lane owns head_dim/32 output
+// columns for PV. Head_dim any multiple of 4 up to 256. Bound by its
+// scalar FMAs (67 TFLOP/s f32): a simple kernel that is right; TF32 or
+// wgmma for f32 is later work.
+//
+// Inputs need a unit stride in D and 16-byte aligned rows (the Python
+// wrapper checks both). The launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,12 +98,13 @@ __device__ __forceinline__ void put(__half* p, float x) {
   *p = __float2half(x);
 }
 
-// Copy rows row0..row0+63 of one head into a shared tile, 16 bytes per
-// thread per step; rows past S are zero-filled.
+// Copy rows row0..row0+63 of one head into a shared tile of width D
+// (the tile width), 16 bytes per thread per step; rows past S and
+// columns past the true head_dim `hd` are zero-filled.
 template <int D, typename T>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long row_stride, int row0,
-                                          int S) {
+                                          int S, int hd) {
   constexpr int kVec = 8;               // 8 x 16-bit = 16 bytes
   constexpr int kPerRow = D / kVec;
   for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
@@ -96,18 +112,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
     const int c = (i % kPerRow) * kVec;
     const int s = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) {
+    if (s < S && c < hd) {
       val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
     }
     *reinterpret_cast<uint4*>(dst + r * Smem<D>::LDT + c) = val;
   }
 }
 
+// D is the tile width; `hd` (a multiple of 8, <= D) the true head_dim.
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, Strides st,
+                 float* __restrict__ lse, int S, int H, int hd, Strides st,
                  float scale, int causal) {
   using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -128,7 +145,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kh = k + b * st.k_b + h * st.k_h;
   const T* vh = v + b * st.v_b + h * st.v_h;
 
-  load_tile<D>(sQ, qh, st.q_s, q0, S);
+  load_tile<D>(sQ, qh, st.q_s, q0, S, hd);
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
     sO[(i / D) * L::LDO + (i % D)] = 0.f;
   }
@@ -146,8 +163,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j = 0; j <= j_last; ++j) {
     __syncthreads();                     // previous k/v tile fully read
-    load_tile<D>(sK, kh, st.k_s, j * kBK, S);
-    load_tile<D>(sV, vh, st.v_s, j * kBK, S);
+    load_tile<D>(sK, kh, st.k_s, j * kBK, S, hd);
+    load_tile<D>(sV, vh, st.v_s, j * kBK, S, hd);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
@@ -234,6 +251,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            half * (D / 2);
 #pragma unroll
   for (int c = 0; c < D / 2; c += 8) {
+    if (half * (D / 2) + c >= hd) break;    // padded columns: not stored
     union {
       uint4 u;
       T e[8];
@@ -249,8 +267,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int S, int H, const Strides& st,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int hd,
+                   const Strides& st, float scale, int causal,
+                   cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<D, T>;
   const int smem = static_cast<int>(Smem<D>::bytes);
   cudaError_t err = cudaFuncSetAttribute(
@@ -259,16 +278,170 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, st, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, hd, st,
+      scale, causal);
   return cudaGetLastError();
+}
+
+// ---- float32: f32 FMAs on the CUDA cores, no TF32 ----
+
+constexpr int kF32Rows = 8;          // query rows per block, one per warp
+constexpr int kF32Keys = 32;         // keys per tile, one per lane
+constexpr int kF32Threads = kF32Rows * 32;
+constexpr int kF32Cols = 8;          // output columns per lane (256 / 32)
+
+// f32 shared memory: q rows [8][hd], k and v tiles [32][hd + 1] (the odd
+// pitch keeps a lane-per-key read of a column free of bank conflicts).
+__host__ __device__ inline size_t f32_smem_bytes(int hd) {
+  return sizeof(float) *
+         (size_t(kF32Rows) * hd + 2 * size_t(kF32Keys) * (hd + 1));
+}
+
+// Rows row0..row0+ROWS-1 of one head into a shared [ROWS][ld] tile by
+// float4 (hd is a multiple of 4); rows past S are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
+                                              const float* src,
+                                              long long row_stride, int row0,
+                                              int S, int hd) {
+  const int per_row = hd / 4;
+  for (int i = threadIdx.x; i < ROWS * per_row; i += blockDim.x) {
+    const int r = i / per_row;
+    const int c = (i % per_row) * 4;
+    const int s = row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) {
+      val = *reinterpret_cast<const float4*>(src + s * row_stride + c);
+    }
+    float* d = dst + r * ld + c;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, int hd,
+                     Strides st, float scale, int causal) {
+  extern __shared__ __align__(16) float fsm[];
+  const int ld = hd + 1;
+  float* sQ = fsm;
+  float* sK = sQ + kF32Rows * hd;
+  float* sV = sK + kF32Keys * ld;
+
+  const int q0 = blockIdx.x * kF32Rows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qpos = q0 + warp;
+  const float* qh = q + b * st.q_b + h * st.q_h;
+  const float* kh = k + b * st.k_b + h * st.k_h;
+  const float* vh = v + b * st.v_b + h * st.v_h;
+
+  load_rows_f32<kF32Rows>(sQ, hd, qh, st.q_s, q0, S, hd);
+  const float* qrow = sQ + warp * hd;
+  float m = kNegInf;
+  float l = 0.f;
+  float o[kF32Cols];
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) o[i] = 0.f;
+
+  const int nk = (S + kF32Keys - 1) / kF32Keys;
+  const int j_last =
+      causal ? min((q0 + kF32Rows - 1) / kF32Keys, nk - 1) : nk - 1;
+  for (int j = 0; j <= j_last; ++j) {
+    __syncthreads();                     // previous k/v tile fully read
+    load_rows_f32<kF32Keys>(sK, ld, kh, st.k_s, j * kF32Keys, S, hd);
+    load_rows_f32<kF32Keys>(sV, ld, vh, st.v_s, j * kF32Keys, S, hd);
+    __syncthreads();
+    // lane = key: its score against this warp's query row
+    const int kpos = j * kF32Keys + lane;
+    const float* krow = sK + lane * ld;
+    float s = 0.f;
+    for (int c = 0; c < hd; ++c) s = fmaf(qrow[c], krow[c], s);
+    s *= scale;
+    if (kpos >= S || (causal && kpos > qpos)) s = kNegInf;
+    const float m_new = fmaxf(m, warp_max(s));
+    const float alpha = expf(m - m_new);
+    const float p = expf(s - m_new);
+    l = l * alpha + warp_sum(p);
+    m = m_new;
+    // lane = output columns lane, lane + 32, ...: O = alpha O + P V
+#pragma unroll
+    for (int i = 0; i < kF32Cols; ++i) o[i] *= alpha;
+    for (int jj = 0; jj < kF32Keys; ++jj) {
+      const float pj = __shfl_sync(0xffffffffu, p, jj);
+      const float* vrow = sV + jj * ld;
+#pragma unroll
+      for (int i = 0; i < kF32Cols; ++i) {
+        const int c = lane + 32 * i;
+        if (c < hd) o[i] = fmaf(pj, vrow[c], o[i]);
+      }
+    }
+  }
+
+  if (qpos >= S) return;
+  const float l_safe = (l == 0.f) ? 1.f : l;
+  float* dst = out + b * st.o_b + (long long)qpos * st.o_s + h * st.o_h;
+#pragma unroll
+  for (int i = 0; i < kF32Cols; ++i) {
+    const int c = lane + 32 * i;
+    if (c < hd) dst[c] = o[i] / l_safe;
+  }
+  if (lane == 0) lse[((long long)b * H + h) * S + qpos] = m + logf(l_safe);
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int B, int S, int H, int hd,
+                       const Strides& st, float scale, int causal,
+                       cudaStream_t stream) {
+  const int smem = static_cast<int>(f32_smem_bytes(hd));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kF32Rows - 1) / kF32Rows, H, B);
+  flash_fwd_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, hd,
+      st, scale, causal);
+  return cudaGetLastError();
+}
+
+// The smallest instantiated tile width that holds head_dim `hd`.
+inline int tile_width(int hd) {
+  if (hd <= 32) return 32;
+  if (hd <= 64) return 64;
+  if (hd <= 96) return 96;
+  if (hd <= 128) return 128;
+  if (hd <= 192) return 192;
+  return 256;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bfloat16, 1 = float16. Returns a cudaError_t (0 = success).
+// dtype: 0 = bfloat16, 1 = float16 (D a multiple of 8), 2 = float32 (D a
+// multiple of 4); D <= 256. Returns a cudaError_t (0 = success).
 int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* out, float* lse, int B, int S, int H,
                             int D, long long q_b, long long q_s,
@@ -280,16 +453,30 @@ int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h,
                    v_b, v_s, v_h, o_b, o_s, o_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
-#define PTT_FLASH_CASE(DIM, TYPE, CODE)                                      \
-  if (dtype == CODE && D == DIM)                                           \
-    return launch<DIM, TYPE>(q, k, v, out, lse, B, S, H, st, scale, causal, \
-                             s);
+  if (B < 1 || S < 1 || H < 1 || D < 1 || D > 256) {
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 2) {
+    if (D % 4) return cudaErrorInvalidValue;
+    return launch_f32(q, k, v, out, lse, B, S, H, D, st, scale, causal, s);
+  }
+  if (D % 8) return cudaErrorInvalidValue;
+  const int dp = tile_width(D);
+#define PTT_FLASH_CASE(DIM, TYPE, CODE)                                    \
+  if (dtype == CODE && dp == DIM)                                        \
+    return launch<DIM, TYPE>(q, k, v, out, lse, B, S, H, D, st, scale,   \
+                             causal, s);
+  PTT_FLASH_CASE(32, __nv_bfloat16, 0)
   PTT_FLASH_CASE(64, __nv_bfloat16, 0)
+  PTT_FLASH_CASE(96, __nv_bfloat16, 0)
   PTT_FLASH_CASE(128, __nv_bfloat16, 0)
+  PTT_FLASH_CASE(192, __nv_bfloat16, 0)
   PTT_FLASH_CASE(256, __nv_bfloat16, 0)
+  PTT_FLASH_CASE(32, __half, 1)
   PTT_FLASH_CASE(64, __half, 1)
+  PTT_FLASH_CASE(96, __half, 1)
   PTT_FLASH_CASE(128, __half, 1)
+  PTT_FLASH_CASE(192, __half, 1)
   PTT_FLASH_CASE(256, __half, 1)
 #undef PTT_FLASH_CASE
   return cudaErrorInvalidValue;

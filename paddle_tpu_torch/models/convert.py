@@ -28,6 +28,17 @@ and ``np_opt_state`` (``GPTSpmdTrainer.opt_state`` as numpy) replaces
 the fresh AdamW state: the step, and per leaf the moments, arrays or,
 for the leaves with int8 moments (``moment8``), ``(q, scale)`` pairs.
 ``gpt_params_to_numpy`` and ``gpt_opt_state_to_numpy`` are the inverses.
+
+``resnet_from_jax_state`` takes a reference ResNet's ``state_dict()``
+(parameters and BatchNorm's ``_mean``/``_variance``, as numpy) and
+returns the port's model of that architecture holding it (or loads it
+into a ``model`` given, e.g. one cut to fewer blocks). The module trees
+and names match one to one and both keep ``Linear`` ``[in, out]``, so
+nothing is transposed; each tensor keeps the reference's dtype (bf16
+after ``amp.decorate``, f32 for BatchNorm). ``resnet_state_to_numpy``
+is the inverse (bf16 as f32 numpy). ``momentum_from_numpy`` /
+``momentum_to_numpy`` carry the Momentum velocities the same way, keyed
+by the model's parameter names.
 """
 from __future__ import annotations
 
@@ -43,7 +54,9 @@ from .gpt import (GPTConfig, GPTTrainer, block_shapes, flatten_params,
 from .llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["gpt_opt_state_to_numpy", "gpt_params_to_numpy",
-           "gpt_trainer_from_jax_params", "llama_from_jax_state"]
+           "gpt_trainer_from_jax_params", "llama_from_jax_state",
+           "momentum_from_numpy", "momentum_to_numpy",
+           "resnet_from_jax_state", "resnet_state_to_numpy"]
 
 
 def _np32(arr) -> np.ndarray:
@@ -247,4 +260,69 @@ def gpt_params_to_numpy(params: Dict, layout: str = "per_layer") -> Dict:
     else:
         raise ValueError(f"layout must be 'per_layer' or 'stacked'; got "
                          f"{layout!r}")
+    return out
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A tensor of ``arr`` on ``device`` in its dtype (numpy-side bf16,
+    from ml_dtypes, comes back as torch bf16)."""
+    a = np.asarray(arr)
+    t = torch.tensor(_np32(a), device=device)
+    return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
+
+
+def resnet_from_jax_state(np_state: Dict[str, np.ndarray],
+                          arch: str = "resnet50", device=None, model=None,
+                          **kwargs):
+    """The port's ``arch`` (``vision.models.resnet50`` ...; ``kwargs``
+    pass through), or ``model`` when given, holding the reference
+    state ``np_state``; a missing or extra name or a wrong shape
+    raises."""
+    if model is None:
+        from ..vision import models as vision_models
+        model = getattr(vision_models, arch)(device=device, **kwargs)
+    own = model.state_dict(keep_vars=True)
+    if set(own) != set(np_state):
+        raise KeyError(f"state names differ: missing "
+                       f"{sorted(set(own) - set(np_state))}, extra "
+                       f"{sorted(set(np_state) - set(own))}")
+    for name, t in own.items():
+        arr = np.asarray(np_state[name])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, the model's "
+                             f"{tuple(t.shape)}")
+        t.data = _tensor(arr, t.device)
+    return model
+
+
+def resnet_state_to_numpy(model) -> Dict[str, np.ndarray]:
+    """The inverse of ``resnet_from_jax_state``: a copy of the model's
+    state as numpy (bf16 tensors as f32)."""
+    return {name: np.array((t.detach().float() if t.dtype == torch.bfloat16
+                            else t.detach()).cpu())
+            for name, t in model.state_dict().items()}
+
+
+def momentum_from_numpy(opt, model, np_velocity: Dict[str, np.ndarray]):
+    """Set ``opt``'s (a ``Momentum``) velocity of each parameter that
+    ``np_velocity`` names (the model's parameter names)."""
+    params = dict(model.named_parameters())
+    for name, arr in np_velocity.items():
+        p = params[name]
+        if tuple(np.shape(arr)) != tuple(p.shape):
+            raise ValueError(f"{name}: velocity shape {np.shape(arr)}, the "
+                             f"parameter's {tuple(p.shape)}")
+        opt._accumulators.setdefault(p, {})["velocity"] = _tensor(arr,
+                                                                  p.device)
+    return opt
+
+
+def momentum_to_numpy(opt, model) -> Dict[str, np.ndarray]:
+    """A copy of ``opt``'s velocities by parameter name, as numpy (bf16
+    as f32)."""
+    out = {}
+    for name, p in model.named_parameters():
+        vel = opt._accumulators.get(p, {}).get("velocity")
+        if vel is not None:
+            out[name] = np.array(vel.detach().float().cpu())
     return out

@@ -1,7 +1,12 @@
-"""Layers and functionals of the port (counterpart of ``paddle_tpu/nn``)
-that the Llama serving path needs: RMS normalisation and scaled
-dot-product attention."""
+"""Layers and functionals of the port (counterpart of ``paddle_tpu/nn``):
+RMS normalisation and attention (the Llama and GPT paths), and the
+ResNet path's BatchNorm, Conv2D, pooling, Linear, Sequential, ReLU and
+cross entropy."""
 from . import functional
-from .layer.norm import RMSNorm
+from .layer import (AdaptiveAvgPool2D, BatchNorm, BatchNorm1D, BatchNorm2D,
+                    BatchNorm3D, Conv2D, CrossEntropyLoss, Linear, MaxPool2D,
+                    ReLU, RMSNorm, Sequential)
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "Conv2D", "CrossEntropyLoss", "Linear",
+           "MaxPool2D", "RMSNorm", "ReLU", "Sequential", "functional"]

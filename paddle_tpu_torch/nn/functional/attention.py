@@ -8,10 +8,14 @@ mirrors ``_pallas_eligible`` (:88-100): no mask, no dropout and a
 square call (q, k, v of one shape) on a CUDA tensor -> the
 flash-attention kernel (``ops/flash_attention.py``), whatever the
 dtype and head_dim: the kernel launches or raises, nothing on the card
-runs this plain branch in its place. The reference's ``S % 128 == 0``
-condition is dropped: the CUDA kernel masks its ragged last tile. q
-and k (f32 after RoPE's f32 tables) are cast to ``v``'s dtype before
-the launch, since the kernel takes one dtype.
+runs this plain branch in its place. The kernels take bf16, f16 and
+f32 at every head_dim up to 256 whose row is a whole number of 16
+bytes, so they compute every call the reference's Pallas kernel does
+(its head_dim set {64, 128, 256}, f32 included); head_dim above 256 or
+an unaligned row raises. The reference's ``S % 128 == 0`` condition
+is dropped: the CUDA kernel masks its ragged last tile. q and k (f32
+after RoPE's f32 tables) are cast to ``v``'s dtype before the launch,
+since the kernel takes one dtype.
 ``torch.nn.functional.scaled_dot_product_attention`` is never called.
 """
 from __future__ import annotations

@@ -1,4 +1,12 @@
 """Layers of the port (counterpart of ``paddle_tpu/nn/layer``)."""
-from .norm import RMSNorm
+from .activation import ReLU
+from .common import Linear
+from .container import Sequential
+from .conv import Conv2D
+from .loss import CrossEntropyLoss
+from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, RMSNorm
+from .pooling import AdaptiveAvgPool2D, MaxPool2D
 
-__all__ = ["RMSNorm"]
+__all__ = ["AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "Conv2D", "CrossEntropyLoss", "Linear",
+           "MaxPool2D", "RMSNorm", "ReLU", "Sequential"]

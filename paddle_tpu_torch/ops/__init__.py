@@ -8,8 +8,10 @@ and ``quant_matmul`` (``quant_matmul.py`` ``_rowq_call``, ``_colq_call``,
 ``_rowq_ln_call``, ``_sr_colq_ln_pallas``, ``_sr_colq_pallas`` and the
 int8 linears over ``torch._int_mm``) and ``int4_matmul``
 (``int4_matmul.py`` ``int4_matmul``, the weight-only int4 matmul, with
-its torch quantizers; imported from its module, whose name it shares);
-``fused_ce`` is the reference's
+its torch quantizers; imported from its module, whose name it shares)
+and ``batch_norm`` (``bn_pallas.py`` ``_stats_call``, ``_apply_call``,
+``_gsum_call``, ``_dx_call`` and ``bn_train``); ``fused_ce`` is the
+reference's
 chunked cross-entropy (plain or int8 matmuls) and ``layer_norm`` the
 trainer's LayerNorm (plain PyTorch).
 ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
@@ -17,6 +19,7 @@ trainer's LayerNorm (plain PyTorch).
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_fwd_plain,
                               flash_attention_qkv_fused)
+from .batch_norm import bn_train
 from .fused_adamw import (fused_adamw_update, fused_adamw_update8,
                           fused_adamw_update8_plain, fused_adamw_update_plain)
 from .fused_ce import fused_softmax_cross_entropy
@@ -27,7 +30,7 @@ from .quant_matmul import (int8_gelu_linear_all8, int8_linear,
                            quantize_cols, quantize_rows, sr_quantize_colwise,
                            sr_quantize_colwise_ln)
 
-__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain",
+__all__ = ["bn_train", "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_qkv_fused", "fused_adamw_update",
            "fused_adamw_update8", "fused_adamw_update8_plain",

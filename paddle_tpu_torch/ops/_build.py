@@ -37,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw",
-           "fused_adamw8", "quantize", "int4_matmul")
+           "fused_adamw8", "quantize", "int4_matmul", "batch_norm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

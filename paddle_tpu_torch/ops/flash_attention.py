@@ -21,11 +21,16 @@ backward kernel. Both run the plain versions on CPU tensors. Calls that
 need no gradient (``torch.no_grad``/``inference_mode``, inputs without
 ``requires_grad``) skip the Function.
 
-A CUDA input the kernels do not take (dtype other than bf16/f16,
-head_dim other than 64/128/256, a non-unit stride in head_dim, rows not
-16-byte aligned) raises; nothing falls back. ``flash_attention_fwd.
-launches`` and ``flash_attention_bwd.launches`` count kernel launches
-(one backward launch runs the dk/dv pass and then the dq pass).
+The kernels take bf16 and f16 at any head_dim that is a multiple of 8
+up to 256 (run at the next instantiated tile width, 32/64/96/128/192/
+256, with zero-filled columns past the true head_dim), and f32 at any
+multiple of 4 up to 256 (f32 FMAs on the CUDA cores, no TF32). A CUDA
+input they do not take (another dtype, head_dim above 256 or a row not
+a whole number of 16 bytes, a non-unit stride in head_dim, other
+strides or the base not 16-byte aligned) raises; nothing falls back.
+``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``
+count kernel launches (one backward launch runs the dk/dv pass and then
+the dq pass).
 """
 from __future__ import annotations
 
@@ -43,8 +48,10 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_qkv_packed_fwd", "NEG_INF"]
 
 NEG_INF = -1e30                      # the reference kernel's mask value
-_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+# head_dim: at most 256, and a row a whole number of 16-byte vectors
+_KERNEL_MAX_HEAD_DIM = 256
+_KERNEL_ROW_ALIGN = 16
 
 
 def _scores(q, k, causal: bool, scale: float):
@@ -102,20 +109,34 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = False,
 
 
 def _kernel_strides_ok(t) -> bool:
-    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
-        and t.data_ptr() % 16 == 0
+    vec = _KERNEL_ROW_ALIGN // t.element_size()
+    return t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:3]) \
+        and t.data_ptr() % _KERNEL_ROW_ALIGN == 0
+
+
+def kernel_takes_head_dim(D: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernels take ``head_dim`` ``D`` in ``dtype``:
+    ``D <= 256`` and a row of ``D`` elements a whole number of 16-byte
+    vectors (a multiple of 8 in bf16/f16, of 4 in f32)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return 0 < D <= _KERNEL_MAX_HEAD_DIM and D * size % _KERNEL_ROW_ALIGN == 0
 
 
 def _check_cuda(what: str, **tensors) -> None:
     first = next(iter(tensors.values()))
     dt, D = first.dtype, first.shape[-1]
-    if not (dt in _KERNEL_DTYPES and D in _KERNEL_HEAD_DIMS
-            and all(t.dtype == dt for t in tensors.values())):
+    if dt not in _KERNEL_DTYPES or not all(t.dtype == dt
+                                           for t in tensors.values()):
         raise ValueError(
-            f"{what} kernel takes bfloat16/float16 tensors of one dtype "
-            f"with head_dim in {_KERNEL_HEAD_DIMS}; got "
-            + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items())
-            + f", head_dim {D}")
+            f"{what} kernel takes bfloat16/float16/float32 tensors of one "
+            f"dtype; got "
+            + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items()))
+    if not kernel_takes_head_dim(D, dt):
+        raise ValueError(
+            f"{what} kernel takes head_dim <= {_KERNEL_MAX_HEAD_DIM} with "
+            f"rows of a whole number of {_KERNEL_ROW_ALIGN} bytes (a "
+            f"multiple of {_KERNEL_ROW_ALIGN // first.element_size()} in "
+            f"{dt}); got head_dim {D}")
     for name, t in tensors.items():
         if t.device != first.device:
             raise ValueError(f"{what}: all tensors must be on one CUDA "
@@ -123,7 +144,7 @@ def _check_cuda(what: str, **tensors) -> None:
         if not _kernel_strides_ok(t):
             raise ValueError(
                 f"{what} kernel needs {name} with unit stride in "
-                f"head_dim, other strides a multiple of 8 elements and a "
+                f"head_dim, other strides a multiple of 16 bytes and a "
                 f"16-byte aligned base; got strides {t.stride()}")
 
 

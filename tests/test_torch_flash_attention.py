@@ -18,7 +18,11 @@ different summation order; backward ``atol=1e-5`` on gradients of
 magnitude ~1-10 (five f32 matmuls in another order). On the card the
 kernels take bf16 and are held to their plain versions at
 ``atol=rtol=2e-2`` (bf16 rounding of out, of P and of dS) and
-``atol=1e-3`` for ``lse``.
+``atol=1e-3`` for ``lse``; the f32 kernels at ``1e-4`` (f32 FMAs in
+another order). Head_dims off the reference kernel's {64, 128, 256}
+(32, 80, 96) are held to the reference kernel in interpret mode too,
+and the wrapper's contract (every head_dim up to 256 whose row is a
+whole number of 16 bytes, bf16/f16/f32) is checked on CPU tensors.
 """
 import math
 
@@ -139,6 +143,60 @@ def test_packed_backward_matches_reference_vjp():
     np.testing.assert_allclose(t.grad.numpy(), ref_grad, atol=1e-5)
 
 
+@pytest.mark.parametrize("D", [32, 80, 96])
+def test_head_dims_beyond_64_128_256_match_reference_vjp(D):
+    """head_dim off the reference kernel's {64, 128, 256} (which the
+    card's kernels now take, tiled at the next width): the plain
+    forward and backward against the reference kernel in interpret mode,
+    f32, the scale 1/sqrt(D) of the true head_dim."""
+    from paddle_tpu.ops import pallas_ops
+    q, k, v = _qkv(1, 40, 2, D, seed=D)
+    g = np.random.RandomState(D).standard_normal(q.shape).astype(np.float32)
+    ref_out, ref_grads = _ref_vjp(
+        lambda q, k, v: pallas_ops.flash_attention_fwd(q, k, v, causal=True),
+        (q, k, v), g)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention_fwd(tq, tk, tv, causal=True)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), ref_out, atol=2e-5)
+    for t, r in zip((tq, tk, tv), ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), r, atol=1e-5)
+
+
+@pytest.mark.parametrize("D,dtype,ok", [
+    (64, torch.bfloat16, True), (32, torch.bfloat16, True),
+    (80, torch.bfloat16, True), (96, torch.bfloat16, True),
+    (40, torch.float16, True), (256, torch.float16, True),
+    (64, torch.float32, True), (128, torch.float32, True),
+    (4, torch.float32, True), (36, torch.float32, True),
+    (36, torch.bfloat16, False),     # 72 bytes: not whole 16-byte vectors
+    (30, torch.float32, False),
+    (264, torch.bfloat16, False),    # above 256
+    (260, torch.float32, False),
+    (64, torch.float64, False),
+])
+def test_kernel_contract_head_dims_and_dtypes(D, dtype, ok):
+    """What the CUDA wrapper accepts (checked on CPU tensors: the
+    check reads only dtype, shape, strides and alignment)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t = torch.zeros(1, 8, 2, D, dtype=dtype)
+    if dtype in fa._KERNEL_DTYPES:
+        assert fa.kernel_takes_head_dim(D, dtype) == ok
+    if ok:
+        fa._check_cuda("flash", q=t, k=t, v=t)
+    else:
+        with pytest.raises(ValueError, match="head_dim|dtype"):
+            fa._check_cuda("flash", q=t, k=t, v=t)
+
+
+def test_kernel_contract_refuses_unaligned_rows():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    buf = torch.zeros(1, 8, 2, 65)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_cuda("flash", q=buf[..., 1:], k=buf[..., 1:],
+                       v=buf[..., 1:])
+
+
 def test_no_grad_calls_skip_the_function():
     """Serving (no_grad / inference_mode) takes the raw forward: no
     autograd node, nothing saved."""
@@ -202,12 +260,47 @@ def test_cuda_kernel_matches_plain_and_counts(cuda, S, D, causal):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.randn(1, 16, 2, 128, device=cuda)
-    with pytest.raises(ValueError):          # f32: no silent plain path
+    q = torch.randn(1, 16, 2, 264, device=cuda).bfloat16()
+    with pytest.raises(ValueError):          # head_dim above 256
         flash_attention_fwd(q, q, q)
-    h = torch.randn(1, 16, 2, 32, device=cuda).bfloat16()
-    with pytest.raises(ValueError):          # head_dim 32
+    h = torch.randn(1, 16, 2, 36, device=cuda).bfloat16()
+    with pytest.raises(ValueError):          # 72-byte rows
         flash_attention_fwd(h, h, h)
+    d = torch.randn(1, 16, 2, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):          # f64: no silent plain path
+        flash_attention_fwd(d, d, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype,causal", [
+    (32, torch.bfloat16, True), (80, torch.bfloat16, True),
+    (96, torch.bfloat16, False), (40, torch.float16, True),
+    (200, torch.bfloat16, True), (64, torch.float32, True),
+    (128, torch.float32, False), (36, torch.float32, True)])
+def test_cuda_every_head_dim_and_f32_match_plain(cuda, D, dtype, causal):
+    """Forward and backward at head_dims off {64, 128, 256} and in f32
+    against the plain versions (16-bit: the bf16 tolerances; f32: 1e-4,
+    f32 FMAs in another order), one launch each, the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, do = (torch.randn(2, 150, 3, D, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 2)
+    ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3 if tol > 1e-4
+                               else 1e-5, rtol=0)
+    for a, b, p in zip(first, again, plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), p.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -216,8 +309,8 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
 def test_cuda_model_attention_launches_or_raises(cuda, dtype, D):
     """SDPA (the uncached forward) and the cache's prefill branch
     (generate()) route every square causal call on the card to the
-    wrapper: a bf16 model launches once per layer in each, an f32 one
-    raises there instead of running the plain version."""
+    wrapper: a bf16 or f32 model launches once per layer in each (f32
+    on the f32 kernel), and nothing runs the plain version there."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     cfg = llama_tiny_config(hidden_size=2 * D, num_attention_heads=2,
@@ -227,12 +320,6 @@ def test_cuda_model_attention_launches_or_raises(cuda, dtype, D):
     ids = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda,
                         generator=g)
     L = cfg.num_hidden_layers
-    if dtype == "float32":
-        with pytest.raises(ValueError, match="bfloat16/float16"):
-            model(ids)
-        with pytest.raises(ValueError, match="bfloat16/float16"):
-            model.generate(ids, max_new_tokens=2)
-        return
     before = flash_attention_fwd.launches
     with torch.no_grad():
         logits = model(ids)

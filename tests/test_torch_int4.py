@@ -168,7 +168,7 @@ def test_cuda_int4_llama_forward_launches(cuda):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantization import weight_only_int4
     cfg = llama_tiny_config(hidden_size=128, intermediate_size=256,
-                            vocab_size=256, num_attention_heads=2)
+                            vocab_size=256)          # 4 heads of 32
     model = weight_only_int4(LlamaForCausalLM(cfg, device=cuda,
                                               dtype="bfloat16"),
                              group=32, min_features=64)
