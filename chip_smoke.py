@@ -9,19 +9,26 @@ then exits non-zero and prints no result):
 1. device  — the card's name, count and power limit (nvidia-smi).
 2. build   — seconds to build every kernel library from csrc/ with nvcc
              (sm_90a), one nvcc per source, all started together.
+   ptxas   — the flash kernels' register and spill lines as ptxas
+             reported them (-Xptxas -v, kept beside each library).
 3. kernels — every ported kernel against its plain PyTorch version on
              the card, at the shapes the serving and training paths
              give it: the flash forward (serving prefill buckets and the
-             GPT-1.3B trainer's packed shape), the flash backward (the
+             GPT-1.3B trainer's packed shape; and the padded-prefix law
+             at the kernel's own level: rows 0..299 of a causal S=512
+             call whose positions past 300 are padding equal the S=300
+             call bit for bit), the flash backward (the
              trainer's packed shape, separate [B, S, H, D] tensors, a
              ragged S, D=64 and D=256; two runs must give the same
-             bits), AdamW on the trainer's 2048x8192 and 50304x2048
-             leaves (p, m, v bit for bit, stochastic rounding on), the
-             int8 quantize kernels at every shape the flagship trainer
-             and Int8Linear's decode path give them (row and column
-             round-to-nearest, column
-             stochastic rounding with and without gelu: codes and
-             scales bit for bit, the SR laws on the card), the int8
+             bits), each flash case with its achieved TFLOP/s beside the
+             bound's, the plain version's and SDPA's, AdamW on the
+             trainer's 2048x8192 and 50304x2048 leaves (p, m, v bit
+             for bit, stochastic rounding on), the int8 quantize
+             kernels at every shape the flagship trainer and
+             Int8Linear's decode path give them (row and column
+             round-to-nearest, column stochastic rounding with and
+             without gelu: codes and scales bit for bit, the SR laws
+             on the card), the int8
              GEMM (torch._int_mm, a library call) in the layouts the
              port hands it beside bf16 matmuls, and the int8-moment
              AdamW on every int8-moment leaf shape of GPT-1.3B (p, codes
@@ -41,11 +48,12 @@ then exits non-zero and prints no result):
              the bound, the plain version and the unfused pair each
              replaces.
    kernels-attn — the flash kernels at head_dims off {64, 128, 256}
-             (32, 80, 96 and 64 in bf16, run at the next tile width) and
+             (32, 80, 96, 64 and 160 in bf16 and 192 in f16, run at the
+             next tile width) and
              in f32 (64 and 128, f32 FMAs on the CUDA cores), causal and
              not, forward and backward against the plain versions (the
-             backward the same bits twice); ms beside the bound, the
-             plain version and PyTorch's SDPA (a yardstick).
+             backward the same bits twice); ms and TFLOP/s beside the
+             bound, the plain version and PyTorch's SDPA (a yardstick).
    kernels, row 7 — int4_matmul against its plain version at Llama-1B's
              four linear shapes (down_proj at group 64), M in {1, 8, 16,
              512} and a ragged 300, within one bf16 step of the output's
@@ -350,6 +358,34 @@ def quantize_bound(R, C, itemsize, gelu, sr):
     return bound(nbytes, 0, scalar_ops=ops)
 
 
+def flash_flops(B, S, H, D, causal, backward: bool) -> float:
+    """The products a call needs: 2 (forward) or 5 (backward) matmuls
+    of 2 flops per multiply-add over the (causal) score pairs."""
+    return (10 if backward else 4) * B * H * score_pairs(S, causal) * D
+
+
+def with_rates(row: dict, flops: float) -> dict:
+    """``row`` (ms, plain_ms, library_ms, bound_ms) with the achieved
+    TFLOP/s of each beside it."""
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        if row.get(key):
+            row[key.replace("ms", "tflops")] = flops / row[key] / 1e9
+    return row
+
+
+def phase_ptxas(sos):
+    """ptxas's report on the flash kernels (-Xptxas -v, kept beside each
+    library as lib<name>-<hash>.log): each kernel's register and spill
+    lines, in the order ptxas compiled the kernels."""
+    lines = [ln.replace("ptxas info    :", "").strip()
+             for so in sos if so.name.startswith("libflash_attention")
+             for ln in so.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "ptxas", "lines": lines})
+    if not lines:
+        raise AssertionError("no -Xptxas -v report for the flash kernels")
+
+
 def qkv_views(torch, B, S, H, D, g):
     """q, k, v as the trainer hands them to the kernels: strided views
     of one packed [B, S, 3*H*D] projection."""
@@ -392,16 +428,44 @@ def phase_kernels(torch, F):
         plain = lambda: flash_attention_fwd_plain(q, k, v, causal=causal)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                      is_causal=causal)
-        rows.append({
+        rows.append(with_rates({
             "B": B, "S": S, "H": H, "D": D, "causal": causal,
             "packed": packed, "max_abs_err": err, "lse_max_abs_err": lse_err,
             "ms": device_ms(torch, kern, 20),
             "plain_ms": device_ms(torch, plain, 5),
             "library_ms": device_ms(torch, lib, 20),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "bound_ms": bound_ms, "bound_by": bound_by},
+            flash_flops(B, S, H, D, causal, False)))
     emit({"phase": "kernels", "name": "flash_attention_fwd",
           "tolerance": {"out_atol_rtol": OUT_TOL, "lse_atol": LSE_TOL},
-          "cases": rows})
+          "cases": rows, "padded_prefix": padded_prefix(torch, g)})
+    return rows
+
+
+def padded_prefix(torch, g) -> list:
+    """The law the serving engine's bucket padding relies on, at the
+    kernel's own level: rows 0..299 of a causal S=512 call whose
+    positions past 300 are padding (other random values) equal the
+    S=300 call bit for bit, out and lse, at the wgmma kernel's widths
+    128 (one and two consumer warpgroups) and 64."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    rows = []
+    for B, H, D in ((1, 16, 128), (4, 64, 128), (1, 8, 64)):
+        q, k, v = (torch.randn(B, 512, H, D, device="cuda", generator=g)
+                   .bfloat16() for _ in range(3))
+        out, lse = flash_attention_fwd(q, k, v, causal=True,
+                                       return_lse=True)
+        cut = [t[:, :300].contiguous() for t in (q, k, v)]
+        out3, lse3 = flash_attention_fwd(*cut, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out[:, :300], out3)
+                    and torch.equal(lse[..., :300], lse3))
+        rows.append({"B": B, "H": H, "D": D, "S": 512, "prefix": 300,
+                     "bitwise": same})
+        if not same:
+            raise AssertionError(f"flash forward {B, H, D}: rows 0..299 of "
+                                 f"the padded S=512 call differ from the "
+                                 f"S=300 call")
     return rows
 
 
@@ -459,7 +523,7 @@ def phase_kernels_bwd(torch, F):
         lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
                                           retain_graph=True)
         bound_ms, bound_by = flash_bwd_bound(B, S, H, D, causal)
-        rows.append({
+        rows.append(with_rates({
             "B": B, "S": S, "H": H, "D": D, "causal": causal,
             "packed": packed, "max_abs_err": max(errs),
             "bitwise_repeatable": repeat,
@@ -467,7 +531,8 @@ def phase_kernels_bwd(torch, F):
             "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
                 q, k, v, out, lse, do, causal), 3),
             "library_ms": device_ms(torch, lib, 10),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "bound_ms": bound_ms, "bound_by": bound_by},
+            flash_flops(B, S, H, D, causal, True)))
         del first, again, plain, lib_out
     emit({"phase": "kernels", "name": "flash_attention_bwd",
           "tolerance": {"grad_atol_rtol": GRAD_TOL}, "cases": rows})
@@ -1034,7 +1099,7 @@ def phase_profile(torch, model, prompts):
         return one.step
     wall, dev, top = profiled(torch, decode)
     pwall, pdev, ptop = profiled(torch, prefill)
-    flash = sum(ms for name, ms in ptop if "flash_fwd_kernel" in name)
+    flash = sum(ms for name, ms in ptop if "flash_fwd_wgmma" in name)
     emit({"phase": "profile",
           "decode": {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
                      "device_ms_per_step": dev / steps * 1e3,
@@ -1708,8 +1773,10 @@ def phase_train_guard(torch, np):
 # kernels, then cuBLAS's GEMMs (int8 ones carry an int8 type in their
 # names), the rest elementwise, reductions and copies
 PROFILE_PARTS = {
-    "flash_fwd_ms": ("flash_fwd_kernel",),
-    "flash_bwd_ms": ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    # the wgmma kernels and the backward's delta pass
+    "flash_fwd_ms": ("flash_fwd_wgmma_kernel",),
+    "flash_bwd_ms": ("flash_bwd_dkdv_wgmma_kernel",
+                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel"),
     "adamw_ms": ("adamw_kernel<",),
     "adamw8_ms": ("adamw8_kernel",),
     # rows 10 and 11: the row kernel with LayerNorm, and the column pair
@@ -1841,10 +1908,13 @@ def phase_train_check(torch, np, name: str, recipe: dict):
 # ---- Part A: flash attention at every head_dim and in f32 ----
 
 # (D, dtype, causal) at B=4, S=512, H=8: head_dims off the reference
-# kernel's {64, 128, 256} in bf16 (tile widths 32, 96, 96 and 64), and
+# kernel's {64, 128, 256} in bf16 and f16 (tile widths 32, 96, 96, 64,
+# 192 and 192: width 192 has its own 32-column panels and, in the
+# backward, output columns split across three panels a warpgroup), and
 # f32 (f32 FMAs on the CUDA cores)
 ATTN_CASES = [(32, "bfloat16", True), (80, "bfloat16", True),
               (96, "bfloat16", False), (64, "bfloat16", False),
+              (160, "bfloat16", True), (192, "float16", False),
               (64, "float32", True), (128, "float32", False)]
 ATTN_SHAPE = (4, 512, 8)
 F32_TOL = 1e-4                   # f32 kernels vs plain (atol=rtol)
@@ -1862,8 +1932,9 @@ def attn_bound(B, S, H, D, causal, itemsize, backward: bool):
 
 
 def phase_kernels_attn(torch, F):
-    """Part A of the flash kernels: head_dim 32, 80, 96 and 64 in bf16
-    and f32 at 64 and 128, causal and not, forward and backward, against
+    """Part A of the flash kernels: head_dim 32, 80, 96, 64 and 160 in
+    bf16, 192 in f16 and f32 at 64 and 128, causal and not, forward and
+    backward, against
     the plain versions (bf16 at OUT_TOL / GRAD_TOL, f32 at F32_TOL); the
     backward gives the same bits twice; ms beside the bound, the plain
     version and PyTorch's SDPA (a yardstick)."""
@@ -1907,7 +1978,8 @@ def phase_kernels_attn(torch, F):
         bb, bby = attn_bound(B, S, H, D, causal, item, True)
         rows.append({
             "B": B, "S": S, "H": H, "D": D, "dtype": dt, "causal": causal,
-            "fwd": {"max_abs_err": (out.float() - ref.float()).abs().max()
+            "fwd": with_rates({
+                    "max_abs_err": (out.float() - ref.float()).abs().max()
                     .item(),
                     "ms": device_ms(torch, lambda: flash_attention_fwd(
                         q, k, v, causal=causal), 10),
@@ -1917,7 +1989,9 @@ def phase_kernels_attn(torch, F):
                         F.scaled_dot_product_attention(
                             qt, kt, vt, is_causal=causal)), 10),
                     "bound_ms": fb, "bound_by": fby},
-            "bwd": {"max_abs_err": max(
+                flash_flops(B, S, H, D, causal, False)),
+            "bwd": with_rates({
+                    "max_abs_err": max(
                         (a.float() - b.float()).abs().max().item()
                         for a, b in zip(grads, plain)),
                     "bitwise_repeatable": True,
@@ -1929,7 +2003,8 @@ def phase_kernels_attn(torch, F):
                     "library_ms": device_ms(torch, lambda: (
                         torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
                                             retain_graph=True)), 5),
-                    "bound_ms": bb, "bound_by": bby}})
+                    "bound_ms": bb, "bound_by": bby},
+                flash_flops(B, S, H, D, causal, True))})
         del grads, again, plain, lib_out
     emit({"phase": "kernels-attn",
           "tolerance": {"bf16_out_atol_rtol": OUT_TOL,
@@ -2425,9 +2500,10 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    _build.build()
+    sos = _build.build()
     emit({"phase": "build", "kernels": list(_build.KERNELS),
           "seconds": time.perf_counter() - t0})
+    phase_ptxas(sos)
 
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)

@@ -1,7 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv of causal or
 // full attention over [B, S, H, D] tensors taken by stride, from the
-// forward's saved row logsumexp lse [B, H, S] (f32) and
-// delta = rowsum(out * dO) [B, H, S] (f32, computed by the caller).
+// forward's out, its saved row logsumexp lse [B, H, S] (f32) and dO.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_fa_bwd_dkdv_kernel` (:184)
 // and `_fa_bwd_dq_kernel` (:229), as launched by `_fa_backward`
@@ -10,39 +9,51 @@
 // layout of the GPT trainer). Both layouts are strides here.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): the work
-// must read q, k, v, dO (and the f32 lse, delta) once and write dq, dk,
-// dv once, and do five matmuls over the (causal) score pairs: S = QK^T,
+// must read q, k, v, dO, out (and the f32 lse) once and write dq, dk, dv
+// once, and do five matmuls over the (causal) score pairs: S = QK^T,
 // dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K. At the GPT-1.3B
 // training shape (B=6, S=1024, H=16, D=128, causal) that is ~176 MB
 // (53 us) and 10*B*H*pairs*D = 6.4e10 flops (65 us): bound by
-// OPERATIONS. This kernel recomputes S and dP in both passes (seven
-// matmuls, as the reference does), so it cannot reach that bound.
+// OPERATIONS. Two passes recompute S and dP (seven matmuls, as the
+// reference does), so they cannot reach that bound.
 //
-// Design (simple and right first; wgmma, TMA, warp specialisation and
-// a fused single pass are later work):
-//  - two passes, as the reference: a dk/dv kernel with one block per
-//    k tile that loops over the q tiles from the diagonal on (causal:
-//    from tile (k0 / BQ), the reference's `i_start`), and a dq kernel
-//    with one block per q tile that loops over the k tiles up to the
-//    diagonal. Each block owns its output tile, so there are no atomics
-//    and the gradients are the same bits on every run;
-//  - every product runs on the tensor cores through WMMA 16x16x16 with
-//    16-bit inputs and f32 accumulation, operands in shared memory;
-//    the four warps of a block share out the 16x16 output fragments;
-//  - the reference's roundings: P is rounded to dO's dtype before dV,
-//    dS = P * (dP - delta) * scale is rounded to q's dtype before dK and
-//    dQ, accumulators are f32 (in shared memory) and rounded once at
-//    the end;
-//  - TILE SIZES DEPEND ON D, NEVER ON S: BQ = 64; BK = 64 for D <= 128
-//    and 32 above (shared memory). The ragged last tile is
-//    masked: keys >= S give P = 0, rows >= S have P = 0 and are never
-//    stored.
-// head_dim: any multiple of 8 up to 256 in bf16 or f16. The kernels are
-// instantiated at the tile widths D in {32, 64, 96, 128, 192, 256}, and a
-// call runs the smallest D >= head_dim: q, k, v and dO columns past the
-// true head_dim `hd` load as zeros (they add nothing to S or dP, and give
-// zero dq/dk/dv columns) and only the true width is stored; the scale
-// (1/sqrt(true head_dim)) comes from the caller.
+// One launch runs three passes on the caller's stream:
+//  1. delta = rowsum(out * dO) in f32 (`flash_bwd_delta_kernel`, a few
+//     lanes a row; the reference computes it in XLA);
+//  2. dk/dv: a block owns a key tile, a q tile loop from the diagonal on
+//     (causal: the reference's `i_start`);
+//  3. dq: a block owns a q tile, a key tile loop up to the diagonal.
+// Each block owns its output tile, so there are no atomics and the
+// gradients are the same bits on every run. The reference's roundings:
+// P is rounded to dO's dtype before dV, dS = P * (dP - delta) * scale to
+// q's dtype before dK and dQ; f32 accumulation.
+//
+// bf16 and f16 at every tile width, 32-256 (`flash_bwd_*_wgmma_kernel`):
+// two consumer warpgroups (64 resident rows each; above width 128 the
+// same 64 rows, each owning half of the output columns, since dK and dV
+// would need DP registers a thread) and a producer warpgroup whose
+// registers setmaxnreg moves to the consumers (40 / 232); one thread of
+// it keeps a TMA ring of the streamed 64-row tiles full (3 stages, 2 at
+// width 256; mbarriers), the dk/dv pass's lanes also stage the tile's
+// lse and delta. Every product is `wgmma`:
+//  - dk/dv: S^T = K Q^T and dP^T = V dO^T from shared memory (K, V
+//    resident), P^T = exp(S^T scale - lse) and dS^T in registers, then
+//    dV += P^T dO and dK += dS^T Q with P^T and dS^T (rounded) as
+//    register A operands and dO, Q read MN-major; dK and dV stay in
+//    registers (2 x DP/2 a thread, DP/2 above width 128);
+//  - dq: S = Q K^T and dP = dO V^T (Q, dO resident; lse and delta of a
+//    thread's two rows in registers), dS in registers, dQ += dS K with K
+//    read MN-major; the next tile's S and dP are issued before this
+//    tile's dQ product and dS is computed while it runs.
+// The mask (rows or keys >= S; causal: key > row) is applied only on
+// diagonal and ragged tiles; a warpgroup skips tiles wholly masked for
+// it. TILE SIZES DEPEND ON D, NEVER ON S (64-row streamed tiles).
+// head_dim: any multiple of 8 up to 256 in bf16 or f16, run at the
+// smallest tile width DP in {32, 64, 96, 128, 192, 256} >= head_dim; TMA
+// fills q, k, v and dO columns past the true head_dim `hd` with zeros
+// (they add nothing to S or dP, and give zero dq/dk/dv columns) and only
+// the true width is stored; the scale (1/sqrt(true head_dim)) comes from
+// the caller.
 //
 // float32: `flash_bwd_*_f32_kernel` below, f32 FMAs on the CUDA cores
 // (no TF32), head_dim any multiple of 4 up to 256. The same two passes:
@@ -53,67 +64,18 @@
 // rows and sums in a fixed order, so two runs give the same bits.
 //
 // Inputs and outputs need a unit stride in D and 16-byte aligned rows
-// (the Python wrapper checks). The launcher returns cudaGetLastError().
+// and strides (the Python wrapper checks; TMA needs both). The launcher
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <mma.h>
 #include <stdint.h>
 #include <type_traits>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;          // query rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-template <int D>
-struct Tile {
-  static constexpr int BK = D > 128 ? 32 : 64;  // key rows per tile
-  static constexpr int LDT = D + 8;             // 16-bit q/k/v/dO pitch
-  static constexpr int LDS = BK + 4;            // f32 [BQ, BK] pitch
-  static constexpr int LDP = BK + 8;            // 16-bit [BQ, BK] pitch
-  static constexpr int LDA = D + 4;             // f32 accumulator pitch
-};
-
-// dk/dv pass: resident K, V and the two accumulators; Q, dO stream.
-template <int D>
-struct SmemKV {
-  using t = Tile<D>;
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + size_t(t::BK) * t::LDT * 2;
-  static constexpr size_t q_off = v_off + size_t(t::BK) * t::LDT * 2;
-  static constexpr size_t do_off = q_off + size_t(kBQ) * t::LDT * 2;
-  static constexpr size_t dk_off = do_off + size_t(kBQ) * t::LDT * 2;
-  static constexpr size_t dv_off = dk_off + size_t(t::BK) * t::LDA * 4;
-  static constexpr size_t s_off = dv_off + size_t(t::BK) * t::LDA * 4;
-  static constexpr size_t dp_off = s_off + size_t(kBQ) * t::LDS * 4;
-  static constexpr size_t p_off = dp_off + size_t(kBQ) * t::LDS * 4;
-  static constexpr size_t ds_off = p_off + size_t(kBQ) * t::LDP * 2;
-  static constexpr size_t l_off = ds_off + size_t(kBQ) * t::LDP * 2;
-  static constexpr size_t d_off = l_off + size_t(kBQ) * 4;
-  static constexpr size_t bytes = d_off + size_t(kBQ) * 4;
-};
-
-// dq pass: resident Q, dO and the accumulator; K, V stream.
-template <int D>
-struct SmemQ {
-  using t = Tile<D>;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + size_t(kBQ) * t::LDT * 2;
-  static constexpr size_t k_off = do_off + size_t(kBQ) * t::LDT * 2;
-  static constexpr size_t v_off = k_off + size_t(t::BK) * t::LDT * 2;
-  static constexpr size_t dq_off = v_off + size_t(t::BK) * t::LDT * 2;
-  static constexpr size_t s_off = dq_off + size_t(kBQ) * t::LDA * 4;
-  static constexpr size_t dp_off = s_off + size_t(kBQ) * t::LDS * 4;
-  static constexpr size_t ds_off = dp_off + size_t(kBQ) * t::LDS * 4;
-  static constexpr size_t l_off = ds_off + size_t(kBQ) * t::LDP * 2;
-  static constexpr size_t d_off = l_off + size_t(kBQ) * 4;
-  static constexpr size_t bytes = d_off + size_t(kBQ) * 4;
-};
 
 struct Strides {  // in elements: batch, sequence, head (D has stride 1)
   long long q_b, q_s, q_h;
@@ -123,295 +85,601 @@ struct Strides {  // in elements: batch, sequence, head (D has stride 1)
   long long dq_b, dq_s, dq_h;
   long long dk_b, dk_s, dk_h;
   long long dv_b, dv_s, dv_h;
+  long long o_b, o_s, o_h;
 };
 
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ void put(__half* p, float x) {
-  *p = __float2half(x);
-}
+// ---- delta = rowsum(out * dO) in f32, [B, H, S] ----
+// The reference computes it in XLA before its backward kernels. `lpr`
+// lanes a (row, head), the smallest power of two that covers the row in
+// 16-byte loads (16 at head_dim 128 in bf16, so a warp takes two rows):
+// loads of out and dO by stride, f32 products summed per lane in column
+// order, then the lanes' butterfly. Bound by bytes (out and dO read
+// once).
 
-// Copy rows row0..row0+ROWS-1 of one head into a shared tile (pitch
-// LDT), 16 bytes per thread per step; rows past S and columns past the
-// true head_dim `hd` are zero-filled.
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int S, int hd) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S && c < hd) {
-      val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Tile<D>::LDT + c) = val;
-  }
-}
+constexpr int kDeltaWarps = 8;
 
-// Round ROWS rows of an f32 shared accumulator to T and store them by
-// stride; rows past S and columns past `hd` are dropped.
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float* src,
-                                           long long row_stride, int row0,
-                                           int S, int hd) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 8;
-    const int s = row0 + r;
-    if (s >= S || c >= hd) continue;
-    union {
-      uint4 u;
-      T e[8];
-    } pack;
-    const float* row = src + r * Tile<D>::LDA + c;
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
+                                       const __nv_bfloat16*) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) put(&pack.e[j], row[j]);
-    *reinterpret_cast<uint4*>(dst + s * row_stride + c) = pack.u;
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]);
+    const float2 w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
+                                       const __half*) {
+  const __half2* x = reinterpret_cast<const __half2*>(&a);
+  const __half2* y = reinterpret_cast<const __half2*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __half22float2(x[i]);
+    const float2 w = __half22float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
+                                       const float*) {
+  const float4 u = *reinterpret_cast<const float4*>(&a);
+  const float4 w = *reinterpret_cast<const float4*>(&b);
+  return fmaf(u.w, w.w, fmaf(u.z, w.z, fmaf(u.y, w.y, u.x * w.x)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDeltaWarps * 32)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, int S, int H, int hd,
+                       Strides st, long long rows, int lpr) {
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * kDeltaWarps + (threadIdx.x >> 5)) *
+          (32 / lpr) +
+      lane / lpr;
+  const int l = lane % lpr;
+  constexpr int V = 16 / sizeof(T);
+  float acc = 0.f;
+  int b = 0, s = 0, h = 0;
+  if (r < rows) {
+    h = static_cast<int>(r % H);
+    const long long bs = r / H;
+    s = static_cast<int>(bs % S);
+    b = static_cast<int>(bs / S);
+    const T* orow = out + b * st.o_b + s * st.o_s + h * st.o_h;
+    const T* drow = dout + b * st.do_b + s * st.do_s + h * st.do_h;
+    for (int c = l * V; c < hd; c += lpr * V) {
+      acc += dot16(*reinterpret_cast<const uint4*>(orow + c),
+                   *reinterpret_cast<const uint4*>(drow + c),
+                   static_cast<const T*>(nullptr));
+    }
+  }
+  for (int o = lpr / 2; o > 0; o >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  }
+  if (r < rows && l == 0) {
+    delta[(static_cast<long long>(b) * H + h) * S + s] = acc;
   }
 }
 
-template <int D>
-__device__ __forceinline__ void zero_acc(float* acc, int rows) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    acc[(i / D) * Tile<D>::LDA + (i % D)] = 0.f;
+template <typename T>
+cudaError_t launch_delta(const void* out, const void* dout, float* delta,
+                         int B, int S, int H, int hd, const Strides& st,
+                         cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  int lpr = 1;
+  while (lpr < 32 && lpr * V < hd) lpr *= 2;
+  const long long rows = static_cast<long long>(B) * S * H;
+  const long long per_block = kDeltaWarps * (32 / lpr);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>(blocks),
+                              kDeltaWarps * 32, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, S, H,
+      hd, st, rows, lpr);
+  return cudaGetLastError();
+}
+
+// ---- bf16/f16: wgmma, TMA rings, registers ----
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DP, int NWG>
+struct BwdTiles {
+  // Up to width 128 each consumer warpgroup owns 64 resident rows and
+  // its outputs' whole width. Above, the accumulators (dK and dV: DP
+  // registers a thread) do not fit: both warpgroups take the same 64
+  // rows, each owns ON = DP / NWG of the output columns and computes S
+  // and dP for them itself.
+  static constexpr bool SPLIT = DP > 128;
+  static constexpr int BR = SPLIT ? 64 : 64 * NWG;  // resident rows
+  static constexpr int ON = SPLIT ? DP / NWG : DP;  // a warpgroup's columns
+  static constexpr int BS = 64;              // streamed rows per tile
+  static constexpr int STAGES = DP > 192 ? 2 : 3;   // shared memory
+  static constexpr int RES = BR * DP * 2;    // one resident tile (bytes)
+  static constexpr int STR = BS * DP * 2;    // one streamed tile
+  // a stage: two streamed tiles, then (dk/dv pass) the tile's lse and
+  // delta, 64 floats each
+  static constexpr int STAGE = 2 * STR + 1024;
+  __host__ __device__ static constexpr int res_off(int i) { return i * RES; }
+  __host__ __device__ static constexpr int str_off(int s, int i) {
+    return 2 * RES + s * STAGE + i * STR;
+  }
+  __host__ __device__ static constexpr int stat_off(int s) {
+    return 2 * RES + s * STAGE + 2 * STR;
+  }
+  static constexpr int bar_off = 2 * RES + STAGES * STAGE;
+  static constexpr int SMEM = bar_off + 8 * (1 + 2 * STAGES) + 1024;
+  // the consumers and a whole producer warpgroup, whose registers
+  // setmaxnreg hands to them (one warp of it loads)
+  static constexpr int THREADS = 128 * NWG + 128;
+};
+
+constexpr int kBwdNWG = 2;
+constexpr int kProducerRegs = 40;    // after setmaxnreg
+constexpr int kConsumerRegs = 232;   // 128 x 40 + 256 x 232 <= 65536
+
+// Pack an m64n64 accumulator, rounded to T, into the A fragments of four
+// k16 steps.
+template <typename T>
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    f[n / 2][(n % 2) * 2] = ptt::pack2<T>(x[4 * n], x[4 * n + 1]);
+    f[n / 2][(n % 2) * 2 + 1] = ptt::pack2<T>(x[4 * n + 2], x[4 * n + 3]);
   }
 }
 
-// Row statistics of q rows q0..q0+BQ-1; rows past S get 0.
-__device__ __forceinline__ void load_stats(float* sl, float* sd,
-                                           const float* lse,
-                                           const float* delta, int q0,
-                                           int S) {
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    const int s = q0 + r;
-    sl[r] = s < S ? lse[s] : 0.f;
-    sd[r] = s < S ? delta[s] : 0.f;
+// Round a thread's rows (row0, row0 + 8) of an m64nN accumulator to T and
+// store them by stride; rows past S and columns past hd are dropped.
+template <int N, typename T>
+__device__ __forceinline__ void store_acc(T* base, long long row_stride,
+                                          const float (&acc)[N / 2],
+                                          int row0, int c2, int S, int hd) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    if (8 * n < hd) {                  // hd is a multiple of 8
+      const int col = 8 * n + c2;
+      if (row0 < S) {
+        *reinterpret_cast<uint32_t*>(base + row0 * row_stride + col) =
+            ptt::pack2<T>(acc[4 * n], acc[4 * n + 1]);
+      }
+      if (row0 + 8 < S) {
+        *reinterpret_cast<uint32_t*>(base + (row0 + 8) * row_stride + col) =
+            ptt::pack2<T>(acc[4 * n + 2], acc[4 * n + 3]);
+      }
+    }
   }
 }
 
-// C[M, N] (f32, row-major, pitch ldc) = (accumulate ? C : 0) + A B, all
-// in shared memory. A is [M, K] and B is [K, N], each stored row-major
-// or column-major as its layout says (pitches lda, ldb). The block's
-// warps take the 16x16 output fragments in turn.
-template <typename T, typename LA, typename LB>
-__device__ __forceinline__ void gemm(float* C, int ldc, const T* A, int lda,
-                                     const T* B, int ldb, int M, int N,
-                                     int K, bool accumulate) {
-  const int warp = threadIdx.x >> 5;
-  const int nn = N / 16;
-  for (int f = warp; f < (M / 16) * nn; f += kWarps) {
-    const int m0 = (f / nn) * 16;
-    const int n0 = (f % nn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    float* cp = C + m0 * ldc + n0;
-    if (accumulate) {
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
+// dk/dv pass: a block owns BR keys (64 a consumer warpgroup, or 64 shared
+// by both above width 128) with K and V resident; q, dO, lse and delta
+// stream in 64-row tiles from the diagonal on. Per tile, by wgmma:
+// S^T = K Q^T and dP^T = V dO^T (shared operands), P^T = exp(S^T scale -
+// lse) and dS^T = P^T (dP^T - delta) scale in registers, then dV += P^T
+// dO and dK += dS^T Q with P^T and dS^T (rounded) as register A operands
+// and dO, Q read MN-major.
+template <int DP, typename T>
+__global__ void __launch_bounds__(BwdTiles<DP, kBwdNWG>::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int S,
+                            int H, int hd, Strides st, float scale,
+                            int causal) {
+  constexpr int NWG = kBwdNWG;
+  using C = BwdTiles<DP, NWG>;
+  using P = ptt::Panels<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = ptt::align_1024(smem_raw);
+  uint64_t* bar_res = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* full = bar_res + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int k0 = blockIdx.x * C::BR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const int nq = (S + C::BS - 1) / C::BS;
+  const int i0 = causal ? k0 / C::BS : 0;     // the reference's i_start
+  const int tiles = nq - i0;
+
+  if (threadIdx.x == 0) {
+    ptt::mbar_init(bar_res, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      ptt::mbar_init(&full[s], 32);   // the producer warp's 32 lanes
+      ptt::mbar_init(&empty[s], 4 * NWG);
+    }
+    ptt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NWG) {              // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x >= 128 * NWG + 32) return;  // one warp loads
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      ptt::mbar_arrive_tx(bar_res, 2 * C::RES);
+      for (int w = 0; w < C::BR / 64; ++w) {
+        for (int p = 0; p < P::NP; ++p) {
+          const int off = (p * C::BR + 64 * w) * P::SWB;
+          ptt::tma_load_4d(smem + C::res_off(0) + off, &tk, bar_res,
+                           p * P::PW, k0 + 64 * w, h, b);
+          ptt::tma_load_4d(smem + C::res_off(1) + off, &tv, bar_res,
+                           p * P::PW, k0 + 64 * w, h, b);
+        }
+      }
+    }
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % C::STAGES;
+      const int q0 = (i0 + it) * C::BS;
+      ptt::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        ptt::mbar_expect_tx(&full[s], 2 * C::STR);
+        for (int p = 0; p < P::NP; ++p) {
+          const int off = p * C::BS * P::SWB;
+          ptt::tma_load_4d(smem + C::str_off(s, 0) + off, &tq, &full[s],
+                           p * P::PW, q0, h, b);
+          ptt::tma_load_4d(smem + C::str_off(s, 1) + off, &tdo, &full[s],
+                           p * P::PW, q0, h, b);
+        }
+      }
+      // lse (log2 domain) and delta of the tile's rows; rows past S get 0
+      float* stat = reinterpret_cast<float*>(smem + C::stat_off(s));
+      for (int r = lane; r < C::BS; r += 32) {
+        const int qpos = q0 + r;
+        stat[r] = qpos < S ? lse[bh * S + qpos] * kLog2e : 0.f;
+        stat[C::BS + r] = qpos < S ? delta[bh * S + qpos] : 0.f;
+      }
+      ptt::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // the warpgroup index through a shuffle, so the compiler sees it (and
+  // the loop bounds and branches made from it) uniform
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  const int lane = threadIdx.x & 31;
+  const int c2 = (lane & 3) * 2;
+  const int row_w = C::SPLIT ? 0 : 64 * wg;   // my first resident row
+  const int col_w = C::SPLIT ? C::ON * wg : 0;  // my first output column
+  const int kw0 = k0 + row_w;
+  const int key0 = kw0 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int key1 = key0 + 8;
+  const uint32_t sbase = ptt::smem_u32(smem);
+  const uint32_t sK = sbase + C::res_off(0);
+  const uint32_t sV = sbase + C::res_off(1);
+  const float scale_log2 = scale * kLog2e;
+
+  float acc_k[C::ON / 2], acc_v[C::ON / 2];
+#pragma unroll
+  for (int i = 0; i < C::ON / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  ptt::mbar_wait(bar_res, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % C::STAGES;
+    const int q0 = (i0 + it) * C::BS;
+    ptt::mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if (!causal || q0 + C::BS - 1 >= kw0) {   // not wholly above the keys
+      const uint32_t sQ = sbase + C::str_off(s, 0);
+      const uint32_t sdO = sbase + C::str_off(s, 1);
+      const float* stat =
+          reinterpret_cast<const float*>(smem + C::stat_off(s));
+      float sp[32], dp[32];            // S^T then P^T; dP^T then dS^T
+      ptt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        ptt::wgmma_ss<64, T>(sp, P::kmajor(sK, C::BR, row_w, kk),
+                             P::kmajor(sQ, C::BS, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        ptt::wgmma_ss<64, T>(dp, P::kmajor(sV, C::BR, row_w, kk),
+                             P::kmajor(sdO, C::BS, 0, kk), kk > 0);
+      }
+      ptt::wgmma_commit();
+      ptt::wgmma_wait<0>();
+      ptt::fence_regs(sp);
+      ptt::fence_regs(dp);
+
+      const bool edge = q0 + C::BS > S || kw0 + 64 > S ||
+                        (causal && q0 < kw0 + 63);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = 8 * n + c2 + e;
+          const float l2 = stat[qc];
+          float p0 = ptt::ex2(sp[4 * n + e] * scale_log2 - l2);
+          float p1 = ptt::ex2(sp[4 * n + 2 + e] * scale_log2 - l2);
+          if (edge) {
+            const int qpos = q0 + qc;
+            if (qpos >= S || key0 >= S || (causal && key0 > qpos)) p0 = 0.f;
+            if (qpos >= S || key1 >= S || (causal && key1 > qpos)) p1 = 0.f;
+          }
+          sp[4 * n + e] = p0;
+          sp[4 * n + 2 + e] = p1;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = stat[C::BS + 8 * n + c2 + e];
+          dp[4 * n + e] = sp[4 * n + e] * (dp[4 * n + e] - dl) * scale;
+          dp[4 * n + 2 + e] =
+              sp[4 * n + 2 + e] * (dp[4 * n + 2 + e] - dl) * scale;
+        }
+      }
+      // both f32 tiles die into 16-bit fragments before the products
+      // (two accumulators of DP / 2 leave no room to overlap them)
+      uint32_t pf[4][4], df[4][4];
+      to_frags<T>(sp, pf);
+      to_frags<T>(dp, df);
+      ptt::wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        ptt::wgmma_rs<C::ON, T>(
+            acc_v, pf[kt], P::mnmajor(sdO, C::BS, 16 * kt, col_w), 1);
+      }
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        ptt::wgmma_rs<C::ON, T>(
+            acc_k, df[kt], P::mnmajor(sQ, C::BS, 16 * kt, col_w), 1);
+      }
+      ptt::wgmma_commit();
+      ptt::wgmma_wait<0>();
+      ptt::fence_regs(acc_v);
+      ptt::fence_regs(acc_k);
+    }
+    __syncwarp();
+    if (lane == 0) ptt::mbar_arrive(&empty[s]);
+  }
+  store_acc<C::ON>(dk + b * st.dk_b + h * st.dk_h + col_w, st.dk_s, acc_k,
+                   key0, c2, S, hd - col_w);
+  store_acc<C::ON>(dv + b * st.dv_b + h * st.dv_h + col_w, st.dv_s, acc_v,
+                   key0, c2, S, hd - col_w);
+}
+
+// dq pass: a block owns BR query rows (as the dk/dv pass its keys) with
+// Q and dO resident (their lse
+// and delta in registers); k and v stream in 64-key tiles up to the
+// diagonal. Per tile: S = Q K^T and dP = dO V^T (shared operands), P and
+// dS = P (dP - delta) scale in registers, dQ += dS K with dS (rounded) as
+// the register A operand and K read MN-major.
+template <int DP, typename T>
+__global__ void __launch_bounds__(BwdTiles<DP, kBwdNWG>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dq, int S, int H, int hd,
+                          Strides st, float scale, int causal) {
+  constexpr int NWG = kBwdNWG;
+  using C = BwdTiles<DP, NWG>;
+  using P = ptt::Panels<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = ptt::align_1024(smem_raw);
+  uint64_t* bar_res = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* full = bar_res + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int nb = (S + C::BR - 1) / C::BR;
+  const int q0 = (nb - 1 - static_cast<int>(blockIdx.x)) * C::BR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const int nk = (S + C::BS - 1) / C::BS;
+  const int tiles = causal ? min((q0 + C::BR - 1) / C::BS + 1, nk) : nk;
+
+  if (threadIdx.x == 0) {
+    ptt::mbar_init(bar_res, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], 4 * NWG);
+    }
+    ptt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NWG) {              // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == 128 * NWG) {
+      ptt::mbar_arrive_tx(bar_res, 2 * C::RES);
+      for (int w = 0; w < C::BR / 64; ++w) {
+        for (int p = 0; p < P::NP; ++p) {
+          const int off = (p * C::BR + 64 * w) * P::SWB;
+          ptt::tma_load_4d(smem + C::res_off(0) + off, &tq, bar_res,
+                           p * P::PW, q0 + 64 * w, h, b);
+          ptt::tma_load_4d(smem + C::res_off(1) + off, &tdo, bar_res,
+                           p * P::PW, q0 + 64 * w, h, b);
+        }
+      }
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % C::STAGES;
+        ptt::mbar_wait(&empty[s], ((j / C::STAGES) & 1) ^ 1);
+        ptt::mbar_arrive_tx(&full[s], 2 * C::STR);
+        for (int p = 0; p < P::NP; ++p) {
+          const int off = p * C::BS * P::SWB;
+          ptt::tma_load_4d(smem + C::str_off(s, 0) + off, &tk, &full[s],
+                           p * P::PW, j * C::BS, h, b);
+          ptt::tma_load_4d(smem + C::str_off(s, 1) + off, &tv, &full[s],
+                           p * P::PW, j * C::BS, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // the warpgroup index through a shuffle, so the compiler sees it (and
+  // the loop bounds and branches made from it) uniform
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  const int lane = threadIdx.x & 31;
+  const int c2 = (lane & 3) * 2;
+  const int row_w = C::SPLIT ? 0 : 64 * wg;   // my first resident row
+  const int col_w = C::SPLIT ? C::ON * wg : 0;  // my first output column
+  const int qw0 = q0 + row_w;
+  const int row0 = qw0 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const int wg_tiles = causal ? min((qw0 + 63) / C::BS + 1, nk) : nk;
+  const uint32_t sbase = ptt::smem_u32(smem);
+  const uint32_t sQ = sbase + C::res_off(0);
+  const uint32_t sdO = sbase + C::res_off(1);
+  const float scale_log2 = scale * kLog2e;
+  const float l20 = row0 < S ? lse[bh * S + row0] * kLog2e : 0.f;
+  const float l21 = row1 < S ? lse[bh * S + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < S ? delta[bh * S + row0] : 0.f;
+  const float dl1 = row1 < S ? delta[bh * S + row1] : 0.f;
+
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) ptt::mbar_arrive(&empty[j % C::STAGES]);
+  };
+
+  float acc[C::ON / 2];
+#pragma unroll
+  for (int i = 0; i < C::ON / 2; ++i) acc[i] = 0.f;
+  float sp[32], dp[32];
+  uint32_t df[4][4];
+
+  // Tile 0, then for each next tile j: S_j and dP_j are issued before
+  // dQ += dS_{j-1} K_{j-1}, and dS_j is computed while that product runs.
+  ptt::mbar_wait(bar_res, 0);
+  for (int j = 0; j < wg_tiles; ++j) {
+    ptt::mbar_wait(&full[j % C::STAGES], (j / C::STAGES) & 1);
+    const uint32_t sK = sbase + C::str_off(j % C::STAGES, 0);
+    const uint32_t sV = sbase + C::str_off(j % C::STAGES, 1);
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      ptt::wgmma_ss<64, T>(sp, P::kmajor(sQ, C::BR, row_w, kk),
+                           P::kmajor(sK, C::BS, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      ptt::wgmma_ss<64, T>(dp, P::kmajor(sdO, C::BR, row_w, kk),
+                           P::kmajor(sV, C::BS, 0, kk), kk > 0);
+    }
+    ptt::wgmma_commit();
+    if (j > 0) {
+      const uint32_t sKp = sbase + C::str_off((j - 1) % C::STAGES, 0);
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        ptt::wgmma_rs<C::ON, T>(
+            acc, df[kt], P::mnmajor(sKp, C::BS, 16 * kt, col_w), 1);
+      }
+      ptt::wgmma_commit();
+      ptt::wgmma_wait<1>();            // S_j and dP_j have landed
     } else {
-      wmma::fill_fragment(c, 0.f);
+      ptt::wgmma_wait<0>();
     }
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> b;
-      if constexpr (std::is_same<LA, wmma::row_major>::value) {
-        wmma::load_matrix_sync(a, A + m0 * lda + kk, lda);
-      } else {
-        wmma::load_matrix_sync(a, A + kk * lda + m0, lda);
+    ptt::fence_regs(sp);
+    ptt::fence_regs(dp);
+
+    const int k0 = j * C::BS;
+    const bool edge = k0 + C::BS > S || (causal && k0 + C::BS - 1 > qw0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = ptt::ex2(sp[4 * n + e] * scale_log2 - l20);
+        float p1 = ptt::ex2(sp[4 * n + 2 + e] * scale_log2 - l21);
+        if (edge) {
+          const int key = k0 + 8 * n + c2 + e;
+          if (key >= S || (causal && key > row0)) p0 = 0.f;
+          if (key >= S || (causal && key > row1)) p1 = 0.f;
+        }
+        dp[4 * n + e] = p0 * (dp[4 * n + e] - dl0) * scale;
+        dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - dl1) * scale;
       }
-      if constexpr (std::is_same<LB, wmma::row_major>::value) {
-        wmma::load_matrix_sync(b, B + kk * ldb + n0, ldb);
-      } else {
-        wmma::load_matrix_sync(b, B + n0 * ldb + kk, ldb);
-      }
-      wmma::mma_sync(c, a, b, c);
     }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// S = Q K^T and dP = dO V^T for one (q tile, k tile) pair, then
-// P = exp(S * scale - lse) (0 where masked) and
-// dS = P * (dP - delta) * scale, rounded to T. P is stored only when
-// `sp` is given (the dk/dv pass).
-template <int D, typename T>
-__device__ __forceinline__ void scores(const T* sQ, const T* sdO,
-                                       const T* sK, const T* sV, float* sS,
-                                       float* sdP, const float* sl,
-                                       const float* sd, T* sp, T* sds,
-                                       int q0, int k0, int S, float scale,
-                                       int causal) {
-  using t = Tile<D>;
-  gemm<T, wmma::row_major, wmma::col_major>(sS, t::LDS, sQ, t::LDT, sK,
-                                            t::LDT, kBQ, t::BK, D, false);
-  gemm<T, wmma::row_major, wmma::col_major>(sdP, t::LDS, sdO, t::LDT, sV,
-                                            t::LDT, kBQ, t::BK, D, false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBQ * t::BK; i += kThreads) {
-    const int r = i / t::BK;
-    const int c = i % t::BK;
-    const int qpos = q0 + r;
-    const int kpos = k0 + c;
-    float p = 0.f;
-    float ds = 0.f;
-    if (qpos < S && kpos < S && (!causal || kpos <= qpos)) {
-      p = expf(sS[r * t::LDS + c] * scale - sl[r]);
-      ds = p * (sdP[r * t::LDS + c] - sd[r]) * scale;
+    if (j > 0) {
+      ptt::wgmma_wait<0>();            // dQ += dS_{j-1} K_{j-1} has landed
+      ptt::fence_regs(acc);
+      release(j - 1);
     }
-    if (sp != nullptr) put(sp + r * t::LDP + c, p);
-    put(sds + r * t::LDP + c, ds);
+    to_frags<T>(dp, df);
   }
-  __syncthreads();
+  {
+    const uint32_t sKp = sbase + C::str_off((wg_tiles - 1) % C::STAGES, 0);
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      ptt::wgmma_rs<C::ON, T>(
+          acc, df[kt], P::mnmajor(sKp, C::BS, 16 * kt, col_w), 1);
+    }
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs(acc);
+    release(wg_tiles - 1);
+  }
+  for (int j = wg_tiles; j < tiles; ++j) {   // tiles wholly past my rows
+    ptt::mbar_wait(&full[j % C::STAGES], (j / C::STAGES) & 1);
+    release(j);
+  }
+  store_acc<C::ON>(dq + b * st.dq_b + h * st.dq_h + col_w, st.dq_s, acc,
+                   row0, c2, S, hd - col_w);
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, int hd, Strides st,
-                      float scale, int causal) {
-  using t = Tile<D>;
-  using L = SmemKV<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem + L::k_off);
-  T* sV = reinterpret_cast<T*>(smem + L::v_off);
-  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
-  T* sdO = reinterpret_cast<T*>(smem + L::do_off);
-  float* sdK = reinterpret_cast<float*>(smem + L::dk_off);
-  float* sdV = reinterpret_cast<float*>(smem + L::dv_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  float* sdP = reinterpret_cast<float*>(smem + L::dp_off);
-  T* sP = reinterpret_cast<T*>(smem + L::p_off);
-  T* sdS = reinterpret_cast<T*>(smem + L::ds_off);
-  float* sl = reinterpret_cast<float*>(smem + L::l_off);
-  float* sd = reinterpret_cast<float*>(smem + L::d_off);
-
-  const int k0 = blockIdx.x * t::BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const float* lse_h = lse + bh * S;
-  const float* delta_h = delta + bh * S;
-  const T* qh = q + b * st.q_b + h * st.q_h;
-  const T* doh = dout + b * st.do_b + h * st.do_h;
-
-  load_rows<D, t::BK>(sK, k + b * st.k_b + h * st.k_h, st.k_s, k0, S, hd);
-  load_rows<D, t::BK>(sV, v + b * st.v_b + h * st.v_h, st.v_s, k0, S, hd);
-  zero_acc<D>(sdK, t::BK);
-  zero_acc<D>(sdV, t::BK);
-
-  const int nq = (S + kBQ - 1) / kBQ;
-  for (int i = causal ? k0 / kBQ : 0; i < nq; ++i) {
-    const int q0 = i * kBQ;
-    __syncthreads();                     // previous tile fully read
-    load_rows<D, kBQ>(sQ, qh, st.q_s, q0, S, hd);
-    load_rows<D, kBQ>(sdO, doh, st.do_s, q0, S, hd);
-    load_stats(sl, sd, lse_h, delta_h, q0, S);
-    __syncthreads();
-    scores<D>(sQ, sdO, sK, sV, sS, sdP, sl, sd, sP, sdS, q0, k0, S, scale,
-              causal);
-    // dV += P^T dO, dK += dS^T Q  ([BK, BQ] x [BQ, D])
-    gemm<T, wmma::col_major, wmma::row_major>(sdV, t::LDA, sP, t::LDP, sdO,
-                                              t::LDT, t::BK, D, kBQ, true);
-    gemm<T, wmma::col_major, wmma::row_major>(sdK, t::LDA, sdS, t::LDP, sQ,
-                                              t::LDT, t::BK, D, kBQ, true);
+template <int DP, typename T>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dq, void* dk, void* dv,
+                         int B, int S, int H, int hd, const Strides& st,
+                         float scale, int causal, cudaStream_t stream) {
+  using C = BwdTiles<DP, kBwdNWG>;
+  using P = ptt::Panels<DP>;
+  CUtensorMap mq, mk, mv, mdo;       // one box shape: (PW, 64) rows
+  cudaError_t err = ptt::make_bshd_map<T>(&mq, q, B, S, H, hd, st.q_b,
+                                          st.q_s, st.q_h, P::PW, 64);
+  if (err == cudaSuccess) {
+    err = ptt::make_bshd_map<T>(&mk, k, B, S, H, hd, st.k_b, st.k_s, st.k_h,
+                                P::PW, 64);
   }
-  __syncthreads();
-  store_rows<D, t::BK>(dk + b * st.dk_b + h * st.dk_h, sdK, st.dk_s, k0, S,
-                       hd);
-  store_rows<D, t::BK>(dv + b * st.dv_b + h * st.dv_h, sdV, st.dv_s, k0, S,
-                       hd);
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int hd, Strides st, float scale,
-                    int causal) {
-  using t = Tile<D>;
-  using L = SmemQ<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
-  T* sdO = reinterpret_cast<T*>(smem + L::do_off);
-  T* sK = reinterpret_cast<T*>(smem + L::k_off);
-  T* sV = reinterpret_cast<T*>(smem + L::v_off);
-  float* sdQ = reinterpret_cast<float*>(smem + L::dq_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  float* sdP = reinterpret_cast<float*>(smem + L::dp_off);
-  T* sdS = reinterpret_cast<T*>(smem + L::ds_off);
-  float* sl = reinterpret_cast<float*>(smem + L::l_off);
-  float* sd = reinterpret_cast<float*>(smem + L::d_off);
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const T* kh = k + b * st.k_b + h * st.k_h;
-  const T* vh = v + b * st.v_b + h * st.v_h;
-
-  load_rows<D, kBQ>(sQ, q + b * st.q_b + h * st.q_h, st.q_s, q0, S, hd);
-  load_rows<D, kBQ>(sdO, dout + b * st.do_b + h * st.do_h, st.do_s, q0, S,
-                    hd);
-  load_stats(sl, sd, lse + bh * S, delta + bh * S, q0, S);
-  zero_acc<D>(sdQ, kBQ);
-
-  const int nk = (S + t::BK - 1) / t::BK;
-  const int j_last = causal ? min((q0 + kBQ - 1) / t::BK, nk - 1) : nk - 1;
-  for (int j = 0; j <= j_last; ++j) {
-    const int k0 = j * t::BK;
-    __syncthreads();                     // previous tile fully read
-    load_rows<D, t::BK>(sK, kh, st.k_s, k0, S, hd);
-    load_rows<D, t::BK>(sV, vh, st.v_s, k0, S, hd);
-    __syncthreads();
-    scores<D>(sQ, sdO, sK, sV, sS, sdP, sl, sd, static_cast<T*>(nullptr),
-              sdS, q0, k0, S, scale, causal);
-    // dQ += dS K  ([BQ, BK] x [BK, D])
-    gemm<T, wmma::row_major, wmma::row_major>(sdQ, t::LDA, sdS, t::LDP, sK,
-                                              t::LDT, kBQ, D, t::BK, true);
+  if (err == cudaSuccess) {
+    err = ptt::make_bshd_map<T>(&mv, v, B, S, H, hd, st.v_b, st.v_s, st.v_h,
+                                P::PW, 64);
   }
-  __syncthreads();
-  store_rows<D, kBQ>(dq + b * st.dq_b + h * st.dq_h, sdQ, st.dq_s, q0, S,
-                     hd);
-}
-
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, void* dk, void* dv, int B, int S, int H,
-                   int hd, const Strides& st, float scale, int causal,
-                   cudaStream_t stream) {
-  auto kv_kernel = flash_bwd_dkdv_kernel<D, T>;
-  auto q_kernel = flash_bwd_dq_kernel<D, T>;
-  const int kv_smem = static_cast<int>(SmemKV<D>::bytes);
-  const int q_smem = static_cast<int>(SmemQ<D>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err == cudaSuccess) {
+    err = ptt::make_bshd_map<T>(&mdo, dout, B, S, H, hd, st.do_b, st.do_s,
+                                st.do_h, P::PW, 64);
+  }
+  if (err != cudaSuccess) return err;
+  auto kv_kernel = flash_bwd_dkdv_wgmma_kernel<DP, T>;
+  auto q_kernel = flash_bwd_dq_wgmma_kernel<DP, T>;
+  err = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
+      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  dim3 kv_grid((S + Tile<D>::BK - 1) / Tile<D>::BK, H, B);
-  kv_kernel<<<kv_grid, kThreads, kv_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+  dim3 grid((S + C::BR - 1) / C::BR, H, B);
+  kv_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       S, H, hd, st, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 q_grid((S + kBQ - 1) / kBQ, H, B);
-  q_kernel<<<q_grid, kThreads, q_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, hd, st, scale,
+  q_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), S, H, hd, st, scale,
       causal);
   return cudaGetLastError();
 }
@@ -668,47 +936,55 @@ inline int tile_width(int hd) {
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float16 (D a multiple of 8), 2 = float32 (D a
-// multiple of 4); D <= 256. strides: 21 values, (batch, seq,
-// head) for q, k, v, dout, dq, dk, dv in that order. Launches the dk/dv
-// pass, then the dq pass, on `stream`. Returns a cudaError_t.
+// multiple of 4); D <= 256. strides: 24 values, (batch, seq, head) for q,
+// k, v, dout, dq, dk, dv, out in that order. delta: [B, H, S] f32
+// scratch. Launches the delta pass, the dk/dv pass, then the dq pass, on
+// `stream`. Returns a cudaError_t.
 int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
-                            const void* dout, const float* lse,
-                            const float* delta, void* dq, void* dk,
-                            void* dv, int B, int S, int H, int D,
+                            const void* dout, const void* out,
+                            const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, int B, int S, int H, int D,
                             const long long* strides, float scale,
                             int causal, int dtype, void* stream) {
   const long long* s = strides;
-  const Strides st{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],  s[6],
-                   s[7],  s[8],  s[9],  s[10], s[11], s[12], s[13],
-                   s[14], s[15], s[16], s[17], s[18], s[19], s[20]};
+  const Strides st{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],  s[6],  s[7],
+                   s[8],  s[9],  s[10], s[11], s[12], s[13], s[14], s[15],
+                   s[16], s[17], s[18], s[19], s[20], s[21], s[22], s[23]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || H < 1 || D < 1 || D > 256) {
+  if (B < 1 || S < 1 || H < 1 || D < 1 || D > 256 || dtype < 0 ||
+      dtype > 2 || D % (dtype == 2 ? 4 : 8)) {
     return cudaErrorInvalidValue;
   }
+  cudaError_t err =
+      dtype == 0   ? launch_delta<__nv_bfloat16>(out, dout, delta, B, S, H, D,
+                                                 st, cs)
+      : dtype == 1 ? launch_delta<__half>(out, dout, delta, B, S, H, D, st,
+                                          cs)
+                   : launch_delta<float>(out, dout, delta, B, S, H, D, st,
+                                         cs);
+  if (err != cudaSuccess) return err;
   if (dtype == 2) {
-    if (D % 4) return cudaErrorInvalidValue;
     return launch_f32(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, D, st,
                       scale, causal, cs);
   }
-  if (D % 8) return cudaErrorInvalidValue;
   const int dp = tile_width(D);
-#define PTT_BWD_CASE(DIM, TYPE, CODE)                                       \
+#define PTT_BWD_WGMMA_CASE(DIM, TYPE, CODE)                                 \
   if (dtype == CODE && dp == DIM)                                         \
-    return launch<DIM, TYPE>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, \
-                             H, D, st, scale, causal, cs);
-  PTT_BWD_CASE(32, __nv_bfloat16, 0)
-  PTT_BWD_CASE(64, __nv_bfloat16, 0)
-  PTT_BWD_CASE(96, __nv_bfloat16, 0)
-  PTT_BWD_CASE(128, __nv_bfloat16, 0)
-  PTT_BWD_CASE(192, __nv_bfloat16, 0)
-  PTT_BWD_CASE(256, __nv_bfloat16, 0)
-  PTT_BWD_CASE(32, __half, 1)
-  PTT_BWD_CASE(64, __half, 1)
-  PTT_BWD_CASE(96, __half, 1)
-  PTT_BWD_CASE(128, __half, 1)
-  PTT_BWD_CASE(192, __half, 1)
-  PTT_BWD_CASE(256, __half, 1)
-#undef PTT_BWD_CASE
+    return launch_wgmma<DIM, TYPE>(q, k, v, dout, lse, delta, dq, dk, dv, \
+                                   B, S, H, D, st, scale, causal, cs);
+  PTT_BWD_WGMMA_CASE(32, __nv_bfloat16, 0)
+  PTT_BWD_WGMMA_CASE(64, __nv_bfloat16, 0)
+  PTT_BWD_WGMMA_CASE(96, __nv_bfloat16, 0)
+  PTT_BWD_WGMMA_CASE(128, __nv_bfloat16, 0)
+  PTT_BWD_WGMMA_CASE(192, __nv_bfloat16, 0)
+  PTT_BWD_WGMMA_CASE(256, __nv_bfloat16, 0)
+  PTT_BWD_WGMMA_CASE(32, __half, 1)
+  PTT_BWD_WGMMA_CASE(64, __half, 1)
+  PTT_BWD_WGMMA_CASE(96, __half, 1)
+  PTT_BWD_WGMMA_CASE(128, __half, 1)
+  PTT_BWD_WGMMA_CASE(192, __half, 1)
+  PTT_BWD_WGMMA_CASE(256, __half, 1)
+#undef PTT_BWD_WGMMA_CASE
   return cudaErrorInvalidValue;
 }
 

@@ -3,41 +3,63 @@
 // and the row logsumexp lse [B, H, S] (f32).
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_fa_forward` (pallas_call at
-// :152, kernel `_fa_fwd_kernel` :82, `_online_update` :133), reached
-// through `flash_attention_fwd` :372 and nn.functional SDPA.
+// :152, kernel `_fa_fwd_kernel` :82, `_online_update` :133) and
+// `_fa_forward_qkvpacked` (pallas_call at :645), reached through
+// `flash_attention_fwd` :372, `flash_attention_qkv_fused` :709 and
+// nn.functional SDPA.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): the kernel
 // must read q, k, v once and write out once (plus 4 bytes of lse per
 // row). Serving prefill at S=512, B=1, H=16, D=128 moves ~8.4 MB
 // (2.5 us) and does 4*S*(S+1)/2*D*H ~= 1.07 GFLOP of causal matmul
 // (1.1 us), so at serving prompt lengths it is bound by BYTES; it turns
-// operation-bound only above S ~ 1200 (causal, D=128).
+// operation-bound only above S ~ 1200 (causal, D=128). The GPT trainer's
+// packed call (B=6, S=1024, H=16, D=128, causal) is bound by bytes too
+// (30 us against 26 us of products).
 //
-// Design (a simple kernel that is right first; wgmma, TMA and warp
-// specialisation are later work):
-//  - one block of 4 warps per (64-row q tile, head, batch); each warp
-//    owns 16 query rows for the whole loop, so the softmax and the
-//    accumulator rescale need only warp-level synchronisation;
-//  - the q tile is read once into shared memory; k/v stream in 64-row
-//    tiles, and a causal loop stops at the diagonal tile, so strictly
-//    upper tiles are never loaded (about half the k/v bytes at S=512);
-//  - QK^T and PV run on the tensor cores through WMMA 16x16x16 with
-//    16-bit inputs and f32 accumulation; P is rounded to the input type
-//    before PV, as the TPU kernel does (`p.astype(v.dtype)`);
-//  - the running max m and sum l stay in registers (two lanes per row),
-//    the f32 accumulator O in shared memory;
-//  - TILE SIZES DO NOT DEPEND ON S: a row's result depends only on its
-//    own prefix, so a bucket-padded prompt and the unpadded prompt give
-//    identical rows (the serving engine pads, generate() does not);
-//  - the ragged last tile is masked (keys >= S get the -1e30 of the TPU
-//    kernel, rows >= S are computed but never stored).
-// head_dim: any multiple of 8 up to 256. The kernel is instantiated at
-// the tile widths DP in {32, 64, 96, 128, 192, 256} and a call runs the
-// smallest DP >= head_dim: loads past the true head_dim are zero-filled
-// (zero columns add nothing to QK^T and give zero output columns) and
-// only the true width is written back; the softmax scale comes from the
-// caller (1/sqrt(true head_dim)), never from DP. At DP = 256 a block
-// takes 190 KB of shared memory.
+// bf16 and f16 at every tile width, 32, 64, 96, 128, 192 and 256
+// (`flash_fwd_wgmma_kernel`):
+//  - one block per (q tile of BQ = 64 NWG rows, head, batch): NWG (1 or
+//    2) consumer warpgroups, each owning 64 query rows, and a producer.
+//    The launcher takes NWG = 2 when that still gives at least one block
+//    per SM (132), else 1 (the serving shapes' small grids). With two,
+//    the producer is a whole warpgroup whose registers setmaxnreg moves
+//    to the consumers (40 / 232); with one, a single warp;
+//  - the producer's one thread loads the q tile once and the k and v
+//    tiles (BK = 128 keys; 64 at widths 192 and 256, whose O takes 96-128
+//    registers a thread) into a 3-stage ring (2 at width 256) by TMA,
+//    with full and empty mbarriers, so the next tiles load while the
+//    consumers compute; a causal block stops at its diagonal tile, so
+//    tiles above it are never loaded;
+//  - S = Q K^T is `wgmma` m64nBKk16 with both operands read from the
+//    swizzled shared tiles; the f32 scores stay in registers;
+//  - the online softmax runs in registers: a row lies on the 4 threads of
+//    a quad, so its max takes two shuffles; exp2 with log2(e) folded into
+//    the scale; the row sum stays a per-thread partial until the end;
+//  - P is rounded to v's dtype in registers (the TPU kernel's
+//    `p.astype(v.dtype)`) and is the register A operand of the second
+//    `wgmma` (m64nDPk16), V the B operand read MN-major (transposed) from
+//    shared memory; the f32 accumulator O stays in registers and takes
+//    the alpha rescale there;
+//  - within a warpgroup, tile j's S is issued before tile j-1's PV and
+//    its softmax runs while PV is on the tensor cores (the two warpgroups
+//    also overlap each other);
+//  - the mask (keys >= S and, causal, keys above the row: the TPU
+//    kernel's -1e30) is applied only on diagonal and ragged tiles, and a
+//    warpgroup skips the tiles wholly above its rows;
+//  - the epilogue writes O / l in the input dtype into the strided out
+//    view, only the true head_dim columns, and lse = (m + log2 l) ln 2.
+// TILE SIZES DO NOT DEPEND ON S: BK (and so the order in which a row's
+// keys are summed) follows the tile width only, and a tile wholly above a
+// row changes none of its bits (alpha = 1, P = 0), so a row's result
+// depends only on its own prefix and a bucket-padded prompt gives the
+// unpadded prompt's rows bit for bit (the serving engine pads, generate()
+// does not). NWG changes which block holds a row, not its arithmetic.
+// head_dim: any multiple of 8 up to 256 runs at the smallest tile width
+// DP >= head_dim; the tensor maps declare the true head_dim, so TMA fills
+// the columns past it with zeros (they add nothing to QK^T and give zero
+// output columns) and only the true width is written back; the softmax
+// scale comes from the caller (1/sqrt(true head_dim)), never from DP.
 //
 // float32 (q, k, v and out): `flash_fwd_f32_kernel` below, f32 FMAs on
 // the CUDA cores (no TF32), so it holds to the reference's f32 (its
@@ -48,41 +70,20 @@
 // scalar FMAs (67 TFLOP/s f32): a simple kernel that is right; TF32 or
 // wgmma for f32 is later work.
 //
-// Inputs need a unit stride in D and 16-byte aligned rows (the Python
-// wrapper checks both). The launcher returns cudaGetLastError().
+// Inputs need a unit stride in D and 16-byte aligned rows and strides
+// (the Python wrapper checks; TMA needs both). The launcher returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // key rows per tile
-constexpr int kWarps = 4;        // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
-
-// Shared-memory layout; pitches are padded against bank conflicts and
-// keep every WMMA fragment pointer 32-byte aligned.
-template <int D>
-struct Smem {
-  static constexpr int LDT = D + 8;    // 16-bit q/k/v tile pitch
-  static constexpr int LDS = kBK + 4;  // f32 score pitch
-  static constexpr int LDP = kBK + 8;  // 16-bit probability pitch
-  static constexpr int LDO = D + 4;    // f32 accumulator pitch
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + size_t(kBQ) * LDT * 2;
-  static constexpr size_t v_off = k_off + size_t(kBK) * LDT * 2;
-  static constexpr size_t s_off = v_off + size_t(kBK) * LDT * 2;
-  static constexpr size_t p_off = s_off + size_t(kBQ) * LDS * 4;
-  static constexpr size_t o_off = p_off + size_t(kBQ) * LDP * 2;
-  static constexpr size_t bytes = o_off + size_t(kBQ) * LDO * 4;
-};
 
 struct Strides {  // in elements: batch, sequence, head (D has stride 1)
   long long q_b, q_s, q_h;
@@ -91,196 +92,347 @@ struct Strides {  // in elements: batch, sequence, head (D has stride 1)
   long long o_b, o_s, o_h;
 };
 
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ void put(__half* p, float x) {
-  *p = __float2half(x);
-}
+// ---- bf16/f16: wgmma, a TMA ring, softmax in registers ----
 
-// Copy rows row0..row0+63 of one head into a shared tile of width D
-// (the tile width), 16 bytes per thread per step; rows past S and
-// columns past the true head_dim `hd` are zero-filled.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int S, int hd) {
-  constexpr int kVec = 8;               // 8 x 16-bit = 16 bytes
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S && c < hd) {
-      val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kSMs = 132;            // H100 SXM
+
+template <int DP, int NWG>
+struct FwdTiles {
+  static constexpr int BQ = 64 * NWG;        // query rows per block
+  // keys per tile, so the order of a row's sum, from the width alone:
+  // above 128 columns the 64-key tile keeps S, P and O in registers
+  static constexpr int BK = DP > 128 ? 64 : 128;
+  static constexpr int STAGES = DP > 192 ? 2 : 3;   // shared memory
+  static constexpr int Q_TILE = BQ * DP * 2;   // bytes
+  static constexpr int KV_TILE = BK * DP * 2;
+  __host__ __device__ static constexpr int k_off(int s) {
+    return Q_TILE + s * 2 * KV_TILE;
+  }
+  __host__ __device__ static constexpr int v_off(int s) {
+    return k_off(s) + KV_TILE;
+  }
+  static constexpr int bar_off = Q_TILE + STAGES * 2 * KV_TILE;
+  static constexpr int SMEM = bar_off + 8 * (1 + 2 * STAGES) + 1024;
+  // two consumer warpgroups come with a whole producer warpgroup, whose
+  // registers setmaxnreg hands to them; one comes with one producer warp
+  static constexpr int THREADS = 128 * NWG + (NWG == 2 ? 128 : 32);
+};
+
+constexpr int kProducerRegs = 40;    // after setmaxnreg (two consumers)
+constexpr int kConsumerRegs = 232;   // 128 x 40 + 256 x 232 <= 65536
+
+// One tile of scores in registers: scale to the log2 domain, mask (on
+// diagonal and ragged tiles), take the row max over the quad, turn the
+// scores into unnormalised probabilities in place, and return the row
+// sums of this thread's part and the rescale factors of the old state.
+template <int BK>
+struct Softmax {
+  float m0, m1;          // running max of rows row0 and row1, log2 domain
+  float l0, l1;          // this thread's part of the row sums
+
+  __device__ __forceinline__ void step(float (&sc)[BK / 2], int k0,
+                                       bool edge, int S, int causal,
+                                       int row0, int row1, int c2,
+                                       float scale_log2, float& a0,
+                                       float& a1) {
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x0 = sc[4 * n + e] * scale_log2;
+        float x1 = sc[4 * n + 2 + e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * n + c2 + e;
+          if (key >= S || (causal && key > row0)) x0 = kNegInf;
+          if (key >= S || (causal && key > row1)) x1 = kNegInf;
+        }
+        sc[4 * n + e] = x0;
+        sc[4 * n + 2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
     }
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::LDT + c) = val;
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    a0 = ptt::ex2(m0 - mx0);
+    a1 = ptt::ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      sc[4 * n] = ptt::ex2(sc[4 * n] - m0);
+      sc[4 * n + 1] = ptt::ex2(sc[4 * n + 1] - m0);
+      sc[4 * n + 2] = ptt::ex2(sc[4 * n + 2] - m1);
+      sc[4 * n + 3] = ptt::ex2(sc[4 * n + 3] - m1);
+      s0 += sc[4 * n] + sc[4 * n + 1];
+      s1 += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+    l0 = l0 * a0 + s0;
+    l1 = l1 * a1 + s1;
+  }
+};
+
+// P (f32 in the score registers), rounded to T, as the A fragments of
+// the BK / 16 k16 steps of the PV product.
+template <int BK, typename T>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&pf)[BK / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    pf[n / 2][(n % 2) * 2] = ptt::pack2<T>(sc[4 * n], sc[4 * n + 1]);
+    pf[n / 2][(n % 2) * 2 + 1] = ptt::pack2<T>(sc[4 * n + 2], sc[4 * n + 3]);
   }
 }
 
-// D is the tile width; `hd` (a multiple of 8, <= D) the true head_dim.
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int hd, Strides st,
-                 float scale, int causal) {
-  using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
-  T* sK = reinterpret_cast<T*>(smem + L::k_off);
-  T* sV = reinterpret_cast<T*>(smem + L::v_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  T* sP = reinterpret_cast<T*>(smem + L::p_off);
-  float* sO = reinterpret_cast<float*>(smem + L::o_off);
+// S_j = Q K_j^T for warpgroup wg's 64 rows (one commit group's worth).
+template <int DP, typename T, int NWG>
+__device__ __forceinline__ void fwd_issue_s(
+    float (&acc)[FwdTiles<DP, NWG>::BK / 2], uint32_t sbase, int wg, int j) {
+  using C = FwdTiles<DP, NWG>;
+  using P = ptt::Panels<DP>;
+  const uint32_t sk = sbase + C::k_off(j % C::STAGES);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    ptt::wgmma_ss<C::BK, T>(acc, P::kmajor(sbase, C::BQ, 64 * wg, kk),
+                            P::kmajor(sk, C::BK, 0, kk), kk > 0);
+  }
+}
 
-  const int q0 = blockIdx.x * kBQ;
+// O += P_j V_j, P_j from registers, V_j read MN-major.
+template <int DP, typename T, int NWG>
+__device__ __forceinline__ void fwd_issue_pv(
+    float (&acc)[DP / 2], const uint32_t (&p)[FwdTiles<DP, NWG>::BK / 16][4],
+    uint32_t sbase, int j) {
+  using C = FwdTiles<DP, NWG>;
+  using P = ptt::Panels<DP>;
+  const uint32_t sv = sbase + C::v_off(j % C::STAGES);
+#pragma unroll
+  for (int kt = 0; kt < C::BK / 16; ++kt) {
+    ptt::wgmma_rs<DP, T>(acc, p[kt], P::mnmajor(sv, C::BK, 16 * kt), 1);
+  }
+}
+
+template <int DP, typename T, int NWG>
+__global__ void __launch_bounds__(FwdTiles<DP, NWG>::THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ out, float* __restrict__ lse, int S,
+                       int H, int hd, long long o_b, long long o_s,
+                       long long o_h, float scale_log2, int causal) {
+  using C = FwdTiles<DP, NWG>;
+  using P = ptt::Panels<DP>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = ptt::align_1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int nq = (S + C::BQ - 1) / C::BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * C::BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int nk = (S + BK - 1) / BK;
+  const int tiles = causal ? min((q0 + C::BQ - 1) / BK + 1, nk) : nk;
 
-  const T* qh = q + b * st.q_b + h * st.q_h;
-  const T* kh = k + b * st.k_b + h * st.k_h;
-  const T* vh = v + b * st.v_b + h * st.v_h;
-
-  load_tile<D>(sQ, qh, st.q_s, q0, S, hd);
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    sO[(i / D) * L::LDO + (i % D)] = 0.f;
+  if (threadIdx.x == 0) {
+    ptt::mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      ptt::mbar_init(&full[s], 1);
+      ptt::mbar_init(&empty[s], 4 * NWG);      // one arrival a warp
+    }
+    ptt::fence_barrier_init();
   }
+  __syncthreads();
 
-  // softmax state of one row, held by a pair of lanes (each covers half
-  // of the tile's columns and half of the accumulator row)
-  const int r = warp * 16 + (lane >> 1);   // row within the q tile
-  const int half = lane & 1;
-  const int qpos = q0 + r;
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int nk = (S + kBK - 1) / kBK;
-  const int j_last = causal ? min((q0 + kBQ - 1) / kBK, nk - 1) : nk - 1;
-
-  for (int j = 0; j <= j_last; ++j) {
-    __syncthreads();                     // previous k/v tile fully read
-    load_tile<D>(sK, kh, st.k_s, j * kBK, S, hd);
-    load_tile<D>(sV, vh, st.v_s, j * kBK, S, hd);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBK / 16];
-#pragma unroll
-      for (int n = 0; n < kBK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * L::LDT + kk, L::LDT);
-#pragma unroll
-        for (int n = 0; n < kBK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, sK + n * 16 * L::LDT + kk, L::LDT);
-          wmma::mma_sync(acc[n], a, bk, acc[n]);
+  if (threadIdx.x >= 128 * NWG) {              // the producer
+    if constexpr (NWG == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+    }
+    if (threadIdx.x == 128 * NWG) {
+      ptt::mbar_arrive_tx(bar_q, C::Q_TILE);
+      for (int w = 0; w < NWG; ++w) {
+        for (int p = 0; p < P::NP; ++p) {
+          ptt::tma_load_4d(smem + (p * C::BQ + 64 * w) * P::SWB, &tq, bar_q,
+                           p * P::PW, q0 + 64 * w, h, b);
         }
       }
-#pragma unroll
-      for (int n = 0; n < kBK / 16; ++n) {
-        wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, acc[n],
-                                L::LDS, wmma::mem_row_major);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % C::STAGES;
+        ptt::mbar_wait(&empty[s], ((j / C::STAGES) & 1) ^ 1);
+        ptt::mbar_arrive_tx(&full[s], 2 * C::KV_TILE);
+        for (int p = 0; p < P::NP; ++p) {
+          ptt::tma_load_4d(smem + C::k_off(s) + p * BK * P::SWB, &tk,
+                           &full[s], p * P::PW, j * BK, h, b);
+          ptt::tma_load_4d(smem + C::v_off(s) + p * BK * P::SWB, &tv,
+                           &full[s], p * P::PW, j * BK, h, b);
+        }
       }
     }
-    __syncwarp();
-
-    // online softmax update of row r over this tile's columns
-    {
-      const float* srow = sS + r * L::LDS;
-      T* prow = sP + r * L::LDP;
-      const int c0 = half * (kBK / 2);
-      float sv[kBK / 2];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kBK / 2; ++c) {
-        const int kpos = j * kBK + c0 + c;
-        float x = srow[c0 + c] * scale;
-        if (kpos >= S || (causal && kpos > qpos)) x = kNegInf;
-        sv[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m, mx);
-      const float alpha = expf(m - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kBK / 2; ++c) {
-        const float p = expf(sv[c] - m_new);
-        sum += p;
-        put(prow + c0 + c, p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      l = l * alpha + sum;
-      m = m_new;
-      float* orow = sO + r * L::LDO + half * (D / 2);
-#pragma unroll 8
-      for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      float* otile = sO + warp * 16 * L::LDO + n * 16;
-      wmma::load_matrix_sync(o, otile, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sP + warp * 16 * L::LDP + kk, L::LDP);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, sV + kk * L::LDT + n * 16, L::LDT);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(otile, o, L::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    return;
+  }
+  if constexpr (NWG == 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
   }
 
-  if (qpos >= S) return;
-  const float l_safe = (l == 0.f) ? 1.f : l;
-  const float* orow = sO + r * L::LDO + half * (D / 2);
-  T* dst = out + b * st.o_b + (long long)qpos * st.o_s + h * st.o_h +
-           half * (D / 2);
+  // consumer warpgroup `wg`: query rows qw0..qw0+63; this thread holds
+  // rows row0 and row1 = row0 + 8, columns 8 n + c2 + {0, 1}
+  // the warpgroup index through a shuffle, so the compiler sees it (and
+  // the loop bounds and branches made from it) uniform
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  const int lane = threadIdx.x & 31;
+  const int c2 = (lane & 3) * 2;
+  const int qw0 = q0 + 64 * wg;
+  const int row0 = qw0 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const int wg_tiles = causal ? min((qw0 + 63) / BK + 1, nk) : nk;
+  const uint32_t sbase = ptt::smem_u32(smem);
+
+  auto edge = [&](int j) {
+    return j * BK + BK > S || (causal && j * BK + BK - 1 > qw0);
+  };
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) ptt::mbar_arrive(&empty[j % C::STAGES]);
+  };
+
+  float o[DP / 2];
 #pragma unroll
-  for (int c = 0; c < D / 2; c += 8) {
-    if (half * (D / 2) + c >= hd) break;    // padded columns: not stored
-    union {
-      uint4 u;
-      T e[8];
-    } pack;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  Softmax<BK> sm{kNegInf, kNegInf, 0.f, 0.f};
+  float sc[BK / 2];
+  uint32_t pf[BK / 16][4];
+  float a0, a1;
+
+  // Tile 0, then for each next tile j: S_j is issued before P_{j-1} V_{j-1}
+  // and its softmax runs while that product is on the tensor cores; O is
+  // rescaled once P_{j-1} V_{j-1} has landed.
+  ptt::mbar_wait(bar_q, 0);
+  ptt::mbar_wait(&full[0], 0);
+  ptt::wgmma_fence();
+  fwd_issue_s<DP, T, NWG>(sc, sbase, wg, 0);
+  ptt::wgmma_commit();
+  ptt::wgmma_wait<0>();
+  ptt::fence_regs(sc);
+  sm.step(sc, 0, edge(0), S, causal, row0, row1, c2, scale_log2, a0, a1);
+  pack_p<BK, T>(sc, pf);
+  for (int j = 1; j < wg_tiles; ++j) {
+    ptt::mbar_wait(&full[j % C::STAGES], (j / C::STAGES) & 1);
+    ptt::wgmma_fence();
+    fwd_issue_s<DP, T, NWG>(sc, sbase, wg, j);
+    ptt::wgmma_commit();
+    fwd_issue_pv<DP, T, NWG>(o, pf, sbase, j - 1);
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<1>();               // S_j has landed
+    ptt::fence_regs(sc);
+    sm.step(sc, j * BK, edge(j), S, causal, row0, row1, c2, scale_log2, a0,
+            a1);
+    ptt::wgmma_wait<0>();               // P_{j-1} V_{j-1} has landed
+    ptt::fence_regs(o);
+    release(j - 1);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) put(&pack.e[i], orow[c + i] / l_safe);
-    *reinterpret_cast<uint4*>(dst + c) = pack.u;
+    for (int n = 0; n < DP / 8; ++n) {
+      o[4 * n] *= a0;
+      o[4 * n + 1] *= a0;
+      o[4 * n + 2] *= a1;
+      o[4 * n + 3] *= a1;
+    }
+    pack_p<BK, T>(sc, pf);
   }
-  if (half == 0) {
-    lse[((long long)b * H + h) * S + qpos] = m + logf(l_safe);
+  ptt::wgmma_fence();
+  fwd_issue_pv<DP, T, NWG>(o, pf, sbase, wg_tiles - 1);
+  ptt::wgmma_commit();
+  ptt::wgmma_wait<0>();
+  ptt::fence_regs(o);
+  release(wg_tiles - 1);
+  for (int j = wg_tiles; j < tiles; ++j) {   // tiles wholly above my rows
+    ptt::mbar_wait(&full[j % C::STAGES], (j / C::STAGES) & 1);
+    release(j);
+  }
+
+  float l0 = sm.l0, l1 = sm.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float ls0 = l0 == 0.f ? 1.f : l0;
+  const float ls1 = l1 == 0.f ? 1.f : l1;
+  T* ob = out + b * o_b + h * o_h;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = 8 * n + c2;
+    if (8 * n < hd) {                  // hd is a multiple of 8
+      if (row0 < S) {
+        *reinterpret_cast<uint32_t*>(ob + row0 * o_s + col) =
+            ptt::pack2<T>(o[4 * n] / ls0, o[4 * n + 1] / ls0);
+      }
+      if (row1 < S) {
+        *reinterpret_cast<uint32_t*>(ob + row1 * o_s + col) =
+            ptt::pack2<T>(o[4 * n + 2] / ls1, o[4 * n + 3] / ls1);
+      }
+    }
+  }
+  if ((lane & 3) == 0) {
+    float* lb = lse + (static_cast<long long>(b) * H + h) * S;
+    if (row0 < S) lb[row0] = (sm.m0 + log2f(ls0)) * kLn2;
+    if (row1 < S) lb[row1] = (sm.m1 + log2f(ls1)) * kLn2;
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int S, int H, int hd,
-                   const Strides& st, float scale, int causal,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, T>;
-  const int smem = static_cast<int>(Smem<D>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int DP, typename T, int NWG>
+cudaError_t launch_wgmma_nwg(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int B, int S, int H, int hd,
+                         const Strides& st, float scale, int causal,
+                         cudaStream_t stream) {
+  using C = FwdTiles<DP, NWG>;
+  using P = ptt::Panels<DP>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = ptt::make_bshd_map<T>(&mq, q, B, S, H, hd, st.q_b,
+                                          st.q_s, st.q_h, P::PW, 64);
+  if (err == cudaSuccess) {
+    err = ptt::make_bshd_map<T>(&mk, k, B, S, H, hd, st.k_b, st.k_s, st.k_h,
+                                P::PW, C::BK);
+  }
+  if (err == cudaSuccess) {
+    err = ptt::make_bshd_map<T>(&mv, v, B, S, H, hd, st.v_b, st.v_s, st.v_h,
+                                P::PW, C::BK);
+  }
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, hd, st,
-      scale, causal);
+  auto kernel = flash_fwd_wgmma_kernel<DP, T, NWG>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<T*>(out), lse, S, H, hd, st.o_b, st.o_s,
+      st.o_h, scale * kLog2e, causal);
   return cudaGetLastError();
+}
+
+// Two consumer warpgroups a block when the 128-row grid still fills the
+// card, else one (more, smaller blocks for the serving shapes).
+template <int DP, typename T>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int B, int S, int H, int hd,
+                         const Strides& st, float scale, int causal,
+                         cudaStream_t stream) {
+  const long long blocks128 = static_cast<long long>((S + 127) / 128) * B * H;
+  if (blocks128 >= kSMs) {
+    return launch_wgmma_nwg<DP, T, 2>(q, k, v, out, lse, B, S, H, hd, st,
+                                      scale, causal, stream);
+  }
+  return launch_wgmma_nwg<DP, T, 1>(q, k, v, out, lse, B, S, H, hd, st,
+                                    scale, causal, stream);
 }
 
 // ---- float32: f32 FMAs on the CUDA cores, no TF32 ----
@@ -462,23 +614,23 @@ int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (D % 8) return cudaErrorInvalidValue;
   const int dp = tile_width(D);
-#define PTT_FLASH_CASE(DIM, TYPE, CODE)                                    \
+#define PTT_FLASH_WGMMA_CASE(DIM, TYPE, CODE)                              \
   if (dtype == CODE && dp == DIM)                                        \
-    return launch<DIM, TYPE>(q, k, v, out, lse, B, S, H, D, st, scale,   \
-                             causal, s);
-  PTT_FLASH_CASE(32, __nv_bfloat16, 0)
-  PTT_FLASH_CASE(64, __nv_bfloat16, 0)
-  PTT_FLASH_CASE(96, __nv_bfloat16, 0)
-  PTT_FLASH_CASE(128, __nv_bfloat16, 0)
-  PTT_FLASH_CASE(192, __nv_bfloat16, 0)
-  PTT_FLASH_CASE(256, __nv_bfloat16, 0)
-  PTT_FLASH_CASE(32, __half, 1)
-  PTT_FLASH_CASE(64, __half, 1)
-  PTT_FLASH_CASE(96, __half, 1)
-  PTT_FLASH_CASE(128, __half, 1)
-  PTT_FLASH_CASE(192, __half, 1)
-  PTT_FLASH_CASE(256, __half, 1)
-#undef PTT_FLASH_CASE
+    return launch_wgmma<DIM, TYPE>(q, k, v, out, lse, B, S, H, D, st,    \
+                                   scale, causal, s);
+  PTT_FLASH_WGMMA_CASE(32, __nv_bfloat16, 0)
+  PTT_FLASH_WGMMA_CASE(64, __nv_bfloat16, 0)
+  PTT_FLASH_WGMMA_CASE(96, __nv_bfloat16, 0)
+  PTT_FLASH_WGMMA_CASE(128, __nv_bfloat16, 0)
+  PTT_FLASH_WGMMA_CASE(192, __nv_bfloat16, 0)
+  PTT_FLASH_WGMMA_CASE(256, __nv_bfloat16, 0)
+  PTT_FLASH_WGMMA_CASE(32, __half, 1)
+  PTT_FLASH_WGMMA_CASE(64, __half, 1)
+  PTT_FLASH_WGMMA_CASE(96, __half, 1)
+  PTT_FLASH_WGMMA_CASE(128, __half, 1)
+  PTT_FLASH_WGMMA_CASE(192, __half, 1)
+  PTT_FLASH_WGMMA_CASE(256, __half, 1)
+#undef PTT_FLASH_WGMMA_CASE
   return cudaErrorInvalidValue;
 }
 

@@ -14,16 +14,20 @@ updated IN PLACE and returned: copying a whole ``[slots, Tmax]`` pool
 per layer per step would move more bytes than the decode itself.
 
 One branch is added. Prefill — a scalar ``p == 0``, no ``wlen``,
-``t > 1`` and as many kv heads as query heads — attends only over the
-``t`` new positions (every buffer position ``>= t`` is masked there),
-which is exactly square causal self-attention: it runs through
+``t > 1``, as many kv heads as query heads, and a cache dtype and
+head_dim the kernels take (``ops.flash_attention.kernel_takes_head_dim``)
+— attends only over the ``t`` new positions (every buffer position
+``>= t`` is masked there), which is exactly square causal
+self-attention: it runs through
 ``ops/flash_attention.flash_attention_fwd`` (the Hopper kernel on a
-CUDA tensor, its plain version on the CPU; a CUDA cache the kernel
-does not take, f32 for one, raises there). Admission prefill
+CUDA tensor, its plain version on the CPU). Every other call, a head_dim
+above 256 among them, takes the masked einsum below, the reference's
+own path (its cache uses no flash kernel at all); the route is decided
+from shapes, on either device, before any launch. Admission prefill
 (``t == Tmax == bucket``) and ``generate()``'s prefill (``t < Tmax``)
-both take it, so the two stay consistent. The kernel takes one dtype,
-so on the card q (f32 after RoPE's f32 tables) is cast to the cache
-dtype first; the plain path keeps the reference's f32 q.
+both take the same branch, so the two stay consistent. The kernel takes
+one dtype, so on the card q (f32 after RoPE's f32 tables) is cast to
+the cache dtype first; the plain path keeps the reference's f32 q.
 
 ``paged_cache_attend`` and ``quantize_kv_page`` come with the paged-KV
 slice.
@@ -33,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.flash_attention import NEG_INF, flash_attention_fwd
+from ..ops.flash_attention import (NEG_INF, flash_attention_fwd,
+                                   kernel_takes_head_dim)
 
 __all__ = ["cache_attend", "check_cache_pos"]
 
@@ -58,10 +63,11 @@ def check_cache_pos(pos, t: int, Tmax: int) -> bool:
     return per_row
 
 
-def _flash_prefill(qr, kr, p, wlen, per_row: bool) -> bool:
+def _flash_prefill(qr, kr, kc, p, wlen, per_row: bool) -> bool:
     return (not per_row and wlen is None and qr.shape[1] > 1
             and kr.shape[2] == qr.shape[2]
-            and not isinstance(p, torch.Tensor) and int(p) == 0)
+            and not isinstance(p, torch.Tensor) and int(p) == 0
+            and kernel_takes_head_dim(qr.shape[-1], kc.dtype))
 
 
 def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
@@ -82,7 +88,7 @@ def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
     rep = h // kv
     Tmax = kc.shape[1]
     dev = kc.device
-    if _flash_prefill(qr, kr, p, wlen, per_row):
+    if _flash_prefill(qr, kr, kc, p, wlen, per_row):
         kc[:, :t] = kr
         vc[:, :t] = v
         q = qr.to(kc.dtype) if kc.is_cuda else qr

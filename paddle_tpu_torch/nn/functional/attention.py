@@ -4,18 +4,21 @@ Counterpart of ``paddle_tpu/nn/functional/attention.py``
 ``scaled_dot_product_attention`` (:54). The plain branch is a port of
 ``_sdpa_xla`` (:26-51): f32 scores and softmax, a ``-inf`` mask, the
 causal triangle aligned bottom-right when ``Sq < Skv``. The dispatch
-mirrors ``_pallas_eligible`` (:88-100): no mask, no dropout and a
-square call (q, k, v of one shape) on a CUDA tensor -> the
-flash-attention kernel (``ops/flash_attention.py``), whatever the
-dtype and head_dim: the kernel launches or raises, nothing on the card
-runs this plain branch in its place. The kernels take bf16, f16 and
+mirrors ``_pallas_eligible`` (:88-100): no mask, no dropout, a square
+call (q, k, v of one shape) on a CUDA tensor, and a dtype and head_dim
+the kernels take (``ops.flash_attention.kernel_takes``, the terms of
+``_pallas_eligible``) -> the flash-attention kernel, which copies views
+its TMA maps cannot read; every other call -> this plain branch,
+decided from shapes before any launch, as the reference sends what its
+kernel does not take to ``_sdpa_xla``. The kernels take bf16, f16 and
 f32 at every head_dim up to 256 whose row is a whole number of 16
 bytes, so they compute every call the reference's Pallas kernel does
-(its head_dim set {64, 128, 256}, f32 included); head_dim above 256 or
-an unaligned row raises. The reference's ``S % 128 == 0`` condition
-is dropped: the CUDA kernel masks its ragged last tile. q and k (f32
-after RoPE's f32 tables) are cast to ``v``'s dtype before the launch,
-since the kernel takes one dtype.
+(its head_dim set {64, 128, 256}, f32 included); head_dim above 256, or
+a row not a whole number of 16 bytes, computes here. The reference's
+``S % 128 == 0``
+condition is dropped: the CUDA kernel masks its ragged last tile. q
+and k (f32 after RoPE's f32 tables) are cast to ``v``'s dtype before
+the launch, since the kernel takes one dtype.
 ``torch.nn.functional.scaled_dot_product_attention`` is never called.
 """
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from ...ops.flash_attention import flash_attention_fwd
+from ...ops.flash_attention import flash_attention_fwd, kernel_takes
 
 __all__ = ["scaled_dot_product_attention"]
 
@@ -67,6 +70,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if attn_mask is None and drop == 0.0 and query.is_cuda \
             and query.shape == key.shape == value.shape:
         dt = value.dtype
-        return flash_attention_fwd(query.to(dt), key.to(dt), value,
-                                   causal=is_causal)
+        q, k = query.to(dt), key.to(dt)
+        if kernel_takes(q, k, value):
+            return flash_attention_fwd(q, k, value, causal=is_causal)
     return _sdpa(query, key, value, attn_mask, is_causal, drop, generator)

@@ -5,11 +5,14 @@ reference's plain C++ runtime). ``csrc/<name>.cu`` compiles on first
 use into a shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/paddle_tpu_torch/lib<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v
+         -o build/paddle_tpu_torch/lib<name>-<hash>.so
 
-under ``build/paddle_tpu_torch/`` at the checkout root. The file name
-carries a hash of the source, the shared headers (``csrc/*.cuh``) and
-the flags, so an edited kernel is
+under ``build/paddle_tpu_torch/`` at the checkout root; the compiler's
+output (``-Xptxas -v``: each kernel's registers, spills and shared
+memory) is kept beside the library as ``lib<name>-<hash>.log``. The
+file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is
 rebuilt and an unchanged one is loaded as it is; each build writes a
 temporary file and renames it into place, so a concurrent loader never
 sees a partial library. ``build(names)`` starts one ``nvcc`` per
@@ -35,7 +38,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw",
            "fused_adamw8", "quantize", "int4_matmul", "batch_norm")
 
@@ -89,6 +92,7 @@ def build(names: Iterable[str] = KERNELS) -> List[Path]:
             failed.append(f"kernel build failed: {name} (nvcc exit "
                           f"{proc.returncode}):\n{output}")
         else:
+            so.with_suffix(".log").write_text(output)
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))

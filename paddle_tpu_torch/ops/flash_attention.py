@@ -15,22 +15,30 @@ tensor (no relayout, and the backward writes dq, dk, dv straight into
 one gradient buffer where the reference concatenates).
 
 The custom VJP is a ``torch.autograd.Function``: its forward saves
-``out`` and ``lse``, its backward takes ``delta = rowsum(out * dO)``
-(plain torch, as the reference computes it in XLA) and runs the
-backward kernel. Both run the plain versions on CPU tensors. Calls that
+``out`` and ``lse``, its backward runs the backward kernels, whose
+first pass takes ``delta = rowsum(out * dO)`` in f32 (the reference
+computes it in XLA; the plain version, ``_delta``, in torch). Both run
+the plain versions on CPU tensors. Calls that
 need no gradient (``torch.no_grad``/``inference_mode``, inputs without
 ``requires_grad``) skip the Function.
 
 The kernels take bf16 and f16 at any head_dim that is a multiple of 8
 up to 256 (run at the next instantiated tile width, 32/64/96/128/192/
-256, with zero-filled columns past the true head_dim), and f32 at any
-multiple of 4 up to 256 (f32 FMAs on the CUDA cores, no TF32). A CUDA
-input they do not take (another dtype, head_dim above 256 or a row not
-a whole number of 16 bytes, a non-unit stride in head_dim, other
-strides or the base not 16-byte aligned) raises; nothing falls back.
+256, with zero-filled columns past the true head_dim; wgmma kernels
+with TMA rings), and f32 at any
+multiple of 4 up to 256 (f32 FMAs on the CUDA cores, no TF32). q, k,
+v, out and dO whose strides or base the kernels' TMA maps cannot take
+(a non-unit stride in head_dim, other strides or the base not 16-byte
+aligned) are copied to dense tensors first; in-place dq/dk/dv must
+already be aligned. A CUDA input of another dtype, or with head_dim
+above 256 or a row not a whole number of 16 bytes, raises; nothing
+falls back. ``kernel_takes`` says so from dtypes and head_dim, the
+reference's ``_pallas_eligible`` terms, so that the callers
+(``nn.functional.scaled_dot_product_attention``, the cache's prefill)
+route such a call to their plain branch before any launch.
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``
-count kernel launches (one backward launch runs the dk/dv pass and then
-the dq pass).
+count kernel launches (one backward launch runs the delta pass, the
+dk/dv pass and then the dq pass).
 """
 from __future__ import annotations
 
@@ -45,7 +53,8 @@ from . import _build
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_qkv_fused", "flash_qkv_packed_bwd",
-           "flash_qkv_packed_fwd", "NEG_INF"]
+           "flash_qkv_packed_fwd", "kernel_takes", "kernel_takes_head_dim",
+           "NEG_INF"]
 
 NEG_INF = -1e30                      # the reference kernel's mask value
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -114,29 +123,60 @@ def _kernel_strides_ok(t) -> bool:
         and t.data_ptr() % _KERNEL_ROW_ALIGN == 0
 
 
+def _aligned(t):
+    """``t`` as it is when the kernels take its strides and base, else a
+    dense copy (``clone``: ``contiguous`` returns a dense view with a
+    misaligned base as it is)."""
+    if _kernel_strides_ok(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def kernel_takes_head_dim(D: int, dtype: torch.dtype) -> bool:
     """Whether the CUDA kernels take ``head_dim`` ``D`` in ``dtype``:
-    ``D <= 256`` and a row of ``D`` elements a whole number of 16-byte
-    vectors (a multiple of 8 in bf16/f16, of 4 in f32)."""
+    bf16, f16 or f32, ``D <= 256`` and a row of ``D`` elements a whole
+    number of 16-byte vectors (a multiple of 8 in bf16/f16, of 4 in
+    f32)."""
+    if dtype not in _KERNEL_DTYPES:
+        return False
     size = torch.empty((), dtype=dtype).element_size()
     return 0 < D <= _KERNEL_MAX_HEAD_DIM and D * size % _KERNEL_ROW_ALIGN == 0
 
 
-def _check_cuda(what: str, **tensors) -> None:
+def _refusal(tensors: dict) -> Optional[str]:
+    """Why the kernels do not take these tensors' dtypes and head_dim,
+    or None: the one contract behind ``kernel_takes`` and
+    ``_check_cuda``."""
     first = next(iter(tensors.values()))
     dt, D = first.dtype, first.shape[-1]
-    if dt not in _KERNEL_DTYPES or not all(t.dtype == dt
-                                           for t in tensors.values()):
-        raise ValueError(
-            f"{what} kernel takes bfloat16/float16/float32 tensors of one "
-            f"dtype; got "
-            + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items()))
+    if dt not in _KERNEL_DTYPES or any(t.dtype != dt
+                                       for t in tensors.values()):
+        return ("takes bfloat16/float16/float32 tensors of one dtype; got "
+                + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items()))
     if not kernel_takes_head_dim(D, dt):
-        raise ValueError(
-            f"{what} kernel takes head_dim <= {_KERNEL_MAX_HEAD_DIM} with "
-            f"rows of a whole number of {_KERNEL_ROW_ALIGN} bytes (a "
-            f"multiple of {_KERNEL_ROW_ALIGN // first.element_size()} in "
-            f"{dt}); got head_dim {D}")
+        return (f"takes head_dim <= {_KERNEL_MAX_HEAD_DIM} with rows of a "
+                f"whole number of {_KERNEL_ROW_ALIGN} bytes (a multiple of "
+                f"{_KERNEL_ROW_ALIGN // first.element_size()} in {dt}); got "
+                f"head_dim {D}")
+    return None
+
+
+def kernel_takes(q, k, v) -> bool:
+    """Whether the CUDA kernels take ``q``, ``k``, ``v``: one dtype they
+    are built for and a head_dim ``kernel_takes_head_dim`` accepts,
+    whatever the strides (the wrappers copy what their TMA maps cannot
+    read). It reads dtypes and shapes only and launches nothing: the
+    port's counterpart of the reference's ``_pallas_eligible``, by which
+    a caller picks its route before any launch (``flash_attention_fwd``
+    itself still raises on what the kernels do not take)."""
+    return _refusal({"q": q, "k": k, "v": v}) is None
+
+
+def _check_cuda(what: str, **tensors) -> None:
+    why = _refusal(tensors)
+    if why is not None:
+        raise ValueError(f"{what} kernel {why}")
+    first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device != first.device:
             raise ValueError(f"{what}: all tensors must be on one CUDA "
@@ -160,7 +200,7 @@ def _bind(lib, name: str, argtypes):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = [_P] * 5 + [_I] * 4 + [_LL] * 12 + [ctypes.c_float, _I, _I, _P]
-_BWD_ARGS = [_P] * 9 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P]
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -171,6 +211,7 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 def _flash_cuda(q, k, v, causal: bool, scale: float):
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     _check_cuda("flash_attention_fwd", q=q, k=k, v=v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -190,25 +231,25 @@ def _flash_cuda(q, k, v, causal: bool, scale: float):
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, scale, dq, dk, dv):
-    if not _kernel_strides_ok(dout):
-        dout = dout.contiguous()
-    _check_cuda("flash_attention_bwd", q=q, k=k, v=v, dout=dout, dq=dq,
-                dk=dk, dv=dv)
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    _check_cuda("flash_attention_bwd", q=q, k=k, v=v, dout=dout, out=out,
+                dq=dq, dk=dk, dv=dv)
     B, S, H, D = q.shape
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [B, H, S] = {(B, H, S)}; "
                          f"got {lse.dtype}{tuple(lse.shape)}")
     lse = lse.contiguous()
-    delta = _delta(out, dout).contiguous()
-    strides = (ctypes.c_longlong * 21)(
-        *(s for t in (q, k, v, dout, dq, dk, dv) for s in t.stride()[:3]))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, dout, dq, dk, dv, out)
+          for s in t.stride()[:3]))
     lib = _build.load("flash_attention_bwd")
     fn = _bind(lib, "ptt_flash_attention_bwd", _BWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, S, H, D,
+                 out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, D,
                  ctypes.cast(strides, ctypes.c_void_p), float(scale),
                  int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
     _raise_on(err, lib, "flash_attention_bwd")

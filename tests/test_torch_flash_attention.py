@@ -197,6 +197,100 @@ def test_kernel_contract_refuses_unaligned_rows():
                        v=buf[..., 1:])
 
 
+@pytest.mark.parametrize("D,dtype,ok", [
+    (36, torch.bfloat16, False), (64, torch.bfloat16, True),
+    (128, torch.bfloat16, True), (256, torch.bfloat16, True),
+    (264, torch.bfloat16, False),
+    (36, torch.float32, True), (64, torch.float32, True),
+    (128, torch.float32, True), (256, torch.float32, True),
+    (264, torch.float32, False),
+])
+def test_kernel_takes_routes_by_head_dim_and_dtype(D, dtype, ok):
+    """``kernel_takes``, the route the callers pick before any launch,
+    reads only dtypes and head_dim, the terms of the reference's
+    ``_pallas_eligible`` (so it answers on CPU tensors what the card
+    would do): head_dim up to 256 with rows of a whole number of 16
+    bytes, one dtype. Strides do not route: an unaligned view goes to
+    the kernel, whose wrapper copies it to a dense tensor."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t = torch.zeros(1, 8, 2, D, dtype=dtype)
+    assert fa.kernel_takes(t, t, t) == ok
+    assert fa.kernel_takes(t, t.to(torch.float16), t) is False
+    buf = torch.zeros(1, 8, 2, D + 8, dtype=dtype)  # a wider row buffer
+    assert fa.kernel_takes(buf[..., 8:], t, t) == ok          # aligned base
+    assert fa.kernel_takes(buf[..., 1:D + 1], t, t) == ok     # 2-4 bytes in
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unaligned_views_are_copied_for_the_kernel(dtype):
+    """``_aligned``, what the CUDA wrappers apply to q, k, v, out and
+    dO: a view the TMA maps can read is passed as it is; a view with a
+    misaligned base or strides becomes a dense copy with an aligned base
+    and the same values (``contiguous`` alone would keep a dense view's
+    misaligned base)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    buf = torch.randn(1, 8, 2, 72, generator=torch.Generator()
+                      .manual_seed(0)).to(dtype)
+    aligned = buf[..., 8:]
+    assert fa._aligned(aligned) is aligned
+    flat = torch.randn(2 * 8 * 2 * 64 + 1).to(dtype)
+    shifted = flat[1:].view(2, 8, 2, 64)      # dense, base off by one
+    for view in (buf[..., 1:65], shifted):
+        assert not fa._kernel_strides_ok(view)
+        copy = fa._aligned(view)
+        assert fa._kernel_strides_ok(copy)
+        assert torch.equal(copy, view)
+        fa._check_cuda("flash", q=copy, k=copy, v=copy)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sdpa_plain_branch_matches_reference_at_head_dim_264(causal):
+    """head_dim 264, which no kernel takes, computes through the port's
+    ``_sdpa`` (the route ``scaled_dot_product_attention`` gives it on the
+    card) as the reference's ``_sdpa_xla`` does; f32, atol 2e-5."""
+    import jax.numpy as jnp
+    from paddle_tpu.nn.functional.attention import _sdpa_xla
+    from paddle_tpu_torch.nn.functional.attention import (
+        _sdpa, scaled_dot_product_attention)
+    q, k, v = _qkv(2, 24, 2, 264, seed=264 + causal)
+    ref = np.asarray(_sdpa_xla(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), None, causal, 0.0, None))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    np.testing.assert_allclose(
+        _sdpa(tq, tk, tv, None, causal, 0.0, None).numpy(), ref,
+        atol=2e-5)
+    before = flash_attention_fwd.launches
+    out = scaled_dot_product_attention(tq, tk, tv, is_causal=causal)
+    assert flash_attention_fwd.launches == before
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+def test_cache_prefill_at_head_dim_264_takes_the_masked_einsum():
+    """The cache's prefill at head_dim 264 takes the masked einsum (the
+    reference's own path) and gives the reference's ``cache_attend``
+    output and buffers; f32, atol 2e-5."""
+    import jax.numpy as jnp
+    from paddle_tpu.models import _decode_cache as ref_cache
+    from paddle_tpu_torch.models import _decode_cache as cache
+    rng = np.random.RandomState(11)
+    B, t, H, D, Tmax = 1, 12, 2, 264, 16
+    qr, kr, v = (rng.standard_normal((B, t, H, D)).astype(np.float32)
+                 for _ in range(3))
+    kc = np.zeros((B, Tmax, H, D), np.float32)
+    ref_out, ref_kc, _ = ref_cache.cache_attend(
+        jnp.asarray(qr), jnp.asarray(kr), jnp.asarray(v), jnp.asarray(kc),
+        jnp.asarray(kc), 0, False)
+    tkc, tvc = torch.zeros(B, Tmax, H, D), torch.zeros(B, Tmax, H, D)
+    tq, tk, tv = (torch.from_numpy(a) for a in (qr, kr, v))
+    assert not cache._flash_prefill(tq, tk, tkc, 0, None, False)
+    out, kc2, _ = cache.cache_attend(tq, tk, tv, tkc, tvc, 0, False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=2e-5)
+    np.testing.assert_allclose(kc2.numpy(), np.asarray(ref_kc), atol=0)
+    small = torch.zeros(B, Tmax, H, 64)
+    assert cache._flash_prefill(tq[..., :64], tk[..., :64], small, 0,
+                                None, False)
+
+
 def test_no_grad_calls_skip_the_function():
     """Serving (no_grad / inference_mode) takes the raw forward: no
     autograd node, nothing saved."""
@@ -407,3 +501,155 @@ def test_cuda_llama_backward_has_attention_gradients(cuda):
     for n, a, b in zip(names, kernel, plain):
         assert b.norm() > 0, n
         assert (a - b).norm() <= 5e-2 * b.norm(), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16),
+                                     (64, torch.float16)])
+def test_cuda_padded_prefix_is_bitwise(cuda, D, dtype):
+    """A causal row depends only on its own prefix: rows 0..299 of an
+    S=512 call whose positions past 300 are padding equal the S=300
+    call bit for bit, out and lse (the key tile follows the tile width,
+    never S; the serving engine's bucket padding relies on it)."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn(1, 512, 4, D, device=cuda, generator=g)
+               .to(dtype) for _ in range(3))
+    out, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    cut = [t[:, :300].contiguous() for t in (q, k, v)]
+    out3, lse3 = flash_attention_fwd(*cut, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :300], out3)
+    assert torch.equal(lse[..., :300], lse3)
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_packed_shape_matches_plain_and_repeats(cuda):
+    """The GPT-1.3B trainer's call (B=6, S=1024, H=16, D=128, causal, q,
+    k, v and dq, dk, dv views of packed buffers): forward and backward
+    against the plain versions (atol=rtol=2e-2, lse 1e-3), the backward
+    the same bits twice."""
+    B, S, H, D = 6, 1024, 16, 128
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn(B, S, 3 * H * D, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv.view(B, S, 3, H, D).unbind(2)
+    do = torch.randn(B, S, H, D, device=cuda, generator=g).bfloat16()
+    out, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    del ref_out, ref_lse
+    dqkv = torch.empty_like(qkv)
+    views = dqkv.view(B, S, 3, H, D).unbind(2)
+    flash_attention_bwd(q, k, v, out, lse, do, True, None, *views)
+    first = dqkv.clone()
+    flash_attention_bwd(q, k, v, out, lse, do, True, None, *views)
+    torch.cuda.synchronize()
+    assert torch.equal(first, dqkv)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    for a, p in zip(views, plain):
+        torch.testing.assert_close(a.float(), p.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 160, 192])
+def test_cuda_wgmma_tile_widths_match_plain(cuda, D, dtype, causal):
+    """The wgmma kernels at the tile widths 32, 64, 96, 128 and 192 (160
+    runs at 192 with zero-filled columns; 192 has its own 32-column
+    panels and, in the backward, output columns split across three
+    panels a warpgroup), both 16-bit dtypes, a ragged S=300: forward and
+    backward against the plain versions (atol=rtol=2e-2, lse 1e-3), one
+    launch each, the backward the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    q, k, v, do = (torch.randn(2, 300, 3, D, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 2)
+    ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for a, b, p in zip(first, again, plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), p.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_264_llama_takes_the_plain_route(cuda):
+    """A tiny Llama at head_dim 264, which no kernel takes: its forward
+    (SDPA) and generate() (the cache's prefill and decode) run on the
+    card with no flash launch, and give the logits and tokens of the
+    same weights on the CPU (f32; the card's f32 matmuls run without
+    TF32, atol 1e-3). Calling the flash op on such tensors still
+    raises."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_tiny_config)
+    cfg = llama_tiny_config(hidden_size=2 * 264, num_attention_heads=2,
+                            max_position_embeddings=64)
+    model = LlamaForCausalLM(cfg, device=cuda, dtype="float32",
+                             generator=torch.Generator(cuda).manual_seed(0))
+    host = LlamaForCausalLM(cfg, device="cpu", dtype="float32")
+    host.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    ids = torch.randint(0, cfg.vocab_size, (1, 24),
+                        generator=torch.Generator().manual_seed(1))
+    before = flash_attention_fwd.launches
+    with torch.no_grad():
+        logits = model(ids.to(cuda))
+        host_logits = host(ids)
+    out = model.generate(ids.to(cuda), max_new_tokens=4)
+    assert flash_attention_fwd.launches == before
+    torch.testing.assert_close(logits.cpu(), host_logits, atol=1e-3,
+                               rtol=1e-3)
+    assert torch.equal(out.cpu(), host.generate(ids, max_new_tokens=4))
+    q = torch.randn(1, 16, 2, 264, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_unaligned_views_launch_the_kernel(cuda):
+    """q, k, v whose base and strides the TMA maps cannot read (views one
+    element into rows of D+1) still take the kernel: through the port's
+    SDPA, and through ``flash_attention_fwd`` with autograd, whose
+    backward gets the same views. The wrappers copy them; one forward
+    launch each and one backward launch, against the plain versions
+    (atol=rtol=2e-2, lse 1e-3)."""
+    from paddle_tpu_torch.nn.functional.attention import (
+        scaled_dot_product_attention)
+    B, S, H, D = 2, 150, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(65)
+    buf = torch.randn(3, B, S, H, D + 1, device=cuda,
+                      generator=g).bfloat16()
+    do = torch.randn(B, S, H, D, device=cuda, generator=g).bfloat16()
+    q, k, v = (t[..., 1:] for t in buf)
+    ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal=True)
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out = scaled_dot_product_attention(q, k, v, is_causal=True)
+    leaf = buf.clone().requires_grad_()
+    lq, lk, lv = (t[..., 1:] for t in leaf)
+    out2, lse = flash_attention_fwd(lq, lk, lv, causal=True,
+                                    return_lse=True)
+    out2.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) \
+        == (before[0] + 2, before[1] + 1)
+    for o in (out, out2):
+        torch.testing.assert_close(o.float(), ref_out.float(), atol=2e-2,
+                                   rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    plain = flash_attention_bwd_plain(q, k, v, out2.detach(), lse, do,
+                                      causal=True)
+    assert not leaf.grad[..., 0].any()
+    for a, p in zip(leaf.grad[..., 1:], plain):
+        torch.testing.assert_close(a.float(), p.float(), atol=2e-2,
+                                   rtol=2e-2)
