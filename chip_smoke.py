@@ -9,8 +9,9 @@ then exits non-zero and prints no result):
 1. device  — the card's name, count and power limit (nvidia-smi).
 2. build   — seconds to build every kernel library from csrc/ with nvcc
              (sm_90a), one nvcc per source, all started together.
-   ptxas   — the flash kernels' register and spill lines as ptxas
-             reported them (-Xptxas -v, kept beside each library).
+   ptxas   — the flash kernels' and row 7's register and spill lines
+             as ptxas reported them (-Xptxas -v, kept beside each
+             library), by library.
 3. kernels — every ported kernel against its plain PyTorch version on
              the card, at the shapes the serving and training paths
              give it: the flash forward (serving prefill buckets and the
@@ -59,7 +60,15 @@ then exits non-zero and prints no result):
              512} and a ragged 300, within one bf16 step of the output's
              magnitude, an all-zero group at scale 1; ms beside the
              bound, the plain version, torch._weight_int4pack_mm (a
-             yardstick the port never calls) and the bf16 linear.
+             yardstick the port never calls) and the bf16 linear, with
+             GB/s, TFLOP/s, the share of the bound and the regime (decode
+             M <= 16, prefill above). Checks at K 2048, N 2064 (a ragged
+             column tile), group 64 and 128, bf16 and f32 x, M in {1, 2,
+             8, 16, 17, 64, 300, 512}: within one bf16 step, the same bits
+             twice, a row's bits not depending on M within a regime
+             (1, 2, 8 vs 16; 17, 64, 300 vs 512), an all-zero group of
+             every column, and exactly one kernel event per call under
+             torch.profiler in both regimes.
    kernels-bn, row 15 — the four BatchNorm kernels (stats, apply, gsum,
              dx) against their plain versions at the 12 BN shapes of
              ResNet-50 at batch 256, bf16 with relu on and off, apply
@@ -374,16 +383,23 @@ def with_rates(row: dict, flops: float) -> dict:
 
 
 def phase_ptxas(sos):
-    """ptxas's report on the flash kernels (-Xptxas -v, kept beside each
-    library as lib<name>-<hash>.log): each kernel's register and spill
-    lines, in the order ptxas compiled the kernels."""
-    lines = [ln.replace("ptxas info    :", "").strip()
-             for so in sos if so.name.startswith("libflash_attention")
-             for ln in so.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "ptxas", "lines": lines})
-    if not lines:
-        raise AssertionError("no -Xptxas -v report for the flash kernels")
+    """ptxas's report on the flash kernels and row 7's (-Xptxas -v, kept
+    beside each library as lib<name>-<hash>.log): each kernel's register
+    and spill lines and any wgmma serialisation note, in the order ptxas
+    compiled the kernels, by library."""
+    out = {}
+    for so in sos:
+        name = so.name.split("-")[0][3:]
+        if name.startswith(("flash_attention", "int4_matmul")):
+            out.setdefault(name, []).extend(
+                ln.replace("ptxas info    :", "").strip()
+                for ln in so.with_suffix(".log").read_text().splitlines()
+                if "registers" in ln or "spill" in ln or "C75" in ln)
+    emit({"phase": "ptxas", "lines": out})
+    if not out.get("int4_matmul") or not any(
+            k.startswith("flash_attention") and v for k, v in out.items()):
+        raise AssertionError("no -Xptxas -v report for the flash or int4 "
+                             "kernels")
 
 
 def qkv_views(torch, B, S, H, D, g):
@@ -1190,6 +1206,9 @@ INT4_SHAPES = [(2048, 2048, 128, "q/k/v/o_proj"),
                (2048, 32000, 128, "lm_head")]
 INT4_MS = (1, 8, 16, 512)         # decode batches 1 and 8, 16 slots, prefill
 INT4_RAGGED = (300, 5504, 2048, 64)
+# the card tests' cases: both regimes, a column tile the kernels must cut
+INT4_CHECK_MS = (1, 2, 8, 16, 17, 64, 300, 512)
+INT4_CHECK_KN = (2048, 2064)
 # the linears of one Llama-1B model call: 7 a layer and lm_head
 LINEARS_PER_LAYER = 7
 # prefill logits of the int4 model, kernel route vs plain route (every
@@ -1200,14 +1219,15 @@ DECODE_PROMPT, DECODE_NEW, DECODE_BATCHES = 64, 128, (1, 8)
 DECODE_WARM, DECODE_PROFILE_STEPS = 4, 4
 
 
-def int4_operands(torch, M, K, N, group, gen):
+def int4_operands(torch, M, K, N, group, gen, zero_rows=False):
     """bf16 x [M, K] and the codes and scales of an f32 weight [K, N] of
-    Llama's init scale, with one all-zero group (column 5, group 1)."""
+    Llama's init scale, with one all-zero group (column 5, group 1; every
+    column with ``zero_rows``)."""
     from paddle_tpu_torch.ops.int4_matmul import (pack_rows_int4,
                                                   quantize_int4_rows)
     w = torch.randn(K, N, device="cuda", generator=gen) \
         * math.sqrt(2.0 / (K + N))
-    w[group:2 * group, 5] = 0
+    w[group:2 * group, slice(None) if zero_rows else 5] = 0
     q, s = quantize_int4_rows(w, group)
     x = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
     return x, pack_rows_int4(q), s, q, w.bfloat16()
@@ -1224,6 +1244,81 @@ def int4pack_operands(torch, q, s, group):
     return packed, sz
 
 
+def int4_regime(M: int) -> str:
+    """Which of row 7's kernels a call of M rows runs."""
+    return "decode" if M <= 16 else "prefill"
+
+
+def int4_events(torch, fn, calls: int) -> dict:
+    """{kernel name: launches} of ``calls`` calls of ``fn`` under the
+    profiler."""
+    _, ev = traced(torch, lambda: lambda: [fn() for _ in range(calls)],
+                   calls=calls)
+    return {e.key: e.count for e in ev}
+
+
+def phase_int4_checks(torch, gen) -> dict:
+    """Row 7's laws on the card (the card tests' cases): at K 2048 and N
+    2064 (not a multiple of the column tile), group 64 and 128, bf16 and
+    f32 x, M in INT4_CHECK_MS: within one bf16 step of the plain version,
+    the same bits twice, a row's bits not depending on M within a regime;
+    an all-zero group of every column; one kernel event per call."""
+    from paddle_tpu_torch.ops.int4_matmul import (int4_matmul,
+                                                  int4_matmul_plain)
+    K, N = INT4_CHECK_KN
+    worst, cases = 0.0, 0
+    for group in (64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            xs, p, s, _, _ = int4_operands(torch, max(INT4_CHECK_MS), K, N,
+                                           group, gen)
+            xs = xs.to(dtype)
+            ys = {}
+            for M in INT4_CHECK_MS:
+                x = xs[:M].contiguous()
+                got = int4_matmul(x, p, s, group)
+                again = int4_matmul(x, p, s, group)
+                want = int4_matmul_plain(x, p, s, group)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                where = f"int4 check M {M} group {group} {dtype}"
+                if err > bf16_step(want.float()) or got.dtype != x.dtype:
+                    raise AssertionError(f"{where}: max |kernel - plain| "
+                                         f"{err}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{where}: two runs differ")
+                worst, cases = max(worst, err), cases + 1
+                ys[M] = got
+            for ref, ms in ((16, (1, 2, 8)), (512, (17, 64, 300))):
+                for M in ms:
+                    if not torch.equal(ys[M], ys[ref][:M]):
+                        raise AssertionError(
+                            f"int4 {int4_regime(M)} rows of M {M} differ "
+                            f"from those of M {ref} (group {group}, "
+                            f"{dtype})")
+    for M in (1, 512):
+        x, p, s, q, _ = int4_operands(torch, M, K, N, 128, gen,
+                                      zero_rows=True)
+        got = int4_matmul(x, p, s, 128)
+        want = int4_matmul_plain(x, p, s, 128)
+        if not (s[1] == 1.0).all() or q[128:256].any() or \
+                (got.float() - want.float()).abs().max().item() \
+                > bf16_step(want.float()):
+            raise AssertionError(f"int4 all-zero group, M {M}")
+    events = {}
+    for M in (1, 16, 17, 512):
+        x, p, s, _, _ = int4_operands(torch, M, 2048, 2048, 128, gen)
+        ev = int4_events(torch, lambda: int4_matmul(x, p, s, 128), 10)
+        if len(ev) != 1 or next(iter(ev.values())) != 10 or \
+                "int4_mm_" not in next(iter(ev)):
+            raise AssertionError(f"int4 M {M}: 10 calls gave kernel events "
+                                 f"{ev}, expected 10 of one int4 kernel")
+        events[M] = next(iter(ev))[:60]
+    return {"shape": [K, N], "ms": list(INT4_CHECK_MS), "cases": cases,
+            "max_abs_err": worst, "bits_repeat": True,
+            "rows_independent_of_m_within_regime": True,
+            "zero_group": True, "one_event_per_call": events}
+
+
 def phase_kernels_int4(torch):
     """Kernel row 7 against its plain version on the card at Llama-1B's
     four linear shapes, M in INT4_MS and one ragged M, within one bf16
@@ -1231,7 +1326,9 @@ def phase_kernels_int4(torch):
     with codes 0. Device ms of kernel, plain version, the library's
     int4 GEMM (torch._weight_int4pack_mm on the same codes, bf16 scales,
     zero points 0: a yardstick the port never calls) and the bf16 linear
-    the unquantized model runs (x @ W in bf16), beside the bound."""
+    the unquantized model runs (x @ W in bf16), beside the bound, with
+    the GB/s and TFLOP/s each reaches and the kernel's share of the
+    bound; then phase_int4_checks."""
     from paddle_tpu_torch.ops.int4_matmul import (int4_matmul,
                                                   int4_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1242,6 +1339,7 @@ def phase_kernels_int4(torch):
     for M, K, N, group, what in cases:
         x, p, s, q, wb = int4_operands(torch, M, K, N, group, gen)
         got = int4_matmul(x, p, s, group)
+        again = int4_matmul(x, p, s, group)
         want = int4_matmul_plain(x, p, s, group)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -1249,16 +1347,20 @@ def phase_kernels_int4(torch):
         if err > tol:
             raise AssertionError(f"int4_matmul {M}x{K}x{N} ({what}): max "
                                  f"|kernel - plain| {err} > {tol}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"int4_matmul {M}x{K}x{N}: two runs differ")
         if not (s[1, 5].item() == 1.0 and not q[group:2 * group, 5].any()):
             raise AssertionError("int4: the all-zero group is not at scale "
                                  "1 with codes 0")
         packed, sz = int4pack_operands(torch, q, s, group)
         lib = lambda: torch._weight_int4pack_mm(x, packed, group, sz)
         lib_err = (lib().float() - want.float()).abs().max().item()
-        b_ms, b_by = bound(M * K * 2 + K // 2 * N + K // group * N * 4
-                           + M * N * 2, 2 * M * K * N)
-        rows.append({
+        nbytes = M * K * 2 + K // 2 * N + K // group * N * 4 + M * N * 2
+        flops = 2 * M * K * N
+        b_ms, b_by = bound(nbytes, flops)
+        row = {
             "M": M, "K": K, "N": N, "group": group, "linear": what,
+            "regime": int4_regime(M),
             "max_abs_err": err, "tolerance": tol,
             "ms": device_ms(torch, lambda: int4_matmul(x, p, s, group), 20),
             "plain_ms": device_ms(torch, lambda: int4_matmul_plain(
@@ -1266,12 +1368,18 @@ def phase_kernels_int4(torch):
             "library_ms": device_ms(torch, lib, 20),
             "library_max_abs_err": lib_err,
             "bf16_linear_ms": device_ms(torch, lambda: x @ wb, 20),
-            "bound_ms": b_ms, "bound_by": b_by})
-        del x, p, s, q, wb, packed, sz, got, want
+            "bound_ms": b_ms, "bound_by": b_by}
+        for key in ("ms", "plain_ms", "library_ms", "bf16_linear_ms"):
+            row[key.replace("ms", "gbps")] = nbytes / row[key] / 1e6
+            row[key.replace("ms", "tflops")] = flops / row[key] / 1e9
+        row["bound_share"] = b_ms / row["ms"]
+        rows.append(row)
+        del x, p, s, q, wb, packed, sz, got, again, want
+    checks = phase_int4_checks(torch, gen)
     emit({"phase": "kernels", "name": "int4_matmul",
           "library": "torch._weight_int4pack_mm",
           "tolerance": "one bf16 step of the output's largest magnitude",
-          "cases": rows})
+          "cases": rows, "checks": checks})
     return rows
 
 
@@ -1476,7 +1584,7 @@ def decode_share(by_kernel: dict) -> dict:
              "int8_gemm_ms": 0.0, "bf16_gemm_ms": 0.0}
     for k, ms in by_kernel.items():
         low = k.lower()
-        if "int4_mm_kernel" in k or "int4_reduce_kernel" in k:
+        if "int4_mm_" in k:
             parts["int4_matmul_ms"] += ms
         elif "rowq_kernel" in k:
             parts["quantize_rows_ms"] += ms

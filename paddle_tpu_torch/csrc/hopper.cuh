@@ -1,6 +1,7 @@
 // Shared helpers of the port's Hopper (sm_90a) kernels: mbarriers, TMA
 // tile loads and the host-side tensor maps they read, wgmma shared-memory
-// descriptors, fences, and the warpgroup products the flash kernels issue.
+// descriptors, fences, and the warpgroup products the flash kernels and
+// the int4 prefill kernel issue.
 //
 // Shared-memory tiles. A [rows, width] tile of 16-bit values is stored as
 // width / PW panels of PW columns (PW = 64 or 32: one row of a panel is
@@ -93,6 +94,27 @@ inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base, int B,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 2-D map over a row-major [rows, cols] tensor of `elem_bytes`-byte
+// elements (rows `row_bytes` apart), box (box_cols, box_rows) with the
+// given swizzle. Elements past either edge load as zeros.
+inline cudaError_t make_2d_map(CUtensorMap* map, CUtensorMapDataType type,
+                               const void* base, long long rows,
+                               long long cols, long long row_bytes,
+                               int box_cols, int box_rows,
+                               CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device: shared memory, mbarriers, TMA ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -168,6 +190,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory (coordinates innermost
+// first); completion adds the box's bytes to `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads, TMA) before a barrier publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ---- device: wgmma ----
@@ -297,13 +337,13 @@ __device__ __forceinline__ float ex2(float x) {
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])              \
       : "l"(da), "l"(db), "r"(scale_d))
 
-#define PTT_WGMMA_RS_32(TY)                                             \
+#define PTT_WGMMA_RS_32(TY, TB)                                         \
   asm volatile(                                                         \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                      \
       "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY           \
       " {%0, %1, %2, %3, %4, %5, %6, %7,"                               \
       "%8, %9, %10, %11, %12, %13, %14, %15},"                          \
-      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                    \
+      " {%16, %17, %18, %19}, %20, p, 1, 1, " TB ";\n}\n"               \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),     \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),\
@@ -311,7 +351,7 @@ __device__ __forceinline__ float ex2(float x) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),            \
         "r"(scale_d))
 
-#define PTT_WGMMA_RS_64(TY)                                             \
+#define PTT_WGMMA_RS_64(TY, TB)                                         \
   asm volatile(                                                         \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                      \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY           \
@@ -319,7 +359,7 @@ __device__ __forceinline__ float ex2(float x) {
       "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
       "%16, %17, %18, %19, %20, %21, %22, %23,"                         \
       "%24, %25, %26, %27, %28, %29, %30, %31},"                        \
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                    \
+      " {%32, %33, %34, %35}, %36, p, 1, 1, " TB ";\n}\n"               \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),     \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),\
@@ -330,7 +370,7 @@ __device__ __forceinline__ float ex2(float x) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),            \
         "r"(scale_d))
 
-#define PTT_WGMMA_RS_96(TY)                                             \
+#define PTT_WGMMA_RS_96(TY, TB)                                         \
   asm volatile(                                                         \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"                      \
       "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY           \
@@ -340,7 +380,7 @@ __device__ __forceinline__ float ex2(float x) {
       "%24, %25, %26, %27, %28, %29, %30, %31,"                         \
       "%32, %33, %34, %35, %36, %37, %38, %39,"                         \
       "%40, %41, %42, %43, %44, %45, %46, %47},"                        \
-      " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"                    \
+      " {%48, %49, %50, %51}, %52, p, 1, 1, " TB ";\n}\n"               \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),     \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),\
@@ -354,7 +394,7 @@ __device__ __forceinline__ float ex2(float x) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),            \
         "r"(scale_d))
 
-#define PTT_WGMMA_RS_128(TY)                                            \
+#define PTT_WGMMA_RS_128(TY, TB)                                        \
   asm volatile(                                                         \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                      \
       "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY          \
@@ -366,7 +406,7 @@ __device__ __forceinline__ float ex2(float x) {
       "%40, %41, %42, %43, %44, %45, %46, %47,"                         \
       "%48, %49, %50, %51, %52, %53, %54, %55,"                         \
       "%56, %57, %58, %59, %60, %61, %62, %63},"                        \
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                    \
+      " {%64, %65, %66, %67}, %68, p, 1, 1, " TB ";\n}\n"               \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),     \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),\
@@ -384,7 +424,7 @@ __device__ __forceinline__ float ex2(float x) {
         "r"(scale_d))
 
 
-#define PTT_WGMMA_RS_192(TY)                                            \
+#define PTT_WGMMA_RS_192(TY, TB)                                        \
   asm volatile(                                                         \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                     \
       "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY          \
@@ -400,7 +440,7 @@ __device__ __forceinline__ float ex2(float x) {
       "%72, %73, %74, %75, %76, %77, %78, %79,"                         \
       "%80, %81, %82, %83, %84, %85, %86, %87,"                         \
       "%88, %89, %90, %91, %92, %93, %94, %95},"                        \
-      " {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"                   \
+      " {%96, %97, %98, %99}, %100, p, 1, 1, " TB ";\n}\n"              \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),     \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),\
@@ -424,7 +464,7 @@ __device__ __forceinline__ float ex2(float x) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),            \
         "r"(scale_d))
 
-#define PTT_WGMMA_RS_256(TY)                                            \
+#define PTT_WGMMA_RS_256(TY, TB)                                        \
   asm volatile(                                                         \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                     \
       "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY          \
@@ -444,7 +484,7 @@ __device__ __forceinline__ float ex2(float x) {
       "%104, %105, %106, %107, %108, %109, %110, %111,"                 \
       "%112, %113, %114, %115, %116, %117, %118, %119,"                 \
       "%120, %121, %122, %123, %124, %125, %126, %127},"                \
-      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"               \
+      " {%128, %129, %130, %131}, %132, p, 1, 1, " TB ";\n}\n"          \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),     \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),\
@@ -507,32 +547,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                 "wgmma_rs: N is 32, 64, 96, 128, 192 or 256");
   if constexpr (std::is_same<T, __half>::value) {
     if constexpr (N == 32) {
-      PTT_WGMMA_RS_32("f16");
+      PTT_WGMMA_RS_32("f16", "1");
     } else if constexpr (N == 64) {
-      PTT_WGMMA_RS_64("f16");
+      PTT_WGMMA_RS_64("f16", "1");
     } else if constexpr (N == 96) {
-      PTT_WGMMA_RS_96("f16");
+      PTT_WGMMA_RS_96("f16", "1");
     } else if constexpr (N == 128) {
-      PTT_WGMMA_RS_128("f16");
+      PTT_WGMMA_RS_128("f16", "1");
     } else if constexpr (N == 192) {
-      PTT_WGMMA_RS_192("f16");
+      PTT_WGMMA_RS_192("f16", "1");
     } else {
-      PTT_WGMMA_RS_256("f16");
+      PTT_WGMMA_RS_256("f16", "1");
     }
   } else {
     if constexpr (N == 32) {
-      PTT_WGMMA_RS_32("bf16");
+      PTT_WGMMA_RS_32("bf16", "1");
     } else if constexpr (N == 64) {
-      PTT_WGMMA_RS_64("bf16");
+      PTT_WGMMA_RS_64("bf16", "1");
     } else if constexpr (N == 96) {
-      PTT_WGMMA_RS_96("bf16");
+      PTT_WGMMA_RS_96("bf16", "1");
     } else if constexpr (N == 128) {
-      PTT_WGMMA_RS_128("bf16");
+      PTT_WGMMA_RS_128("bf16", "1");
     } else if constexpr (N == 192) {
-      PTT_WGMMA_RS_192("bf16");
+      PTT_WGMMA_RS_192("bf16", "1");
     } else {
-      PTT_WGMMA_RS_256("bf16");
+      PTT_WGMMA_RS_256("bf16", "1");
     }
+  }
+}
+
+// d (+)= A B over one k16 step, A (64 x 16) from registers as in
+// wgmma_rs and B (N x 16) read K-major from shared memory (no transpose:
+// the int4 prefill's x tile, tokens as rows).
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  static_assert(N == 64, "wgmma_rs_kmajor: N is 64");
+  if constexpr (std::is_same<T, __half>::value) {
+    PTT_WGMMA_RS_64("f16", "0");
+  } else {
+    PTT_WGMMA_RS_64("bf16", "0");
   }
 }
 

@@ -28,23 +28,26 @@ order: per group the high-half dot, scaled, added to the f32
 accumulator, then the low-half one.
 
 CPU tensors take the plain version; a CUDA tensor launches the kernel
-(``csrc/int4_matmul.cu``) or raises. ``int4_matmul.launches`` counts
-kernel launches.
+(``csrc/int4_matmul.cu``: M <= 16 streams the weight with a K split
+whose partials the same launch adds, M > 16 runs wgmma) or raises.
+``int4_matmul.launches`` counts kernel launches, one a call.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from . import _build
 
-__all__ = ["int4_matmul", "int4_matmul_plain", "int4_splits",
-           "pack_rows_int4", "quantize_int4_rows", "unpack_rows_int4"]
+__all__ = ["int4_matmul", "int4_matmul_plain", "int4_plan", "pack_rows_int4",
+           "quantize_int4_rows", "unpack_rows_int4"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BN = 64                     # the kernel's columns per block
-_TARGET_BLOCKS = 2 * 132     # two waves of blocks on an H100's 132 SMs
+_DECODE_ROWS = 16            # M up to this runs the decode kernel
+_SMALL_UNITS = 512           # (64-column tile, group) pairs of a small weight
+_TARGET_WARPS = 768          # decode warps in all: ~1.5 a scheduler of 528
 
 
 def quantize_int4_rows(w, group: int = 128):
@@ -119,23 +122,37 @@ def int4_matmul_plain(x, packed, scales, group: int = 128):
     return acc.to(x.dtype)
 
 
-def int4_splits(K: int, N: int, group: int) -> int:
-    """How many blocks share a column tile's K range in the kernel (each
-    takes whole groups; a second pass adds their partials in order).
-    Depends on the weight's shape only, never on M, so a row's result
-    does not depend on how many rows ride along."""
+def int4_plan(K: int, N: int, group: int):
+    """``(bn, warps, splits)`` of the decode kernel (M <= 16) for this
+    weight: tiles of ``bn`` columns, the K range of a tile cut into
+    ``splits`` runs of whole groups, one a warp, ``warps`` of them a
+    block; the block adds its warps' partials in order, and the
+    ``splits // warps`` blocks of a tile (one cluster) add theirs in
+    order in the first one's shared memory.
+
+    A small weight (at most ``_SMALL_UNITS`` pairs of a 64-column tile and
+    a group) takes 32-column tiles and blocks of 4 warps, so more SMs
+    share it; the splits aim at ``_TARGET_WARPS`` warps in all (at most
+    32: a cluster is at most 8 blocks), in one block up to 8, else in
+    blocks of 4. Depends on the weight's shape only, never on M, so a
+    row's result does not depend on how many rows ride along (the
+    choices were timed on an H100 at Llama-1B's shapes)."""
     gh = K // 2 // group
-    tiles = -(-N // _BN)
-    per = -(-gh // min(gh, -(-_TARGET_BLOCKS // tiles)))
-    return -(-gh // per)
+    bn = 32 if -(-N // 64) * gh <= _SMALL_UNITS else 64
+    splits = min(gh, 32, -(-_TARGET_WARPS // -(-N // bn)))
+    if bn == 32 and splits % 4 == 0:
+        return bn, 4, splits
+    if splits <= 8:
+        return bn, splits, splits
+    return bn, 4, min(-(-splits // 4) * 4, gh - gh % 4)
 
 
 def _lib():
     lib = _build.load("int4_matmul")
     if lib.ptt_int4_matmul.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ptt_int4_matmul.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
-                                        i, vp]
+        lib.ptt_int4_matmul.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
+                                        i, i, vp]
         lib.ptt_int4_matmul.restype = i
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
@@ -162,17 +179,17 @@ def _int4_cuda(x, packed, scales, group: int):
                 or t.data_ptr() % 16:
             raise ValueError(f"int4_matmul kernel: {name} must be "
                              f"contiguous, 16-byte aligned, on {x.device}")
-    splits = int4_splits(K, N, group)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part = torch.empty((splits, M, N), dtype=torch.float32,
-                       device=x.device) if splits > 1 else None
+    plan = int4_plan(K, N, group) if M <= _DECODE_ROWS else (0, 0, 0)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.ptt_int4_matmul(
-            x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
-            None if part is None else part.data_ptr(), M, K, N, group,
-            splits, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
+            M, K, N, group, *plan, _DTYPES[x.dtype])
+    # switch devices only when x is not on the current one
+    with contextlib.nullcontext() \
+            if x.device.index == torch.cuda.current_device() \
+            else torch.cuda.device(x.device):
+        err = lib.ptt_int4_matmul(*args,
+                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"int4_matmul kernel launch failed: CUDA error {err} "

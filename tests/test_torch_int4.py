@@ -14,11 +14,16 @@ Inputs come from numpy seeds and go to both packages.
   to 2e-6 of the output's largest magnitude and bf16 outputs within one
   bf16 step of it.
 - The reference's ``ValueError``s, with its messages.
-- On the card (marker ``cuda``): the kernel against the plain version
-  within one bf16 step of the output's magnitude (tensor-core dots in
-  another order), at decode and prefill shapes, ragged M and N, a zero
-  group and f32 x; a row's bits not depending on M; and the launches of
-  one forward of an int4 model.
+- The decode kernel's plan (column tile, warps a block, K splits)
+  follows the weight's shape only.
+- On the card (marker ``cuda``): both kernels (decode M <= 16, prefill
+  above) against the plain version within one bf16 step of the output's
+  magnitude (tensor-core dots in another order), at decode and prefill
+  shapes, M from 1 to 512, group 64 and 128, an N that is not a multiple
+  of a column tile, a zero group and f32 x; the same bits on two runs; a
+  row's bits not depending on M within a regime; one kernel event per
+  call under torch.profiler; and the launches of one forward of an int4
+  model.
 """
 import math
 
@@ -108,13 +113,21 @@ def test_reference_errors():
 
 
 def test_splits_depend_on_the_weight_only():
-    """The kernel's K split for Llama-1B's shapes: whole groups, enough
-    blocks to fill the card, never depending on M."""
-    assert im.int4_splits(2048, 2048, 128) == 8
-    assert im.int4_splits(2048, 5504, 128) == 4
-    assert im.int4_splits(5504, 2048, 64) == 9     # 43 groups: 8 x 5 + 3
-    assert im.int4_splits(2048, 32000, 128) == 1
-    assert im.int4_splits(256, 96, 64) == 2
+    """The decode kernel's plan for Llama-1B's shapes: whole groups, the
+    warps of a block dividing the splits, at most 8 blocks (one cluster)
+    a tile; all from the weight's shape, never from M."""
+    assert im.int4_plan(2048, 2048, 128) == (32, 4, 8)
+    assert im.int4_plan(2048, 5504, 128) == (64, 8, 8)
+    assert im.int4_plan(5504, 2048, 64) == (64, 4, 24)   # 43 groups
+    assert im.int4_plan(2048, 32000, 128) == (64, 2, 2)
+    assert im.int4_plan(256, 96, 64) == (32, 2, 2)
+    for K, N, group in [(2048, 2048, 128), (5504, 2048, 64), (2048, 2064, 64),
+                        (2048, 32000, 128), (256, 80, 16), (192, 48, 32),
+                        (11008, 4096, 128), (8192, 28672, 128),
+                        (16384, 64, 128)]:
+        bn, warps, splits = im.int4_plan(K, N, group)
+        assert bn in (32, 64) and 1 <= warps <= 8 and splits % warps == 0
+        assert splits <= K // 2 // group and splits // warps <= 8
 
 
 @pytest.fixture
@@ -155,11 +168,78 @@ def test_cuda_kernel_matches_plain(cuda, M, K, N, group):
 
 @pytest.mark.cuda
 def test_cuda_rows_do_not_depend_on_m(cuda):
-    x, p, s = _operands(300, 5504, 2048, 64, cuda)
-    full = im.int4_matmul(x, p, s, 64)
-    for m in (1, 16, 17, 64):
-        assert torch.equal(im.int4_matmul(x[:m].contiguous(), p, s, 64),
-                           full[:m])
+    """Within a regime a row's bits do not depend on M: decode (M <= 16)
+    rows of 1, 2 and 8 are those of 16, prefill rows of 17, 64 and 300
+    those of 512. Across the regimes (16 / 17) they may differ."""
+    x, p, s = _operands(512, 5504, 2048, 64, cuda)
+    for ref, ms in ((16, (1, 2, 8)), (512, (17, 64, 300))):
+        full = im.int4_matmul(x[:ref].contiguous(), p, s, 64)
+        for m in ms:
+            assert torch.equal(im.int4_matmul(x[:m].contiguous(), p, s, 64),
+                               full[:m])
+
+
+REGIME_MS = (1, 2, 8, 16, 17, 64, 300, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_both_regimes(cuda, group, dtype):
+    """Both kernels against the plain version within one bf16 step at
+    N = 2064 (not a multiple of a column tile), M from 1 to 512, and the
+    same bits on a second run."""
+    x, p, s = _operands(max(REGIME_MS), 2048, 2064, group, cuda,
+                        dtype=getattr(torch, dtype))
+    for m in REGIME_MS:
+        xm = x[:m].contiguous()
+        got = im.int4_matmul(xm, p, s, group)
+        want = im.int4_matmul_plain(xm, p, s, group)
+        w = want.float().cpu().numpy()
+        assert got.dtype == xm.dtype and got.shape == (m, 2064)
+        np.testing.assert_allclose(got.float().cpu().numpy(), w, rtol=0,
+                                   atol=bf16_step(w))
+        assert torch.equal(got, im.int4_matmul(xm, p, s, group))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 17, 300])
+def test_cuda_all_zero_group(cuda, M):
+    """A group of rows zero in every column: scale 1, codes 0, and the
+    kernel adds nothing for it."""
+    w = _weight(1024, 2048, 3)
+    w[128:256] = 0
+    q, s = im.quantize_int4_rows(torch.from_numpy(w), 128)
+    assert (s[1] == 1.0).all() and not q[128:256].any()
+    x = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (M, 1024)).astype(np.float32)).to(cuda, torch.bfloat16)
+    p, s = im.pack_rows_int4(q).to(cuda), s.to(cuda)
+    got = im.int4_matmul(x, p, s, 128)
+    want = im.int4_matmul_plain(x, p, s, 128).float().cpu().numpy()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=0,
+                               atol=bf16_step(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 17, 512])
+def test_cuda_one_kernel_event_per_call(cuda, M):
+    """int4_matmul is one launch: ten calls show ten events of one int4
+    kernel under torch.profiler, and nothing else on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    x, p, s = _operands(M, 2048, 2048, 128, cuda)
+    im.int4_matmul(x, p, s, 128)               # build, workspace
+    torch.cuda.synchronize()
+    for _ in range(5):                         # a trace may drop events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                im.int4_matmul(x, p, s, 128)
+            torch.cuda.synchronize()
+        ev = {e.key: e.count for e in prof.key_averages()
+              if e.self_device_time_total > 0}
+        if sum(ev.values()) >= 10:
+            break
+    assert len(ev) == 1 and "int4_mm_" in next(iter(ev))
+    assert next(iter(ev.values())) == 10
 
 
 @pytest.mark.cuda
