@@ -24,12 +24,20 @@ then exits non-zero and prints no result):
              bits), each flash case with its achieved TFLOP/s beside the
              bound's, the plain version's and SDPA's, AdamW on the
              trainer's 2048x8192 and 50304x2048 leaves (p, m, v bit
-             for bit, stochastic rounding on), the int8 quantize
+             for bit, stochastic rounding on) and, through the list
+             entry in one launch, on GPT-1.3B's 292 leaves (every leaf
+             bit for bit against the per-leaf plain version, timed
+             beside AdamW(fused=True) on the same list; the flagship's
+             194 leaves without int8 moments timed alone) and on odd
+             lengths and misaligned views, the int8 quantize
              kernels at every shape the flagship trainer and
              Int8Linear's decode path give them (row and column
              round-to-nearest, column stochastic rounding with and
              without gelu: codes and scales bit for bit, the SR laws
-             on the card), the int8
+             on the card; row 12 in one read of x beside the two-pass
+             pair on the same input, its instructions a value from its
+             SASS and the compute floor they set, and both of its
+             routes bit for bit at the one-read row limit), the int8
              GEMM (torch._int_mm, a library call) in the layouts the
              port hands it beside bf16 matmuls, and the int8-moment
              AdamW on every int8-moment leaf shape of GPT-1.3B (p, codes
@@ -125,8 +133,8 @@ then exits non-zero and prints no result):
              0 just before and read just after, each exactly as
              expected_launches derives it from the code (per step 24
              flash forward, 24 flash backward, 216 row, 72 column and
-             144 SR column quantize, 98 int8-moment AdamW and 194 AdamW
-             launches). Every loss is finite and step 7's is below step
+             144 SR column quantize, 98 int8-moment AdamW launches and
+             one AdamW launch for the other 194 leaves). Every loss is finite and step 7's is below step
              1's. Step ms, tokens/s, peak device memory.
 8. train-flagship-profile — one step of it under torch.profiler: device
              ms, busy share, top kernels, and device ms by kernel
@@ -139,8 +147,8 @@ then exits non-zero and prints no result):
              losses within LN_TRACK_TOL of train-flagship's, step by
              step.
 11-12. train, train-profile — the bf16 path (no int8, no int8 moments,
-             no remat): 24 flash forward, 24 flash backward and 292
-             AdamW launches per step.
+             no remat): 24 flash forward, 24 flash backward and one
+             AdamW launch (all 292 leaves) per step.
 13. train-guard — the drift guard at full width (quant8="wgrad",
              moment8, ce_int8, remat off, period 1, threshold 1e-9) for
              4 steps: it falls "wgrad" -> "dgrad" -> exact, each step's
@@ -189,9 +197,11 @@ file; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -382,6 +392,41 @@ def with_rates(row: dict, flops: float) -> dict:
     return row
 
 
+SASS_INSTR = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(so, kernel: str) -> list:
+    """The loops of the kernel whose mangled name contains ``kernel`` in
+    the library ``so``, from the toolkit's ``cuobjdump -sass``: for each
+    backward branch, the static instructions of its body (NOPs left
+    out) by opcode with its modifiers, largest loop first."""
+    from paddle_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ins, found = [], False
+    for line in text.splitlines():
+        if "Function : " in line:
+            if found:
+                break
+            found = kernel in line
+        elif found and (m := SASS_INSTR.search(line)):
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, args in ins:
+        target = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            start = int(target.group(1), 16)
+            body = [o for a, o, _ in ins if start <= a <= addr and o != "NOP"]
+            loops.append({"instructions": len(body),
+                          "ops": dict(collections.Counter(body))})
+    if not ins:
+        raise AssertionError(f"no SASS for a kernel named *{kernel}* in "
+                             f"{so.name}")
+    return sorted(loops, key=lambda lp: -lp["instructions"])
+
+
 def phase_ptxas(sos):
     """ptxas's report on the flash kernels and row 7's (-Xptxas -v, kept
     beside each library as lib<name>-<hash>.log): each kernel's register
@@ -555,30 +600,106 @@ def phase_kernels_bwd(torch, F):
     return rows
 
 
+def gpt_leaf_shapes() -> list:
+    """The GPT-1.3B trainer's 292 leaves in its flatten order (the
+    leaf_id order): (path, shape)."""
+    from paddle_tpu_torch.models.gpt import (block_shapes, flatten_params,
+                                             top_shapes)
+    cfg = gpt_1p3b_config()
+    tree = dict(top_shapes(cfg))
+    tree["blocks"] = {f"layer_{i:03d}": block_shapes(cfg)
+                      for i in range(cfg.num_layers)}
+    return flatten_params(tree)
+
+
+def adamw_leaf(torch, shape, gen):
+    """bf16 p, g, m, v of a leaf, at the scales of a training run."""
+    def normal(scale):
+        return (scale * torch.randn(shape, device="cuda", generator=gen)
+                ).bfloat16()
+    return (normal(0.02), normal(1e-3), normal(1e-4),
+            (1e-8 * torch.rand(shape, device="cuda", generator=gen)
+             ).bfloat16())
+
+
+def check_leaves_bitwise(torch, name, got, leaves, ids, sc, hp) -> float:
+    """Each leaf's (p, m, v) from the list kernel against the per-leaf
+    plain version run on the leaf's inputs. Returns the plain version's
+    ms over the list: CUDA events around each leaf's call, summed."""
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update_plain
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    plain_ms = 0.0
+    for (p, g, m, v), i, out in zip(leaves, ids, got):
+        p, m, v = p.clone(), m.clone(), v.clone()
+        start.record()
+        want = fused_adamw_update_plain(p, g, m, v, sc, leaf_id=i, **hp)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        for part, a, b in zip("pmv", out, want):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{name}: leaf {i} {tuple(p.shape)} {part} differs from "
+                    f"the plain version in {int((a != b).sum())} elements")
+    return plain_ms
+
+
+def list_update(torch, leaves, ids, sc, hp) -> list:
+    """fused_adamw_update_leaves on copies of ``leaves``: each leaf's
+    updated (p, m, v)."""
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update_leaves
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    ps, ms, vs = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    fused_adamw_update_leaves(ps, gs, ms, vs, sc, ids, **hp)
+    torch.cuda.synchronize()
+    return list(zip(ps, ms, vs))
+
+
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """Host ms a call of ``fn``: the wall time of ``calls`` calls
+    enqueued back to back (the card runs behind), before the sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
+
+
 def phase_kernels_adamw(torch):
     """AdamW on the trainer's 2048x8192 (win) and 50304x2048 (wte)
     leaves, bf16 p, g, m, v, stochastic rounding on: p, m, v bit for bit
     against the plain version; the yardstick is torch.optim.AdamW
-    (fused=True) on the same leaf, which does no SR."""
-    from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
-                                                  fused_adamw_update_plain)
+    (fused=True) on the same leaf, which does no SR. Then the kernel's
+    list entry: GPT-1.3B's 292 leaves in one launch, every leaf's p, m,
+    v bit for bit against the per-leaf plain version, timed (through an
+    AdamWLeaves table kept as the trainer keeps it) beside the per-leaf
+    plain version, AdamW(fused=True) over the same list and the bound,
+    with the host ms a call of the list entry and of the kept table;
+    the flagship's
+    194 leaves without int8 moments (its row-14 launch) timed alone; and
+    a list with odd lengths and views whose bases are not 16-byte
+    aligned, bit for bit."""
+    from paddle_tpu_torch.ops.fused_adamw import (AdamWLeaves,
+                                                  fused_adamw_update,
+                                                  fused_adamw_update_leaves,
+                                                  fused_adamw_update_plain,
+                                                  moment8_eligible)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     hp = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.95, eps=1e-8, stoch_round=True,
-              leaf_id=291, seed=3)
+              seed=3)
     sc = torch.tensor([0.5, 1 / (1 - 0.9 ** 3), 1 / (1 - 0.95 ** 3), 1.0],
                       device=dev)
     rows = []
     for shape in ((2048, 8192), (50304, 2048)):
-        p = (0.02 * torch.randn(shape, device=dev, generator=g)).bfloat16()
-        grad = (1e-3 * torch.randn(shape, device=dev, generator=g)
-                ).bfloat16()
-        m = (1e-4 * torch.randn(shape, device=dev, generator=g)).bfloat16()
-        v = (1e-8 * torch.rand(shape, device=dev, generator=g)).bfloat16()
+        p, grad, m, v = adamw_leaf(torch, shape, g)
         ref = fused_adamw_update_plain(p.clone(), grad, m.clone(),
-                                       v.clone(), sc, **hp)
+                                       v.clone(), sc, leaf_id=291, **hp)
         got = fused_adamw_update(p.clone(), grad, m.clone(), v.clone(), sc,
-                                 **hp)
+                                 leaf_id=291, **hp)
         torch.cuda.synchronize()
         for name, a, b in zip("pmv", got, ref):
             if not torch.equal(a, b):
@@ -596,14 +717,76 @@ def phase_kernels_adamw(torch):
             "shape": list(shape), "bitwise_equal": True, "max_abs_err": 0.0,
             "p_changed_share": changed,
             "ms": device_ms(torch, lambda: fused_adamw_update(
-                p, grad, m, v, sc, **hp), 10),
+                p, grad, m, v, sc, leaf_id=291, **hp), 10),
             "plain_ms": device_ms(torch, lambda: fused_adamw_update_plain(
-                p, grad, m, v, sc, **hp), 3),
+                p, grad, m, v, sc, leaf_id=291, **hp), 3),
             "library_ms": device_ms(torch, opt.step, 10),
             "bound_ms": bound_ms, "bound_by": bound_by})
         del opt, lib_p, p, grad, m, v
-    emit({"phase": "kernels", "name": "fused_adamw", "cases": rows})
-    return rows
+    torch.cuda.empty_cache()
+
+    # the bf16 trainer's whole list, one launch
+    shapes = [shape for _, shape in gpt_leaf_shapes()]
+    leaves = [adamw_leaf(torch, shape, g) for shape in shapes]
+    ids = list(range(len(leaves)))
+    plain_ms = check_leaves_bitwise(
+        torch, "fused_adamw, 292 leaves",
+        list_update(torch, leaves, ids, sc, hp), leaves, ids, sc, hp)
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    n = sum(p.numel() for p in ps)
+    small = [i for i, p in enumerate(ps) if not moment8_eligible(p)]
+    lib_ps = [p.clone().requires_grad_() for p in ps]
+    for p, grad in zip(lib_ps, gs):
+        p.grad = grad
+    opt = torch.optim.AdamW(lib_ps, lr=3e-4, betas=(0.9, 0.95),
+                            weight_decay=0.1, eps=1e-8, fused=True)
+    b_ms, b_by = adamw_bound(n)
+    b_small = adamw_bound(sum(ps[i].numel() for i in small))
+    kept = AdamWLeaves(ps, ms, vs, ids)        # the trainer's way
+    whole = {
+        "leaves": len(ps), "params": n, "bitwise_equal": True,
+        "max_abs_err": 0.0,
+        "ms": device_ms(torch, lambda: kept.update(gs, sc, **hp), 5),
+        "library_ms": device_ms(torch, opt.step, 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "host_ms": {
+            "list_entry": host_ms(torch, lambda: fused_adamw_update_leaves(
+                ps, gs, ms, vs, sc, ids, **hp)),
+            "kept_table": host_ms(torch, lambda: kept.update(gs, sc, **hp))},
+        "flagship_leaves": len(small),
+        "flagship_params": sum(ps[i].numel() for i in small),
+        "flagship_ms": device_ms(torch, lambda: fused_adamw_update_leaves(
+            [ps[i] for i in small], [gs[i] for i in small],
+            [ms[i] for i in small], [vs[i] for i in small], sc, small,
+            **hp), 20),
+        "flagship_bound_ms": b_small[0],
+        # timed in the check above: on the H100, the first traces after
+        # the plain version ran over the list back to back (~12,000
+        # launches) came back short of kernel events, five in a row
+        "plain_ms": plain_ms,
+        "plain_timing": "cuda events around each leaf's call, summed"}
+    del opt, lib_ps, leaves, ps, gs, ms, vs, kept
+    torch.cuda.empty_cache()
+
+    # odd lengths and misaligned views (a flat leaf less its first
+    # element), one launch
+    odd = [adamw_leaf(torch, (n_,), g) for n_ in (1, 7, 2049, 100003)]
+    odd.append(tuple(t[1:] for t in adamw_leaf(torch, (65537,), g)))
+    odd.append(tuple(t[3:] for t in adamw_leaf(torch, (12291,), g)))
+    if not all(t.data_ptr() % 16 for leaf in odd[-2:] for t in leaf):
+        raise AssertionError("fused_adamw odd case: a view meant to be "
+                             "misaligned is 16-byte aligned")
+    odd_ids = [5, 17, 200, 3, 99, 42]
+    check_leaves_bitwise(torch, "fused_adamw, odd and misaligned leaves",
+                         list_update(torch, odd, odd_ids, sc, hp), odd,
+                         odd_ids, sc, hp)
+    whole["odd_and_misaligned"] = {
+        "leaves": [int(t[0].numel()) for t in odd],
+        "misaligned": sum(bool(t[0].data_ptr() % 16) for t in odd),
+        "bitwise_equal": True}
+    emit({"phase": "kernels", "name": "fused_adamw", "cases": rows,
+          "gpt_1p3b_list": whole})
+    return rows, whole
 
 
 # the GPT-1.3B trainer's quantize shapes (M = 6144 tokens, D = 2048,
@@ -704,14 +887,82 @@ def sr_unbiased_gelu(torch, gen) -> dict:
         x, seed, act="gelu"), _apply_act(x.float(), "gelu"))
 
 
+def sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sr_instructions(torch, gelu: bool) -> dict:
+    """Row 12's one-read kernel (bf16 x) from its SASS: the instructions
+    an element of the cast (the loop that casts one item, 4 columns x 4
+    rows, Philox included: the loop with the wide multiplies and no
+    call to __fdiv_rn's slow path) and of the maxima pass (the loop that
+    reads 16-byte vectors of x, 8 values each, from shared memory;
+    with gelu, act(x) too). The compute floor: those instructions at
+    one warp instruction a clock on each of an SM's 4 schedulers at the
+    card's top clock."""
+    from paddle_tpu_torch.ops import _build
+    loops = sass_loops(_build.build(["quantize"])[0],
+                       f"col_sr_cluster_kernelI13__nv_bfloat16Li{int(gelu)}E")
+
+    def n(loop, prefix):
+        return sum(v for op, v in loop["ops"].items() if op.startswith(prefix))
+    cast = max((lp for lp in loops if n(lp, "IMAD.WIDE") >= 40
+                and n(lp, "CALL") == 0), key=lambda lp: lp["instructions"])
+    pass1 = max((lp for lp in loops if n(lp, "LDS.128")
+                 and n(lp, "IMAD.WIDE") < 8), key=lambda lp: n(lp, "LDS.128"))
+    per = {"cast": cast["instructions"] / 16,
+           "maxima": pass1["instructions"] / (8 * n(pass1, "LDS.128"))}
+    return {"instructions_per_value": per,
+            "philox_per_value": (n(cast, "IMAD.WIDE")
+                                 + n(cast, "LOP3.LUT")) / 16,
+            "per_value": per["cast"] + per["maxima"]}
+
+
+def instruction_floor_ms(torch, per_value: float, values: int,
+                         clock_hz: float) -> float:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per_value * values / (sms * 4 * 32 * clock_hz) * 1e3
+
+
+def sr_routes_check(torch, gen) -> list:
+    """Both of row 12's routes against the plain version, bit for bit:
+    R at the one-read limit and 16 rows past it (the two-pass pair), bf16
+    x without and with gelu, 64 columns with an all-zero one."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    out = []
+    for gelu in (False, True):
+        act = "gelu" if gelu else None
+        limit = qm.sr_cols_one_read_max_rows(torch.bfloat16, act)
+        for R in (limit, limit + 16):
+            x = quant_input(torch, R, 64, gen, zero_col=True)
+            check_equal(torch, f"sr_quantize_colwise {R}x64 gelu={gelu}",
+                        qm.sr_quantize_colwise(x, 5, act),
+                        qm.sr_quantize_colwise_plain(x, 5, act))
+            out.append({"rows": R, "gelu": gelu,
+                        "route": "one read" if R <= limit else "two-pass",
+                        "bitwise_equal": True})
+            del x
+    return out
+
+
 def phase_kernels_quant(torch):
     """Kernel rows 8, 9 and 12 at every trainer shape: codes and scales
     bit for bit against the plain versions (the SR kernel draws the
     plain version's Philox words), row 12's laws on the card, device
-    ms of kernel and plain version, and the bound. No single PyTorch
-    call computes these functions: library_ms is null."""
+    ms of kernel and plain version, and the bound. Row 12 (one launch,
+    x read once) also: the two-pass pair's ms on the same input (the route an R past the limit takes), the instructions
+    a value counted from its SASS and the compute floor they set; both
+    routes checked at the one-read limit. No single PyTorch call
+    computes these functions: library_ms is null."""
     from paddle_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device="cuda").manual_seed(3)
+    clock = sm_clock_hz()
+    instr = {gelu: sr_instructions(torch, gelu) for gelu in (False, True)}
     out = {}
     specs = [("quantize_rows", ROWQ_CASES, qm.quantize_rows,
               qm.quantize_rows_plain, False),
@@ -740,11 +991,22 @@ def phase_kernels_quant(torch):
                         "plain_ms": device_ms(torch, lambda: plain(*args), 2),
                         "library_ms": None, "bound_ms": b_ms,
                         "bound_by": b_by})
+            if sr:
+                row.update({
+                    "two_pass_ms": device_ms(
+                        torch, lambda: qm._cols_two_pass(x, act, 1000 + i),
+                        10),
+                    "instructions_per_value": instr[gelu]["per_value"],
+                    "instruction_floor_ms": instruction_floor_ms(
+                        torch, instr[gelu]["per_value"], R * C, clock)})
             rows.append(row)
             del x
         result = {"phase": "kernels", "name": name, "cases": rows}
         if sr:
             result["unbiased"] = sr_unbiased_gelu(torch, gen)
+            result["routes"] = sr_routes_check(torch, gen)
+            result["sass"] = {"clock_mhz": clock / 1e6,
+                              "bf16": instr[False], "bf16_gelu": instr[True]}
         emit(result)
         out[name] = rows
     return out
@@ -1055,13 +1317,13 @@ def kernel_wrappers() -> dict:
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                       flash_attention_fwd)
-    from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
-                                                  fused_adamw_update8)
+    from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update8,
+                                                  fused_adamw_update_leaves)
     from paddle_tpu_torch.ops import batch_norm as bn
     from paddle_tpu_torch.ops.int4_matmul import int4_matmul
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "fused_adamw": fused_adamw_update,
+            "fused_adamw": fused_adamw_update_leaves,
             "quantize_rows": qm.quantize_rows,
             "quantize_cols": qm.quantize_cols,
             "sr_quantize_colwise": qm.sr_quantize_colwise,
@@ -1744,8 +2006,9 @@ def train_batch(np):
 def expected_launches(tr) -> dict:
     """Kernel launches per training step of ``tr`` at its current tier,
     counted from the code: one flash forward and backward per layer; one
-    AdamW launch per leaf (int8-moment leaves, moment8, on their own
-    kernel); per layer and int8 site (qkv, ffn1, ffn2):
+    int8-moment AdamW launch per leaf with int8 moments (moment8) and one
+    AdamW launch for all the other leaves; per layer and int8 site (qkv,
+    ffn1, ffn2):
     - quant8="wgrad": forward a row quantize of the activation (row 10
       with LayerNorm fused at the qkv / ffn1 site) and a column quantize
       of w; dgrad row quantizes of g and w; wgrad SR column quantizes of
@@ -1760,9 +2023,14 @@ def expected_launches(tr) -> dict:
     other)."""
     L = tr.cfg.num_layers
     n8 = sum(isinstance(m, tuple) for m in tr.opt_state["m"])
+    # row 14: one launch for each (p, g, m/v) dtype combination of the
+    # leaves without int8 moments (the gradient has p's dtype)
+    groups = {(p.dtype, m.dtype) for p, m in zip(tr._leaves,
+                                                 tr.opt_state["m"])
+              if not isinstance(m, tuple)}
     n = dict.fromkeys(kernel_wrappers(), 0)
     n.update(flash_attention_fwd=L, flash_attention_bwd=L,
-             fused_adamw=4 + 12 * L - n8, fused_adamw8=n8)
+             fused_adamw=len(groups), fused_adamw8=n8)
     if tr.quant8:
         fused = sum(tr.fuse_ln_quant in (True, site)
                     for site in ("qkv", "ffn1")) * (tr.quant8 == "wgrad")
@@ -1885,13 +2153,16 @@ PROFILE_PARTS = {
     "flash_fwd_ms": ("flash_fwd_wgmma_kernel",),
     "flash_bwd_ms": ("flash_bwd_dkdv_wgmma_kernel",
                      "flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel"),
-    "adamw_ms": ("adamw_kernel<",),
+    "adamw_ms": ("adamw_leaves_kernel",),
     "adamw8_ms": ("adamw8_kernel",),
     # rows 10 and 11: the row kernel with LayerNorm, and the column pair
     # with the LayerNorm prologue (template argument kLn = 2)
     "ln_quantize_ms": ("rowq_ln_kernel", "_kernel<__nv_bfloat16, 2"),
-    "quantize_ms": ("rowq_kernel", "col_amax_kernel", "col_cast_kernel"),
+    "quantize_ms": ("rowq_kernel", "col_amax_kernel", "col_cast_kernel",
+                    "col_sr_cluster_kernel"),
 }
+# of quantize_ms, row 12's one-read kernel alone
+ROW12_NAMES = ("col_sr_cluster_kernel",)
 GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "sm80_")
 INT8_NAMES = ("i8", "s8", "imma", "int8", "integer")
 
@@ -1915,6 +2186,10 @@ def phase_train_profile(torch, np, tr, name: str):
             part = "int8_gemm_ms" if any(n in low for n in INT8_NAMES) \
                 else "bf16_gemm_ms"
         parts[part or "other_ms"] += v
+    parts["row12_ms"] = sum(v for k, v in ms.items()
+                            if any(n in k for n in ROW12_NAMES))
+    parts["launches"] = {e.key[:100]: e.count for e in ev if any(
+        n in e.key for n in PROFILE_PARTS["adamw_ms"] + ROW12_NAMES)}
     emit({"phase": name, "wall_ms": wall * 1e3, "device_ms": dev,
           "device_busy_share": dev / (wall * 1e3), **parts,
           "top_kernels_ms": [(k[:100], v) for k, v in list(ms.items())[:14]]})
@@ -2616,7 +2891,7 @@ def main() -> int:
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)
     phase_kernels_attn(torch, F)
-    adamw_rows = phase_kernels_adamw(torch)
+    adamw_rows, adamw_list = phase_kernels_adamw(torch)
     quant_rows = phase_kernels_quant(torch)
     quant_rows.update(phase_kernels_ln(torch))
     phase_int_mm(torch)
@@ -2660,7 +2935,8 @@ def main() -> int:
     phase_infer_resnet(torch, np)
     phase_train_check_resnet(torch, np)
 
-    def entry(kernel, source, replaces, rows, main, path="train-flagship"):
+    def entry(kernel, source, replaces, rows, main, path="train-flagship",
+              **extra):
         return {"name": kernel, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
                 "replaces": replaces,
@@ -2671,7 +2947,7 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"]}
+                "library_ms": main["library_ms"], **extra}
 
     def largest(rows):
         return max(rows, key=lambda r: (r["shape"][0] * r["shape"][1],
@@ -2685,9 +2961,14 @@ def main() -> int:
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               "paddle_tpu/ops/pallas_ops.py:277,304,585,612", bwd_rows,
               next(r for r in bwd_rows if r["packed"])),
+        # the bf16 step's one launch over its 292 leaves; a flagship
+        # step's launch takes its 194 small leaves
         entry("fused_adamw", "fused_adamw.cu",
-              "paddle_tpu/ops/fused_adamw.py:281", adamw_rows,
-              adamw_rows[0]),
+              "paddle_tpu/ops/fused_adamw.py:281", adamw_rows + [adamw_list],
+              adamw_list, "train", ms_by_path={
+                  "train": adamw_list["ms"],
+                  "train-flagship": adamw_list["flagship_ms"],
+                  "train-flagship-ln": adamw_list["flagship_ms"]}),
         entry("quantize_rows", "quantize.cu",
               "paddle_tpu/ops/quant_matmul.py:114", quant_rows[
                   "quantize_rows"], largest(quant_rows["quantize_rows"])),

@@ -17,6 +17,16 @@
 
 namespace ptt {
 
+// (hi, lo) of the 64-bit product a * b: one IMAD.WIDE.U32 (nvcc was
+// seen to emit a second, low-word IMAD for the same product written in
+// C++).
+__device__ __forceinline__ void mulhilo(uint32_t a, uint32_t b,
+                                        uint32_t& hi, uint32_t& lo) {
+  asm("{\n.reg .u64 t;\nmul.wide.u32 t, %2, %3;\nmov.b64 {%1, %0}, t;\n}"
+      : "=r"(hi), "=r"(lo)
+      : "r"(a), "r"(b));
+}
+
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
   constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
@@ -27,8 +37,9 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
       k0 += kW0;
       k1 += kW1;
     }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    uint32_t hi0, lo0, hi1, lo1;
+    mulhilo(kM0, c.x, hi0, lo0);
+    mulhilo(kM1, c.z, hi1, lo1);
     c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
   }
   return c;

@@ -10,8 +10,8 @@ attention straight off the packed ``[B, T, 3*H*D]`` projection, the
 output projection, a tanh-gelu FFN), a final LayerNorm, the fused
 vocab-chunked cross-entropy against the tied embedding, then AdamW:
 a global-norm clip in f32, bias corrections, an optional lr schedule,
-and the fused AdamW kernel on every leaf (bf16 masters take exact
-stochastic rounding).
+and the fused AdamW kernel on every leaf, one launch for all of them
+(bf16 masters take exact stochastic rounding).
 
 Parameters keep the reference's pytree: a dict with ``wte [V, D]``,
 ``wpe [T, D]``, ``ln_f_g``/``ln_f_b`` and ``blocks`` of per-layer dicts
@@ -49,7 +49,8 @@ The int8 switches of the reference trainer are ported:
 - ``moment8=True``: the leaves ``moment8_eligible`` picks keep m and
   sqrt(v) as int8 codes with per-row scales (``(q, scale)`` pairs in
   ``opt_state``, :641) and take the int8-moment AdamW kernel; the
-  others keep ``moment_dtype`` moments and the AdamW kernel (:1322).
+  others keep ``moment_dtype`` moments and the AdamW kernel, all of
+  them in one launch (:1322).
 - ``remat="save_main"`` (:1021) with ``quant8="wgrad"``: per layer the
   backward keeps the block input, ``qkv_out``, the flash out and lse,
   and ``ffn1_out`` (and a fused site's row statistics), and recomputes
@@ -79,7 +80,7 @@ from torch.nn import functional as TF
 from .._device import resolve_device, resolve_dtype
 from ..ops.flash_attention import (flash_attention_qkv_fused,
                                    flash_qkv_packed_bwd, flash_qkv_packed_fwd)
-from ..ops.fused_adamw import (fused_adamw_update, fused_adamw_update8,
+from ..ops.fused_adamw import (AdamWLeaves, fused_adamw_update8,
                                moment8_eligible, moment8_init)
 from ..ops.fused_ce import fused_softmax_cross_entropy
 from ..ops.layer_norm import layer_norm, ln_bwd, ln_fwd
@@ -406,6 +407,7 @@ class GPTTrainer:
         for p in self._leaves:
             p.requires_grad_(True)
         self.opt_state = {"step": 0, "m": [], "v": []}
+        self._row14 = None         # AdamWLeaves of the leaves without int8
         for p in self._leaves:
             if self.moment8 and moment8_eligible(p):
                 mq, msc, vq, vsc = moment8_init(p)
@@ -528,6 +530,7 @@ class GPTTrainer:
                             device=self.device).reshape(())])
         hp = dict(lr=self.lr, wd=self.wd, b1=b1, b2=b2, eps=1e-8,
                   stoch_round=self._stoch_round, seed=step)
+        rest = []                  # (p, g, m, v, leaf_id): one launch
         with torch.no_grad():
             for i, (p, g, m, v) in enumerate(zip(
                     self._leaves, grads, self.opt_state["m"],
@@ -536,7 +539,14 @@ class GPTTrainer:
                     fused_adamw_update8(p, g, *m, *v, scalars, leaf_id=i,
                                         **hp)
                 else:
-                    fused_adamw_update(p, g, m, v, scalars, leaf_id=i, **hp)
+                    rest.append((p, g, m, v, i))
+            if rest:
+                ps, gs, ms, vs, ids = map(list, zip(*rest))
+                # the leaf table of p, m, v is laid out once, and again
+                # only when opt_state's moments are replaced
+                if self._row14 is None or not self._row14.holds(ps, ms, vs):
+                    self._row14 = AdamWLeaves(ps, ms, vs, ids)
+                self._row14.update(gs, scalars, **hp)
         self.opt_state["step"] = step
 
     # -- public step -------------------------------------------------------

@@ -18,6 +18,14 @@ bits, and the same f32 operations in the same order as the kernel
 (which rounds each one explicitly), so on the card kernel and plain
 agree bit for bit.
 
+``fused_adamw_update_leaves`` updates a list of leaves (each with its
+own ``leaf_id``) in one kernel launch per combination of p, g and m/v
+dtypes: the GPT trainer's bf16 recipe is one launch a step. Each leaf
+gets exactly the bits ``fused_adamw_update`` gives it alone, which is
+that launch with a list of one. ``AdamWLeaves`` is the same launch for
+a caller that updates the same leaves every step (the GPT trainer): it
+lays out their part of the kernel's leaf table once.
+
 ``fused_adamw_update8`` is the int8-moment variant (``fused_adamw.py``
 :203, the Pallas kernel ``_kernel8`` :115; ``csrc/fused_adamw8.cu``):
 m and sqrt(v) stored as int8 codes with per-row f32 scales, dequantized,
@@ -29,22 +37,26 @@ m, 2 for sqrt(v). ``moment8_eligible``, ``moment8_init`` and
 ``moment8_unpack`` are the reference's (:173, :182, :192), so the
 leaves with int8 moments and their state are the same in both packages.
 
-``fused_adamw_update.launches`` and ``fused_adamw_update8.launches``
-count kernel launches.
+``fused_adamw_update_leaves.launches`` (row 14's kernel, whichever
+entry called it) and ``fused_adamw_update8.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["INV127", "fused_adamw_update", "fused_adamw_update8",
-           "fused_adamw_update8_plain", "fused_adamw_update_plain",
-           "moment8_eligible", "moment8_init", "moment8_unpack",
-           "philox_words", "stochastic_round_bf16", "uniform01"]
+__all__ = ["INV127", "AdamWLeaves", "fused_adamw_update",
+           "fused_adamw_update8", "fused_adamw_update8_plain",
+           "fused_adamw_update_leaves",
+           "fused_adamw_update_plain", "moment8_eligible",
+           "moment8_init", "moment8_unpack", "philox_words",
+           "stochastic_round_bf16", "uniform01"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = 0xFFFFFFFF
@@ -138,7 +150,7 @@ def fused_adamw_update_plain(p, g, m, v, scalars, *, lr: float, wd: float,
     return p, m, v
 
 
-def _check_cuda(p, g, m, v, scalars, stoch_round):
+def _check_leaf(p, g, m, v, stoch_round, device):
     ok = (p.dtype in _DTYPES and g.dtype in _DTYPES and m.dtype in _DTYPES
           and v.dtype == m.dtype and g.shape == p.shape
           and m.shape == p.shape and v.shape == p.shape)
@@ -152,45 +164,181 @@ def _check_cuda(p, g, m, v, scalars, stoch_round):
         raise ValueError("stochastic rounding writes a bfloat16 p; got "
                          f"{p.dtype}")
     for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
-        if not t.is_contiguous() or t.device != p.device:
+        if not t.is_contiguous() or t.device != device:
             raise ValueError(f"fused_adamw kernel needs {name} contiguous "
-                             f"on {p.device}")
-    if scalars.dtype != torch.float32 or scalars.numel() != 4 \
-            or scalars.device != p.device or not scalars.is_contiguous():
-        raise ValueError("scalars must be 4 contiguous float32 values on "
-                         "p's device")
+                             f"on {device}")
 
 
 def _bind(lib):
-    fn = lib.ptt_fused_adamw
+    fn = lib.ptt_fused_adamw_leaves
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i,
-                       f, f, f, f, f, f, f, ctypes.c_uint, i, vp]
+        fn.argtypes = [vp, i, ctypes.c_longlong, vp, i, i, i,
+                       f, f, f, f, f, f, f, i, vp]
         fn.restype = i
+        lib.ptt_fused_adamw_chunk.argtypes = []
+        lib.ptt_fused_adamw_chunk.restype = ctypes.c_longlong
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
     return fn
 
 
-def _adamw_cuda(p, g, m, v, scalars, lr, wd, b1, b2, eps, stoch_round,
-                leaf_id, seed):
-    _check_cuda(p, g, m, v, scalars, stoch_round)
-    lib = _build.load("fused_adamw")
-    fn = _bind(lib)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                 scalars.data_ptr(), p.numel(), _DTYPES[p.dtype],
-                 _DTYPES[g.dtype], _DTYPES[m.dtype], lr, wd, b1, 1 - b1,
-                 b2, 1 - b2, eps, _key(seed, leaf_id), int(stoch_round),
-                 stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_adamw kernel launch failed: CUDA error {err} "
-            f"({lib.ptt_cuda_error_string(err).decode()})")
-    fused_adamw_update.launches += 1
-    return p, m, v
+class AdamWLeaves:
+    """Row 14 for a fixed list of leaves ``(ps[i], ms[i], vs[i])`` with
+    SR streams ``leaf_ids[i]``: p, m and v are checked, and their part
+    of the kernel's leaf table laid out, once. Each ``update(gs,
+    scalars, **hp)`` checks the gradients, writes their addresses and
+    the step's Philox keys into the table and launches, exactly as
+    ``fused_adamw_update_leaves`` (which builds one a call) does. The
+    table holds the addresses of p, m and v: keep them (update in place)
+    while it is in use; ``holds`` says whether it was built for given
+    tensors. On the CPU ``update`` runs the plain version leaf by leaf.
+
+    The leaf table (``csrc/fused_adamw.cu``), int64 words: ``begin[0..L]``
+    (each leaf's first chunk; ``begin[L]`` is the grid), then 8 words a
+    leaf: the p, g, m, v addresses, the element count, the Philox key,
+    two zeros; one table and one launch for each combination of p, g and
+    m/v dtypes, with the leaves of no elements left out."""
+
+    def __init__(self, ps, ms, vs, leaf_ids):
+        lists = (ps, ms, vs, leaf_ids)
+        if len({len(t) for t in lists}) != 1:
+            raise ValueError(f"AdamWLeaves takes lists of one length; got "
+                             f"{[len(t) for t in lists]}")
+        self._ps, self._ms, self._vs = list(ps), list(ms), list(vs)
+        self._ids = [int(i) for i in leaf_ids]
+        devices = {t.device.type for t in (*ps, *ms, *vs)}
+        if len(devices) > 1 or not devices <= {"cpu", "cuda"}:
+            raise ValueError(f"AdamWLeaves takes tensors all on the CPU or "
+                             f"all on CUDA; got {sorted(devices)}")
+        self._cuda = devices == {"cuda"}
+        if not self._cuda:
+            return
+        self._device = ps[0].device
+        for p, m, v in zip(ps, ms, vs):
+            _check_leaf(p, p, m, v, False, self._device)
+        self._live = [i for i, p in enumerate(ps) if p.numel()]
+        live = [(ps[i], ms[i], vs[i]) for i in self._live]
+        self._shapes = [p.shape for p, _, _ in live]
+        self._sizes = np.array([p.numel() for p, _, _ in live], np.int64)
+        self._entries = np.zeros((len(live), 8), dtype=np.int64)
+        if live:
+            self._entries[:, [0, 2, 3]] = [[t.data_ptr() for t in leaf]
+                                           for leaf in live]
+        self._entries[:, 4] = self._sizes
+        self._leaf_ids = np.array([self._ids[i] for i in self._live],
+                                  np.int64)
+        # dtype combination: 4 * p + 2 * g + m/v (g's added per update)
+        self._pm = np.array([4 * _DTYPES[p.dtype] + _DTYPES[m.dtype]
+                             for p, m, _ in live], np.int64)
+        self._f32_p = any(p.dtype != torch.bfloat16 for p, _, _ in live)
+
+    def holds(self, ps, ms, vs) -> bool:
+        """Whether this table was built for these very tensors."""
+        return all(len(a) == len(b) and all(map(operator.is_, a, b))
+                   for a, b in ((ps, self._ps), (ms, self._ms),
+                                (vs, self._vs)))
+
+    def update(self, gs, scalars, *, lr: float, wd: float, b1: float,
+               b2: float, eps: float = 1e-8, stoch_round: bool = False,
+               seed: int = 0) -> None:
+        """One AdamW step of every leaf with gradients ``gs`` (in the
+        leaves' order); ``scalars`` as for ``fused_adamw_update_leaves``."""
+        if len(gs) != len(self._ps):
+            raise ValueError(f"AdamWLeaves holds {len(self._ps)} leaves; "
+                             f"got {len(gs)} gradients")
+        if not gs:
+            return
+        args = dict(lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
+                    stoch_round=stoch_round, seed=seed)
+        if self._cuda:
+            self._update_cuda(gs, scalars, **args)
+            return
+        devices = {t.device.type for t in (*gs, scalars)}
+        if devices != {"cpu"}:
+            raise ValueError(f"fused_adamw takes tensors all on the CPU or "
+                             f"all on CUDA; got {sorted(devices | {'cpu'})}")
+        for p, g, m, v, leaf_id in zip(self._ps, gs, self._ms, self._vs,
+                                       self._ids):
+            fused_adamw_update_plain(p, g, m, v, scalars, leaf_id=leaf_id,
+                                     **args)
+
+    def _update_cuda(self, gs, scalars, lr, wd, b1, b2, eps, stoch_round,
+                     seed):
+        device = self._device
+        if scalars.dtype != torch.float32 or scalars.numel() != 4 \
+                or scalars.device != device or not scalars.is_contiguous():
+            raise ValueError("scalars must be 4 contiguous float32 values "
+                             "on p's device")
+        if stoch_round and self._f32_p:
+            raise ValueError("stochastic rounding writes a bfloat16 p; got "
+                             "a float32 p")
+        live = [gs[i] for i in self._live]
+        g_codes = [_DTYPES.get(g.dtype, -1) for g in live]
+        if -1 in g_codes or [g.shape for g in live] != self._shapes or \
+                not all(g.is_contiguous() and g.device == device
+                        for g in live):
+            for leaf in zip(self._ps, gs, self._ms, self._vs):
+                _check_leaf(*leaf, stoch_round, device)
+            raise ValueError("fused_adamw: a leaf's shape changed since "
+                             "its AdamWLeaves was built")
+        if not live:
+            return
+        entries = self._entries.copy()
+        entries[:, 1] = [g.data_ptr() for g in live]
+        entries[:, 5] = ((int(seed) & _MASK) + self._leaf_ids * 1000003) \
+            & _MASK
+        combos = self._pm + 2 * np.array(g_codes, np.int64)
+        lib = _build.load("fused_adamw")
+        fn = _bind(lib)
+        chunk = lib.ptt_fused_adamw_chunk()
+        chunks = (self._sizes + chunk - 1) // chunk
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for combo in np.unique(combos):
+                rows = np.flatnonzero(combos == combo)
+                begin = np.zeros(len(rows) + 1, dtype=np.int64)
+                np.cumsum(chunks[rows], out=begin[1:])
+                host = np.concatenate([begin, entries[rows].reshape(-1)])
+                # pinned, so the copy is asynchronous; the caching host
+                # allocator keeps the buffer until the copy has run
+                table = torch.from_numpy(host).pin_memory().to(
+                    device, non_blocking=True)
+                err = fn(table.data_ptr(), len(rows), int(begin[-1]),
+                         scalars.data_ptr(), int(combo) >> 2,
+                         (int(combo) >> 1) & 1, int(combo) & 1, lr, wd, b1,
+                         1 - b1, b2, 1 - b2, eps, int(stoch_round), stream)
+                if err != 0:
+                    raise RuntimeError(
+                        f"fused_adamw kernel launch failed: CUDA error "
+                        f"{err} ({lib.ptt_cuda_error_string(err).decode()})")
+                fused_adamw_update_leaves.launches += 1
+
+
+def fused_adamw_update_leaves(ps, gs, ms, vs, scalars, leaf_ids, *,
+                              lr: float, wd: float, b1: float, b2: float,
+                              eps: float = 1e-8, stoch_round: bool = False,
+                              seed: int = 0) -> None:
+    """One-pass AdamW on a list of leaves, in place: leaf ``i`` is
+    ``(ps[i], gs[i], ms[i], vs[i])`` with SR stream ``leaf_ids[i]``, each
+    updated exactly as ``fused_adamw_update`` would update it alone.
+
+    ``scalars``: f32 tensor ``[clip scale, 1/(1-b1^t), 1/(1-b2^t), lr
+    multiplier]`` on the leaves' device, shared by every leaf. CPU
+    tensors take the plain version leaf by leaf; CUDA tensors one kernel
+    launch for each combination of p, g and m/v dtypes in the list. A
+    caller that updates the same leaves every step keeps an
+    ``AdamWLeaves`` instead, which lays out their table once."""
+    if len({len(t) for t in (ps, gs, ms, vs, leaf_ids)}) != 1:
+        raise ValueError(f"fused_adamw_update_leaves takes lists of one "
+                         f"length; got {[len(t) for t in (ps, gs, ms, vs)]}"
+                         f" and {len(leaf_ids)} leaf ids")
+    AdamWLeaves(ps, ms, vs, leaf_ids).update(
+        gs, scalars, lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
+        stoch_round=stoch_round, seed=seed)
+
+
+fused_adamw_update_leaves.launches = 0
 
 
 def fused_adamw_update(p, g, m, v, scalars, *, lr: float, wd: float,
@@ -202,19 +350,12 @@ def fused_adamw_update(p, g, m, v, scalars, *, lr: float, wd: float,
     ``scalars``: f32 tensor ``[clip scale, 1/(1-b1^t), 1/(1-b2^t), lr
     multiplier]`` on ``p``'s device (no host sync). ``seed`` (the step)
     and ``leaf_id`` pick the SR stream. CPU tensors take the plain
-    version, CUDA tensors the kernel."""
-    args = dict(lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
-                stoch_round=stoch_round, leaf_id=leaf_id, seed=seed)
-    devices = {t.device.type for t in (p, g, m, v, scalars)}
-    if devices == {"cpu"}:
-        return fused_adamw_update_plain(p, g, m, v, scalars, **args)
-    if devices == {"cuda"}:
-        return _adamw_cuda(p, g, m, v, scalars, **args)
-    raise ValueError(f"fused_adamw_update takes tensors all on the CPU or "
-                     f"all on CUDA; got {sorted(devices)}")
-
-
-fused_adamw_update.launches = 0
+    version, CUDA tensors the kernel (``fused_adamw_update_leaves`` with
+    a list of one)."""
+    fused_adamw_update_leaves([p], [g], [m], [v], scalars, [leaf_id], lr=lr,
+                              wd=wd, b1=b1, b2=b2, eps=eps,
+                              stoch_round=stoch_round, seed=seed)
+    return p, m, v
 
 
 # -- int8 moments ------------------------------------------------------------

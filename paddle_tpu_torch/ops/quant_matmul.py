@@ -18,7 +18,11 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   ``floor(x / scale + u)``. The TPU's ``prng_random_bits`` becomes
   Philox4x32-10 keyed by ``(seed mod 2**32, 1)`` with the flat
   row-major element index as the counter (``ops/fused_adamw.py:
-  philox_words``), so the noise depends on (seed, element) only;
+  philox_words``), so the noise depends on (seed, element) only. On
+  the card it is one launch that reads x once (a thread-block cluster a
+  32-column strip, all rows in its blocks' shared memory) up to
+  ``sr_cols_one_read_max_rows`` rows; a taller x takes the two-pass
+  pair rows 9 and 11 run, picked from the shape before the launch;
 - the LayerNorm-fused quantizes: ``ln_quantize_rowwise`` (:239, the
   kernel of ``_rowq_ln_call`` :215, row 10: LayerNorm and row 8's RTN
   in one read of the pre-LN x, also returning the rows' mean and
@@ -88,8 +92,8 @@ __all__ = ["int8_dgrad", "int8_dot_dequant", "int8_gelu_linear_all8",
            "quantize_rows_plain", "quantize_rowwise",
            "quantize_rowwise_fast", "site_seed", "sr_quantize_colwise",
            "sr_quantize_colwise_ln", "sr_quantize_colwise_ln_plain",
-           "sr_quantize_colwise_plain", "step_seed", "wgrad_seeds",
-           "wrap_int32"]
+           "sr_quantize_colwise_plain", "sr_cols_one_read_max_rows",
+           "step_seed", "wgrad_seeds", "wrap_int32"]
 
 _MASK = 0xFFFFFFFF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -267,6 +271,11 @@ def _lib():
         lib.ptt_quantize_rows_ln.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll,
                                              i, i, vp]
         lib.ptt_quantize_rows_ln.restype = i
+        lib.ptt_sr_quantize_cols_one_read.argtypes = [vp, vp, vp, ll, i, i,
+                                                      i, ctypes.c_uint, vp]
+        lib.ptt_sr_quantize_cols_one_read.restype = i
+        lib.ptt_sr_cols_one_read_max_rows.argtypes = [i, i]
+        lib.ptt_sr_cols_one_read_max_rows.restype = i
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -340,15 +349,41 @@ def _rows_ln_cuda(x2, g, b):
     return q, scale, mean, rstd
 
 
-def _cols_cuda(x2, act, seed, ln=()):
-    """Rows 9 and 12, or row 11 when ``ln`` holds (mean, rstd, g, b)."""
-    what = "quantize_cols" if seed is None else \
+def sr_cols_one_read_max_rows(dtype, act=None) -> int:
+    """The most rows ``sr_quantize_colwise`` takes in one read of x on
+    the card for ``dtype`` and ``act`` (``csrc/quantize.cu``: a cluster
+    of at most 16 blocks, each at most half an SM's shared memory, holds
+    a 32-column strip of all rows: x, and act(x) in f32 with gelu);
+    more rows take the two-pass pair."""
+    return _lib().ptt_sr_cols_one_read_max_rows(_DTYPES[dtype], _ACTS[act])
+
+
+def _cols_name(seed, ln) -> str:
+    return "quantize_cols" if seed is None else \
         "sr_quantize_colwise_ln" if ln else "sr_quantize_colwise"
+
+
+def _cols_cuda(x2, act, seed, ln=()):
+    """Rows 9 and 12, or row 11 when ``ln`` holds (mean, rstd, g, b).
+    Row 12 takes the one-read cluster kernel when R fits it (by shape,
+    before any launch), else the two-pass pair rows 9 and 11 run."""
+    what = _cols_name(seed, ln)
     _check_cuda(what, x2)
     R, C = x2.shape
     if R % 16:
         raise ValueError(f"{what} kernel writes the codes column-major in "
                          f"16-row pieces: rows % 16 == 0; got {R}")
+    if seed is not None and not ln and \
+            R <= sr_cols_one_read_max_rows(x2.dtype, act):
+        return _sr_cols_one_read(x2, act, seed)
+    return _cols_two_pass(x2, act, seed, ln)
+
+
+def _cols_two_pass(x2, act, seed, ln=()):
+    """The two-pass pair (an amax pass, then the cast) on a checked
+    ``x2``: rows 9 and 11, and row 12 past the one-read limit."""
+    what = _cols_name(seed, ln)
+    R, C = x2.shape
     if ln:
         ln = [_f32_vector(what, name, t, n, x2.device) for name, t, n in
               zip(("mean", "rstd", "g", "b"), ln, (R, R, C, C))]
@@ -364,6 +399,19 @@ def _cols_cuda(x2, act, seed, ln=()):
             int(seed is not None), 0 if seed is None else int(seed) & _MASK,
             *ln_ptrs, _stream(x2))
     _raise_on(err, lib, what)
+    return qt.t(), scale
+
+
+def _sr_cols_one_read(x2, act, seed):
+    R, C = x2.shape
+    qt = torch.empty((C, R), dtype=torch.int8, device=x2.device)
+    scale = torch.empty((1, C), dtype=torch.float32, device=x2.device)
+    lib = _lib()
+    with torch.cuda.device(x2.device):
+        err = lib.ptt_sr_quantize_cols_one_read(
+            x2.data_ptr(), qt.data_ptr(), scale.data_ptr(), R, C,
+            _DTYPES[x2.dtype], _ACTS[act], int(seed) & _MASK, _stream(x2))
+    _raise_on(err, lib, "sr_quantize_colwise")
     return qt.t(), scale
 
 

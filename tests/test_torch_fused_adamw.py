@@ -12,14 +12,21 @@ bf16 ulp. The SR stream (Philox4x32-10) is held to its published
 known-answer vector, and SR itself to its laws: each output is one of
 the two bf16 neighbours of the f32 update, the mean is unbiased, the
 streams of different (step, leaf) pairs differ, and inf/nan are kept.
-On the card (tests marked ``cuda``) the kernel is held to the plain
-version bit for bit, SR included.
+The list entry ``fused_adamw_update_leaves`` is held to the per-leaf
+plain version bit for bit, SR on, on mixed shapes and in any list
+order, and so is an ``AdamWLeaves`` table kept over steps with new
+gradients each step. On the card (tests marked ``cuda``) the kernel is held to the
+plain version bit for bit, SR included: one leaf, every dtype
+combination of a list with odd lengths and a misaligned view, and 300
+leaves in one launch.
 """
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
+from paddle_tpu_torch.ops.fused_adamw import (AdamWLeaves,
+                                              fused_adamw_update,
+                                              fused_adamw_update_leaves,
                                               fused_adamw_update_plain,
                                               philox_words,
                                               stochastic_round_bf16)
@@ -56,9 +63,9 @@ def _scalars(scale=0.5, step=STEP, lr_mult=1.0):
 def _port(p, g, m, v, sc, dtype, **kw):
     p, g, m, v = (torch.from_numpy(a.copy()) for a in (p, g, m, v))
     m, v = m.to(dtype), v.to(dtype)
-    before = fused_adamw_update.launches
+    before = fused_adamw_update_leaves.launches
     out = fused_adamw_update(p, g, m, v, torch.from_numpy(sc), **HP, **kw)
-    assert fused_adamw_update.launches == before    # CPU: plain version
+    assert fused_adamw_update_leaves.launches == before  # CPU: plain
     return [t.float().numpy() for t in out]
 
 
@@ -164,6 +171,94 @@ def test_sr_keeps_inf_and_nan():
     assert out[3].item() == 1.0     # an exact bf16 value stays exact
 
 
+# mixed shapes (an odd length, a 1-element leaf) and leaf ids out of order
+LEAF_SHAPES = [(64, 48), (257,), (3, 5, 7), (1,), (1000,)]
+LEAF_IDS = [11, 3, 290, 0, 57]
+
+
+def _leaves(device, p_dtype=torch.bfloat16, g_dtype=torch.bfloat16,
+            mv_dtype=torch.bfloat16, shapes=LEAF_SHAPES, seed=5):
+    out = []
+    for i, shape in enumerate(shapes):
+        p, g, m, v = (torch.from_numpy(a) for a in _state(shape, seed + i))
+        out.append((p.to(device, p_dtype), g.to(device, g_dtype),
+                    m.to(device, mv_dtype), v.to(device, mv_dtype)))
+    return out
+
+
+def _per_leaf_plain(leaves, ids, sc, kw):
+    return [fused_adamw_update_plain(p.clone(), g, m.clone(), v.clone(),
+                                     sc, leaf_id=i, **kw)
+            for (p, g, m, v), i in zip(leaves, ids)]
+
+
+def _list_update(leaves, ids, sc, kw):
+    """``fused_adamw_update_leaves`` on copies of ``leaves``; returns
+    each leaf's (p, m, v)."""
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    ps, ms, vs = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    fused_adamw_update_leaves(ps, gs, ms, vs, sc, ids, **kw)
+    return list(zip(ps, ms, vs))
+
+
+def test_leaves_entry_equals_per_leaf_plain_in_any_order():
+    leaves = _leaves("cpu")
+    sc = torch.from_numpy(_scalars())
+    kw = dict(HP, stoch_round=True, seed=STEP)
+    want = _per_leaf_plain(leaves, LEAF_IDS, sc, kw)
+    before = fused_adamw_update_leaves.launches
+    got = _list_update(leaves, LEAF_IDS, sc, kw)
+    order = [3, 0, 4, 2, 1]         # the keys follow leaf_id, not position
+    shuffled = _list_update([leaves[k] for k in order],
+                            [LEAF_IDS[k] for k in order], sc, kw)
+    assert fused_adamw_update_leaves.launches == before   # CPU: plain
+    for k, (a, b) in enumerate(zip(got, want)):
+        for x, y, z in zip(a, b, shuffled[order.index(k)]):
+            assert torch.equal(x, y) and torch.equal(x, z)
+    # another leaf_id draws another stream
+    other = _list_update(leaves[:1], [12], sc, kw)[0][0]
+    assert not torch.equal(other, got[0][0])
+    with pytest.raises(ValueError, match="one length"):
+        fused_adamw_update_leaves([leaves[0][0]], [], [], [], sc, [0], **kw)
+
+
+def _kept_table_steps(leaves, ids, sc, kw, steps=2):
+    """An ``AdamWLeaves`` kept over ``steps`` steps (fresh gradients and
+    seed each step) against the per-leaf plain version on copies; returns
+    (kept, plain) leaves' (p, m, v) and the launches the table made."""
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    kept = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    plain = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    table = AdamWLeaves(*kept, ids)
+    assert table.holds(*kept) and not table.holds(*plain)
+    before = fused_adamw_update_leaves.launches
+    for step in range(steps):
+        grads = [g * (1 + step) for g in gs]
+        args = dict(kw, seed=kw["seed"] + step)
+        table.update(grads, sc, **args)
+        for p, m, v, g, i in zip(*plain, grads, ids):
+            fused_adamw_update_plain(p, g, m, v, sc, leaf_id=i, **args)
+    return (list(zip(*kept)), list(zip(*plain)),
+            fused_adamw_update_leaves.launches - before)
+
+
+def test_kept_table_equals_per_leaf_plain_over_steps():
+    sc = torch.from_numpy(_scalars())
+    kw = dict(HP, stoch_round=True, seed=STEP)
+    kept, plain, launches = _kept_table_steps(_leaves("cpu"), LEAF_IDS, sc,
+                                              kw)
+    assert launches == 0                                  # CPU: plain
+    for a, b in zip(kept, plain):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    p, _, m, v = _leaves("cpu")[0]
+    table = AdamWLeaves([p], [m], [v], [0])
+    with pytest.raises(ValueError, match="1 leaves; got 2 gradients"):
+        table.update([torch.zeros(1)] * 2, sc, **kw)
+    with pytest.raises(ValueError, match="one length"):
+        AdamWLeaves([torch.zeros(1)], [], [], [0])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -185,9 +280,83 @@ def test_cuda_kernel_matches_plain_bit_for_bit(cuda, p_dtype, mv_dtype, sr):
     kw = dict(HP, stoch_round=sr, leaf_id=5, seed=STEP)
     ref = fused_adamw_update_plain(p.clone(), g, m.clone(), v.clone(), sc,
                                    **kw)
-    before = fused_adamw_update.launches
+    before = fused_adamw_update_leaves.launches
     got = fused_adamw_update(p, g, m, v, sc, **kw)
     torch.cuda.synchronize()
-    assert fused_adamw_update.launches == before + 1
+    assert fused_adamw_update_leaves.launches == before + 1
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def _assert_leaves_equal(got, want):
+    for k, (a, b) in enumerate(zip(got, want)):
+        for name, x, y in zip("pmv", a, b):
+            assert torch.equal(x, y), f"leaf {k}: {name} differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("g_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mv_dtype", ["bfloat16", "float32"])
+def test_cuda_leaves_kernel_matches_plain_bit_for_bit(cuda, p_dtype,
+                                                       g_dtype, mv_dtype):
+    """Every dtype combination: odd lengths, a 1-element leaf and a view
+    whose base is not 16-byte aligned (a flat leaf less its first
+    element) in one launch, SR on where p is bf16."""
+    dts = [getattr(torch, d) for d in (p_dtype, g_dtype, mv_dtype)]
+    leaves = _leaves(cuda, *dts, shapes=LEAF_SHAPES + [(4099,)])
+    leaves[-1] = tuple(t[1:] for t in leaves[-1])      # misaligned view
+    assert all(t.data_ptr() % 16 for t in leaves[-1])
+    ids = LEAF_IDS + [7]
+    sc = torch.from_numpy(_scalars()).to(cuda)
+    kw = dict(HP, stoch_round=p_dtype == "bfloat16", seed=STEP)
+    want = _per_leaf_plain(leaves, ids, sc, kw)
+    before = fused_adamw_update_leaves.launches
+    got = _list_update(leaves, ids, sc, kw)
+    torch.cuda.synchronize()
+    assert fused_adamw_update_leaves.launches == before + 1
+    _assert_leaves_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [1, 300])
+def test_cuda_leaves_kernel_many_leaves_one_launch(cuda, n_leaves):
+    """1 and 300 bf16 leaves of random lengths (1 to 20000; one of
+    70000, several chunks) in one launch; a second dtype group in the
+    list is a second launch."""
+    rng = np.random.RandomState(n_leaves)
+    shapes = [(int(n),) for n in rng.randint(1, 20000, n_leaves)]
+    shapes[n_leaves // 2] = (70000,)
+    leaves = _leaves(cuda, shapes=shapes, seed=9)
+    ids = [int(i) for i in rng.permutation(1000)[:n_leaves]]
+    sc = torch.from_numpy(_scalars()).to(cuda)
+    kw = dict(HP, stoch_round=True, seed=STEP)
+    want = _per_leaf_plain(leaves, ids, sc, kw)
+    before = fused_adamw_update_leaves.launches
+    got = _list_update(leaves, ids, sc, kw)
+    torch.cuda.synchronize()
+    assert fused_adamw_update_leaves.launches == before + 1
+    _assert_leaves_equal(got, want)
+    mixed = leaves[:1] + _leaves(cuda, mv_dtype=torch.float32,
+                                 shapes=[(333,)], seed=10)
+    before = fused_adamw_update_leaves.launches
+    _assert_leaves_equal(_list_update(mixed, [1, 2], sc, kw),
+                         _per_leaf_plain(mixed, [1, 2], sc, kw))
+    assert fused_adamw_update_leaves.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_kept_table_matches_plain_over_steps(cuda):
+    """The trainer's way: an ``AdamWLeaves`` kept over three steps with
+    new gradient tensors each step, two dtype groups (two launches a
+    step) and a misaligned view, bit for bit against the plain version."""
+    leaves = _leaves(cuda, shapes=LEAF_SHAPES + [(4099,)])
+    leaves[-1] = tuple(t[1:] for t in leaves[-1])      # misaligned view
+    leaves += _leaves(cuda, mv_dtype=torch.float32, shapes=[(333,)], seed=10)
+    sc = torch.from_numpy(_scalars()).to(cuda)
+    kw = dict(HP, stoch_round=True, seed=STEP)
+    kept, plain, launches = _kept_table_steps(leaves, LEAF_IDS + [7, 8], sc,
+                                              kw, steps=3)
+    torch.cuda.synchronize()
+    assert launches == 2 * 3
+    _assert_leaves_equal(kept, plain)

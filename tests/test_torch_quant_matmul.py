@@ -284,3 +284,46 @@ def test_cuda_kernels_match_plain_bit_for_bit(cuda, dtype, gelu):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="multiple"):
         qm.quantize_rows(x[:, :-1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("R", [16, 64, 6144])
+@pytest.mark.parametrize("C", [64, 2048])
+def test_cuda_one_read_sr_cols_match_plain_bit_for_bit(cuda, dtype, gelu,
+                                                       R, C):
+    """Row 12's one-read cluster kernel (every R here is within its
+    limit): codes and scales equal the plain version's, an all-zero
+    column included (scale 1/127, codes 0)."""
+    x = torch.from_numpy(_x((R, C), R + C, zero_col=C // 3)).to(
+        cuda, getattr(torch, dtype))
+    act = "gelu" if gelu else None
+    assert R <= qm.sr_cols_one_read_max_rows(x.dtype, act)
+    before = qm.sr_quantize_colwise.launches
+    got = qm.sr_quantize_colwise(x, 1234 + R, act)
+    want = qm.sr_quantize_colwise_plain(x, 1234 + R, act)
+    torch.cuda.synchronize()
+    assert qm.sr_quantize_colwise.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[0][:, C // 3] == 0).all())
+    assert got[1][0, C // 3].item() == np.float32(1 / 127)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,gelu", [("float32", True),
+                                        ("bfloat16", False)])
+def test_cuda_sr_cols_both_routes_at_the_limit(cuda, dtype, gelu):
+    """At the one-read route's row limit and 16 rows past it (the
+    two-pass pair, picked by shape before the launch) the codes and
+    scales equal the plain version's."""
+    act = "gelu" if gelu else None
+    limit = qm.sr_cols_one_read_max_rows(getattr(torch, dtype), act)
+    assert limit % 16 == 0
+    for R in (limit, limit + 16):
+        x = torch.from_numpy(_x((R, 64), 11, zero_col=7)).to(
+            cuda, getattr(torch, dtype))
+        got = qm.sr_quantize_colwise(x, 99, act)
+        want = qm.sr_quantize_colwise_plain(x, 99, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
