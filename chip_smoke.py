@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line and raising on failure (the script
-then exits non-zero and prints no result):
+Phases, each printing one JSON line (with ``t_s``, the seconds since the
+start) and raising on failure (the script then exits non-zero and prints
+no result):
 
 1. device  — the card's name, count and power limit (nvidia-smi).
 2. build   — seconds to build every kernel library from csrc/ with nvcc
              (sm_90a), one nvcc per source, all started together.
    ptxas   — the flash kernels' and row 7's register and spill lines
              as ptxas reported them (-Xptxas -v, kept beside each
-             library), by library.
+             library), by library; rows 8's and 13's kernels' registers,
+             spills and blocks an SM by registers, by kernel.
+   sass    — the SASS instructions a value of rows 8, 12 and 13 on their
+             common paths (cuobjdump), and the card's top SM clock: the
+             instruction floors of the kernel phases.
 3. kernels — every ported kernel against its plain PyTorch version on
              the card, at the shapes the serving and training paths
              give it: the flash forward (serving prefill buckets and the
@@ -34,14 +39,22 @@ then exits non-zero and prints no result):
              Int8Linear's decode path give them (row and column
              round-to-nearest, column stochastic rounding with and
              without gelu: codes and scales bit for bit, the SR laws
-             on the card; row 12 in one read of x beside the two-pass
-             pair on the same input, its instructions a value from its
-             SASS and the compute floor they set, and both of its
-             routes bit for bit at the one-read row limit), the int8
-             GEMM (torch._int_mm, a library call) in the layouts the
-             port hands it beside bf16 matmuls, and the int8-moment
-             AdamW on every int8-moment leaf shape of GPT-1.3B (p, codes
-             and scales bit for bit; timed on 2048x6144 and 50304x2048).
+             on the card; row 8's route, a warp or a block a row, and
+             its instructions a value from its SASS and the compute
+             floor they set; row 12 in one read of x beside the
+             two-pass pair on the same input, its instructions a value
+             and floor likewise, and both of its routes bit for bit at
+             the one-read row limit), the int8 GEMM (torch._int_mm, a
+             library call) in the layouts the port hands it beside bf16
+             matmuls, and the int8-moment AdamW (row 13) on every
+             int8-moment leaf shape of GPT-1.3B (p, codes and scales bit
+             for bit; timed on 2048x6144 and 50304x2048) and, through
+             its list entry in one launch, on the flagship's 98
+             int8-moment leaves (every leaf bit for bit against the
+             per-leaf plain version, timed through a kept AdamW8Leaves
+             table beside the summed bound and the instruction floor
+             from its SASS, with the host ms of a call) and on odd
+             leaves (C = 128, one row, 3-D, C = 16384).
              Kernel, plain and library (a yardstick only) device times
              from torch.profiler's CUDA trace (a trace without device
              time, or short of a whole number of events per call for
@@ -133,14 +146,15 @@ then exits non-zero and prints no result):
              0 just before and read just after, each exactly as
              expected_launches derives it from the code (per step 24
              flash forward, 24 flash backward, 216 row, 72 column and
-             144 SR column quantize, 98 int8-moment AdamW launches and
-             one AdamW launch for the other 194 leaves). Every loss is finite and step 7's is below step
+             144 SR column quantize, one int8-moment AdamW launch for the
+             98 leaves with int8 moments and one AdamW launch for the
+             other 194). Every loss is finite and step 7's is below step
              1's. Step ms, tokens/s, peak device memory.
 8. train-flagship-profile — one step of it under torch.profiler: device
              ms, busy share, top kernels, and device ms by kernel
              family (flash forward and backward, both AdamW kernels,
-             rows 10-11, the other quantize kernels, int8 and bf16
-             GEMMs, the rest).
+             rows 10-11, the other quantize kernels and of them row 8's
+             and row 12's, int8 and bf16 GEMMs, the rest).
 9-10. train-flagship-ln, -profile — the same with fuse_ln_quant=True
              and fuse_bwd_colq=True: per step 168 row, 72 column, 96 SR
              column quantize, 48 row-10 and 48 row-11 launches; its
@@ -199,8 +213,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -245,7 +261,14 @@ NEW_TOKENS = (4, 16, 64, 160)
 TRAIN_B, TRAIN_T, WARMUP, STEPS = 6, 1024, 2, 5
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -393,45 +416,109 @@ def with_rates(row: dict, flops: float) -> dict:
 
 
 SASS_INSTR = re.compile(
-    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def sass_loops(so, kernel: str) -> list:
-    """The loops of the kernel whose mangled name contains ``kernel`` in
-    the library ``so``, from the toolkit's ``cuobjdump -sass``: for each
-    backward branch, the static instructions of its body (NOPs left
-    out) by opcode with its modifiers, largest loop first."""
+@functools.lru_cache(maxsize=None)
+def sass_text(so) -> list:
+    """The toolkit's ``cuobjdump -sass`` of the library ``so``, by line
+    (one run a library: the quantize library's is ~18 MB)."""
     from paddle_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300,
+                          check=True).stdout.splitlines()
+
+
+def sass_function(so, kernel: str) -> list:
+    """(address, predicated, opcode with its modifiers, operands) of each
+    instruction of the kernel whose mangled name contains ``kernel`` in
+    the library ``so``, from its SASS (``sass_text``)."""
     ins, found = [], False
-    for line in text.splitlines():
+    for line in sass_text(so):
         if "Function : " in line:
             if found:
                 break
             found = kernel in line
         elif found and (m := SASS_INSTR.search(line)):
-            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    loops = []
-    for addr, op, args in ins:
-        target = re.search(r"0x([0-9a-f]+)", args)
-        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
-            start = int(target.group(1), 16)
-            body = [o for a, o, _ in ins if start <= a <= addr and o != "NOP"]
-            loops.append({"instructions": len(body),
-                          "ops": dict(collections.Counter(body))})
+            ins.append((int(m.group(1), 16), bool(m.group(2)), m.group(3),
+                        m.group(4)))
     if not ins:
         raise AssertionError(f"no SASS for a kernel named *{kernel}* in "
                              f"{so.name}")
+    return ins
+
+
+def branch_target(args: str):
+    t = re.search(r"0x([0-9a-f]+)", args)
+    return int(t.group(1), 16) if t else None
+
+
+def sass_loops(so, kernel: str) -> list:
+    """The loops of the kernel whose mangled name contains ``kernel`` in
+    the library ``so``: for each backward branch, the static
+    instructions of its body (NOPs left out) by opcode with its
+    modifiers, largest loop first."""
+    ins = sass_function(so, kernel)
+    loops = []
+    for addr, _, op, args in ins:
+        target = branch_target(args)
+        if op.startswith("BRA") and target is not None and target < addr:
+            body = [o for a, _, o, _ in ins
+                    if target <= a <= addr and o != "NOP"]
+            loops.append({"start": target, "end": addr,
+                          "instructions": len(body),
+                          "ops": dict(collections.Counter(body))})
     return sorted(loops, key=lambda lp: -lp["instructions"])
+
+
+def hot_path(ins) -> dict:
+    """The instructions a thread executes on a straight-line kernel's
+    common path, from its SASS (``sass_function``): the subroutines (the
+    CALLed slow paths of the correctly rounded division and square root,
+    placed after the kernel's code), the code a conditional branch skips
+    around a CALL (the call's set-up), the code after an unconditional
+    forward branch up to its target, loop bodies (the rare loops) and
+    NOPs left out. Returns {"instructions", "path": their addresses,
+    "regions": [(start, end, instructions on the path)] of the other
+    forward conditional branches (the code a guard skips), "loops":
+    [(start, end)]}."""
+    calls = [branch_target(a) for _, _, o, a in ins if o.startswith("CALL")]
+    end = min(calls) if calls else ins[-1][0] + 1
+    main = [i for i in ins if i[0] < end]
+    loops = [(branch_target(a), addr) for addr, _, o, a in main
+             if o.startswith("BRA") and branch_target(a) is not None
+             and branch_target(a) <= addr]
+    forward = [(addr, branch_target(a), pred) for addr, pred, o, a in main
+               if o.startswith("BRA") and branch_target(a) is not None
+               and branch_target(a) > addr]
+    # a call's set-up: a conditional branch around a CALL and no other
+    # conditional branch
+    slow = [(a, t) for a, t, pred in forward if pred and any(
+        o.startswith("CALL") for x, _, o, _ in main if a < x < t)
+        and not any(q and a < x < t for x, q, o, _ in main
+                    if o.startswith("BRA"))]
+    skipped = [(a + 1, t - 1) for a, t in slow]
+    skipped += [(a + 1, t - 1) for a, t, pred in forward if not pred
+                and not any(lo <= a <= hi for lo, hi in skipped)]
+    skipped += loops
+
+    def hot(a, op):
+        return op != "NOP" and not any(lo <= a <= hi for lo, hi in skipped)
+    path = [a for a, _, op, _ in main if hot(a, op)]
+    regions = [(a, t, sum(a < x < t for x in path)) for a, t, pred in forward
+               if pred and (a, t) not in slow
+               and not any(a < lo < t for lo, _ in loops)]
+    return {"instructions": len(path), "path": path, "regions": regions,
+            "loops": loops}
 
 
 def phase_ptxas(sos):
     """ptxas's report on the flash kernels and row 7's (-Xptxas -v, kept
     beside each library as lib<name>-<hash>.log): each kernel's register
     and spill lines and any wgmma serialisation note, in the order ptxas
-    compiled the kernels, by library."""
+    compiled the kernels, by library; and rows 8's and 13's kernels by
+    name: registers, spills, blocks an SM."""
     out = {}
     for so in sos:
         name = so.name.split("-")[0][3:]
@@ -440,11 +527,42 @@ def phase_ptxas(sos):
                 ln.replace("ptxas info    :", "").strip()
                 for ln in so.with_suffix(".log").read_text().splitlines()
                 if "registers" in ln or "spill" in ln or "C75" in ln)
-    emit({"phase": "ptxas", "lines": out})
-    if not out.get("int4_matmul") or not any(
+    kernels = {}
+    for so in sos:
+        if so.name.startswith(("libfused_adamw8-", "libquantize-")):
+            kernels.update(ptxas_kernels(so.with_suffix(".log"),
+                                         ("adamw8_rows_kernel",
+                                          "rowq_regs_kernel")))
+    emit({"phase": "ptxas", "lines": out, "rows_8_13": kernels})
+    if not out.get("int4_matmul") or not kernels or not any(
             k.startswith("flash_attention") and v for k, v in out.items()):
-        raise AssertionError("no -Xptxas -v report for the flash or int4 "
-                             "kernels")
+        raise AssertionError("no -Xptxas -v report for the flash, int4, "
+                             "row 8 or row 13 kernels")
+
+
+def ptxas_kernels(log, names) -> dict:
+    """From a -Xptxas -v log, each kernel whose mangled name contains one
+    of ``names``: its registers, spill bytes (stores + loads) and the
+    256-thread blocks an SM holds by registers (65,536 a SM, allocated
+    8 a thread at a time)."""
+    out, kernel = {}, None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"'(\S+)'", ln)
+            hit = [n for n in names if m and n in m.group(1)]
+            # the kernel's name and template arguments, mangled
+            kernel = m.group(1)[m.group(1).index(hit[0]):].split("EEEv")[0] \
+                if hit else None
+        elif kernel and (m := re.search(r"(\d+) bytes spill stores, "
+                                        r"(\d+) bytes spill loads", ln)):
+            out.setdefault(kernel, {})["spill_bytes"] = \
+                int(m.group(1)) + int(m.group(2))
+        elif kernel and (m := re.search(r"Used (\d+) registers", ln)):
+            regs = int(m.group(1))
+            out.setdefault(kernel, {}).update(
+                registers=regs,
+                blocks_per_sm=min(8, 65536 // (-(-regs // 8) * 8 * 256)))
+    return out
 
 
 def qkv_views(torch, B, S, H, D, g):
@@ -923,6 +1041,96 @@ def sr_instructions(torch, gelu: bool) -> dict:
             "per_value": per["cast"] + per["maxima"]}
 
 
+def row8_route(M: int, K: int):
+    """Row 8's kernel for [M, K] as csrc/quantize.cu launch_rows picks
+    it from the shape: (a warp a row?, 16-value units a thread), or None
+    for the rows staged in shared memory."""
+    if K % 16:
+        return None
+    G, warp = (32, True) if K <= 2048 and M >= 1024 else (256, False)
+    if K > 16 * 4 * G:
+        return None
+    units = K // 16
+    return warp, 1 if units <= G else 2 if units <= 2 * G else 4
+
+
+def rowq_instructions(torch, cases) -> dict:
+    """Row 8's SASS instructions a value (bf16 x) on the common path of
+    each register kernel ``cases`` take (no value out of the fast
+    division's range), by (gelu, warp, units a thread): the kernel's
+    instructions over its values a thread."""
+    from paddle_tpu_torch.ops import _build
+    so = _build.build(["quantize"])[0]
+    out = {}
+    for M, K, gelu, _ in cases:
+        route = row8_route(M, K)
+        if route is None or (gelu, *route) in out:
+            continue
+        warp, nu = route
+        ins = sass_function(so, f"rowq_regs_kernelI13__nv_bfloat16Li"
+                            f"{int(gelu)}ELi{nu}ELb{int(warp)}E")
+        out[gelu, warp, nu] = hot_path(ins)["instructions"] / (16 * nu)
+    return out
+
+
+def adamw8_instructions(torch) -> dict:
+    """Row 13's SASS instructions (bf16 p and g, SR) a thread executes on
+    the common path, from its straight-line code: the leaf search (its
+    loop body times ceil(log2 98)), the loads, the block steps it keeps
+    (4) of 8 elements in each pass, the reduction of as many rows and
+    the scales. A block of one row of C < 8192 runs ceil(C / 2048) steps
+    and reduces one row: the guarded step regions past those, the
+    reduction's guarded regions of the rows past the block's and the
+    division set-ups of steps that start no row are left out.
+    ``per_param(C)``: those instructions over the elements a thread
+    takes, at that C."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.fused_adamw import _lib8, _rows_per_block
+    ins = sass_function(_build.build(["fused_adamw8"])[0],
+                        "adamw8_rows_kernelI13__nv_bfloat16S1_Lb1E")
+    block = _lib8().ptt_fused_adamw8_block_elements()
+    kept = block // 2048                     # block steps a thread keeps
+    path = hot_path(ins)
+    ops = {a: op for a, _, op, _ in ins}
+    hot = set(path["path"])
+    steps = sorted(r for r in path["regions"] if r[2] >= 100)
+    def small(*prefixes):
+        return sorted(r for r in path["regions"] if r[2] < 100 and any(
+            ops[a].startswith(prefixes) for a in hot if r[0] < a < r[1]))
+    # the reduction's 4 rows: guarded shuffles, then guarded reads of the
+    # warps' maxima; and the set-up of steps 1-3's divisions (a row's
+    # first step)
+    slots, divs = small("SHFL", "LDS"), small("MUFU.RCP")
+    if len(steps) != 2 * kept:
+        raise AssertionError(f"fused_adamw8 SASS: {len(steps)} guarded step "
+                             f"regions, expected {kept} a pass: {steps}")
+    search = min(path["loops"])
+    body = sum(search[0] <= a <= search[1] and op != "NOP"
+               for a, _, op, _ in ins)
+    full = path["instructions"] + body * math.ceil(math.log2(98))
+    pass1, pass2 = [r[2] for r in steps[:kept]], [r[2] for r in steps[kept:]]
+
+    def per_param(C: int) -> float:
+        rpb = _rows_per_block(C, block)
+        ns = kept if rpb > 1 else -(-C // 2048)
+        if ns > kept:
+            raise ValueError(f"C={C}: past the steps a thread keeps")
+        unused = sum(pass1[ns:]) + sum(pass2[ns:])
+        if len(slots) == 2 * kept:  # rows rpb.. of those a block may hold
+            unused += sum(r[2] for j, r in enumerate(slots)
+                          if j % kept >= rpb)
+        if len(divs) == kept - 1:   # steps 1.. that start no row
+            unused += sum(r[2] for k, r in enumerate(divs, 1)
+                          if (k * rpb) % kept)
+        return (full - unused) / (8 * ns)
+    return {"per_thread_all_steps": full, "pass1_step": pass1,
+            "pass2_step": pass2, "leaf_search_loop": body,
+            "reduction_row_regions": [r[2] for r in slots],
+            "division_setup_regions": [r[2] for r in divs],
+            "per_param_at": {C: per_param(C) for C in (2048, 6144, 8192)},
+            "per_param": per_param}
+
+
 def instruction_floor_ms(torch, per_value: float, values: int,
                          clock_hz: float) -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -950,19 +1158,40 @@ def sr_routes_check(torch, gen) -> list:
     return out
 
 
-def phase_kernels_quant(torch):
+def phase_sass(torch) -> dict:
+    """The SASS instructions rows 8, 12 and 13 execute a value (the
+    toolkit's cuobjdump over each library) and the card's top SM clock,
+    for the instruction floors the kernel phases report. Run before any
+    trace: on the card's machine, traces taken right after these
+    subprocesses came back short of kernel records, again and again."""
+    sass = {"clock_hz": sm_clock_hz(),
+            "row12": {gelu: sr_instructions(torch, gelu)
+                      for gelu in (False, True)},
+            "row8": rowq_instructions(torch, ROWQ_CASES),
+            "row13": adamw8_instructions(torch)}
+    emit({"phase": "sass", "clock_mhz": sass["clock_hz"] / 1e6,
+          "row8_per_value": {f"gelu={g} warp={w} units={u}": v
+                             for (g, w, u), v in sass["row8"].items()},
+          "row12": sass["row12"],
+          "row13": {k: v for k, v in sass["row13"].items()
+                    if k != "per_param"}})
+    return sass
+
+
+def phase_kernels_quant(torch, sass):
     """Kernel rows 8, 9 and 12 at every trainer shape: codes and scales
     bit for bit against the plain versions (the SR kernel draws the
     plain version's Philox words), row 12's laws on the card, device
-    ms of kernel and plain version, and the bound. Row 12 (one launch,
-    x read once) also: the two-pass pair's ms on the same input (the route an R past the limit takes), the instructions
-    a value counted from its SASS and the compute floor they set; both
-    routes checked at the one-read limit. No single PyTorch call
-    computes these functions: library_ms is null."""
+    ms of kernel and plain version, and the bound. Row 8 also: its route
+    and the instructions a value from its SASS with the compute floor
+    they set. Row 12 (one launch, x read once) also: the two-pass pair's
+    ms on the same input (the route an R past the limit takes), the
+    instructions a value and their floor; both routes checked at the
+    one-read limit. No single PyTorch call computes these functions:
+    library_ms is null."""
     from paddle_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device="cuda").manual_seed(3)
-    clock = sm_clock_hz()
-    instr = {gelu: sr_instructions(torch, gelu) for gelu in (False, True)}
+    clock, instr, instr8 = sass["clock_hz"], sass["row12"], sass["row8"]
     out = {}
     specs = [("quantize_rows", ROWQ_CASES, qm.quantize_rows,
               qm.quantize_rows_plain, False),
@@ -991,6 +1220,15 @@ def phase_kernels_quant(torch):
                         "plain_ms": device_ms(torch, lambda: plain(*args), 2),
                         "library_ms": None, "bound_ms": b_ms,
                         "bound_by": b_by})
+            route = row8_route(R, C) if name == "quantize_rows" else None
+            if route is not None:
+                per = instr8[(gelu, *route)]
+                row.update({
+                    "route": f"{'warp' if route[0] else 'block'} a row, "
+                             f"{16 * route[1]} values a thread",
+                    "instructions_per_value": per,
+                    "instruction_floor_ms": instruction_floor_ms(
+                        torch, per, R * C, clock)})
             if sr:
                 row.update({
                     "two_pass_ms": device_ms(
@@ -1005,8 +1243,6 @@ def phase_kernels_quant(torch):
         if sr:
             result["unbiased"] = sr_unbiased_gelu(torch, gen)
             result["routes"] = sr_routes_check(torch, gen)
-            result["sass"] = {"clock_mhz": clock / 1e6,
-                              "bf16": instr[False], "bf16_gelu": instr[True]}
         emit(result)
         out[name] = rows
     return out
@@ -1177,74 +1413,193 @@ def adamw8_bound(R: int, C: int):
                  scalar_ops=n * (30 + 2 * (SR_OPS + PHILOX_OPS)))
 
 
+def leaf_rows(shape):
+    """(R, C) of a leaf's int8 moments: C the last dim."""
+    return math.prod(shape) // shape[-1], shape[-1]
+
+
 # GPT-1.3B's int8-moment leaves: wqkv, wproj, win, wout of each layer,
-# wte and wpe; the first and the fifth are timed
+# wte and wpe; the first and the fifth are timed alone
 ADAMW8_SHAPES = [(D_MODEL, 3 * D_MODEL), (D_MODEL, D_MODEL),
                  (D_MODEL, F_FFN), (F_FFN, D_MODEL), (50304, D_MODEL),
                  (TRAIN_T, D_MODEL)]
 ADAMW8_TIMED = ((D_MODEL, 3 * D_MODEL), (50304, D_MODEL))
+# odd leaves in one launch: C = 128, a leaf of one row, a 3-D leaf, and
+# rows of 16384 (past the 8192 elements a block keeps in registers),
+# with zeros and values below the fast division's range
+ADAMW8_ODD = [(64, 128), (1, 2048), (3, 4, 256), (8, 16384)]
 
 
-def phase_kernels_adamw8(torch):
-    """Kernel row 13 on every int8-moment leaf shape of the trainer,
-    bf16 p and g, stochastic rounding on: p, the codes and the scales
-    bit for bit against the plain version, from a state two updates old
-    (codes and scales not at their initial values). On wqkv and wte,
-    ms against the bound and row 14's ms on the same leaf. No PyTorch
-    call keeps int8 moments: library_ms is null."""
-    from paddle_tpu_torch.ops.fused_adamw import (
-        fused_adamw_update, fused_adamw_update8, fused_adamw_update8_plain,
-        moment8_init)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    hp = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.95, eps=1e-8, stoch_round=True,
-              leaf_id=7, seed=3)
-    sc = torch.tensor([0.5, 1 / (1 - 0.9 ** 3), 1 / (1 - 0.95 ** 3), 1.0],
-                      device="cuda")
-    rows = []
-    for shape in ADAMW8_SHAPES:
-        p = (0.02 * torch.randn(shape, device="cuda", generator=gen)
-             ).bfloat16()
-        grad = (1e-3 * torch.randn(shape, device="cuda", generator=gen)
-                ).bfloat16()
-        state = list(moment8_init(p))
-        for seed in (1, 2):             # move the state off its zeros
-            fused_adamw_update8_plain(p.clone(), grad, *state, sc,
-                                      **dict(hp, seed=seed))
-        ref = fused_adamw_update8_plain(
-            p.clone(), grad, *[t.clone() for t in state], sc, **hp)
-        got = fused_adamw_update8(p.clone(), grad,
-                                  *[t.clone() for t in state], sc, **hp)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("p", "m_q", "m_scale", "v_q", "v_scale"),
-                              got, ref):
+def adamw8_leaf(torch, shape, gen, zero_rows: float = 0.0,
+                edges: bool = False):
+    """bf16 p and g of a leaf and int8-moment state of the kind a few
+    steps leave (codes over their range, per-row scales over two
+    decades): ``(p, g, (m_q, m_scale), (v_q, v_scale))``. ``zero_rows``:
+    the share of rows whose gradient is 0, as the embedding rows of the
+    tokens a batch does not hold. ``edges``: every 7th element of a row
+    with m2 = v2 = 0 and every 13th with a gradient of 1e-20 (values
+    below the fast division's range: the kernel's rare path)."""
+    R, C = leaf_rows(shape)
+    kw = dict(device="cuda", generator=gen)
+    p = (0.02 * torch.randn(shape, **kw)).bfloat16()
+    g = 1e-3 * torch.randn((R, C), **kw)
+    g[torch.rand(R, **kw) < zero_rows] = 0
+    mq = torch.randint(-127, 128, (R, C), dtype=torch.int8, **kw)
+    vq = torch.randint(0, 128, (R, C), dtype=torch.int8, **kw)
+    if edges:
+        g[:, ::7], mq[:, ::7], vq[:, ::7] = 0, 0, 0
+        g[:, 5::13], mq[:, 5::13], vq[:, 5::13] = 1e-20, 0, 0
+
+    def scales():
+        return 10.0 ** (torch.rand((R, 1), **kw) * 2 - 6)
+    return (p, g.bfloat16().reshape(shape), (mq, scales()), (vq, scales()))
+
+
+def adamw8_copies(leaves) -> list:
+    return [(p.clone(), g, tuple(t.clone() for t in m),
+             tuple(t.clone() for t in v)) for p, g, m, v in leaves]
+
+
+def check_leaves8_bitwise(torch, name, got, leaves, ids, sc, hp) -> float:
+    """Each leaf's p, codes and scales from the list kernel (``got``,
+    updated copies of ``leaves``) against the per-leaf plain version on
+    the leaf's inputs. Returns the plain version's ms over the list:
+    CUDA events around each leaf's call, summed."""
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update8_plain
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    plain_ms = 0.0
+    for leaf, i, out in zip(leaves, ids, got):
+        (p, g, m, v), = adamw8_copies([leaf])
+        start.record()
+        fused_adamw_update8_plain(p, g, *m, *v, sc, leaf_id=i, **hp)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        for part, a, b in zip(("p", "m_q", "m_scale", "v_q", "v_scale"),
+                              (out[0], *out[2], *out[3]), (p, *m, *v)):
             if not torch.equal(a, b):
                 raise AssertionError(
-                    f"fused_adamw8 {shape}: {name} differs from the plain "
-                    f"version in {int((a != b).sum())} elements")
-        del got, ref
+                    f"{name}: leaf {i} {tuple(p.shape)} {part} differs from "
+                    f"the plain version in {int((a != b).sum())} elements")
+    return plain_ms
+
+
+def list_update8(torch, leaves, ids, sc, hp) -> list:
+    """fused_adamw_update8_leaves on copies of ``leaves``; returns the
+    updated copies."""
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update8_leaves
+    got = adamw8_copies(leaves)
+    fused_adamw_update8_leaves(*map(list, zip(*got)), sc, ids, **hp)
+    torch.cuda.synchronize()
+    return got
+
+
+def phase_kernels_adamw8(torch, sass):
+    """Kernel row 13. On every int8-moment leaf shape of the trainer,
+    bf16 p and g, stochastic rounding on: p, the codes and the scales
+    bit for bit against the plain version through the per-leaf entry (a
+    list of one). Then GPT-1.3B's 98 int8-moment leaves in one launch
+    (the trainer's step), every leaf bit for bit against the per-leaf
+    plain version, timed through a kept AdamW8Leaves table beside the
+    summed bound, the instruction floor (the kernel's SASS instructions a
+    parameter at the card's top clock) and the plain version, with the
+    host ms of a call; and a list of odd leaves, bit for bit. On wqkv and
+    wte alone, ms against the bound and row 14's ms on the same leaf. No
+    PyTorch call keeps int8 moments: library_ms is null."""
+    from paddle_tpu_torch.ops.fused_adamw import (
+        AdamW8Leaves, fused_adamw_update, fused_adamw_update8,
+        fused_adamw_update8_leaves, fused_adamw_update8_plain,
+        moment8_eligible)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hp = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.95, eps=1e-8, stoch_round=True,
+              seed=3)
+    sc = torch.tensor([0.5, 1 / (1 - 0.9 ** 3), 1 / (1 - 0.95 ** 3), 1.0],
+                      device="cuda")
+    clock, instr = sass["clock_hz"], sass["row13"]
+    rows = []
+    for shape in ADAMW8_SHAPES:
+        leaf = adamw8_leaf(torch, shape, gen, zero_rows=0.9 * (
+            shape[0] == 50304))
+        got = adamw8_copies([leaf])
+        p, g, m, v = got[0]
+        fused_adamw_update8(p, g, *m, *v, sc, leaf_id=7, **hp)
+        check_leaves8_bitwise(torch, f"fused_adamw8 {shape}", got, [leaf],
+                              [7], sc, dict(hp))
         row = {"shape": list(shape), "bitwise_equal": True,
                "max_abs_err": 0.0}
         rows.append(row)
-        if shape not in ADAMW8_TIMED:
-            del p, grad, state
-            continue
-        m16 = (1e-4 * torch.randn(shape, device="cuda", generator=gen)
-               ).bfloat16()
-        v16 = (1e-8 * torch.rand(shape, device="cuda", generator=gen)
-               ).bfloat16()
-        b_ms, b_by = adamw8_bound(*shape)
-        row.update({
-            "ms": device_ms(torch, lambda: fused_adamw_update8(
-                p, grad, *state, sc, **hp), 10),
-            "plain_ms": device_ms(torch, lambda: fused_adamw_update8_plain(
-                p, grad, *state, sc, **hp), 2),
-            "adamw_bf16_moments_ms": device_ms(
-                torch, lambda: fused_adamw_update(p, grad, m16, v16, sc, **hp),
-                10),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
-        del p, grad, state, m16, v16
-    emit({"phase": "kernels", "name": "fused_adamw8", "cases": rows})
-    return rows
+        if shape in ADAMW8_TIMED:
+            p, g, m, v = leaf
+            m16 = (1e-4 * torch.randn(shape, device="cuda", generator=gen)
+                   ).bfloat16()
+            v16 = (1e-8 * torch.rand(shape, device="cuda", generator=gen)
+                   ).bfloat16()
+            b_ms, b_by = adamw8_bound(*leaf_rows(shape))
+            row.update({
+                "ms": device_ms(torch, lambda: fused_adamw_update8(
+                    p, g, *m, *v, sc, leaf_id=7, **hp), 10),
+                "plain_ms": device_ms(
+                    torch, lambda: fused_adamw_update8_plain(
+                        p, g, *m, *v, sc, leaf_id=7, **hp), 2),
+                "adamw_bf16_moments_ms": device_ms(
+                    torch, lambda: fused_adamw_update(p, g, m16, v16, sc,
+                                                      leaf_id=7, **hp), 10),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "instruction_floor_ms": instruction_floor_ms(
+                    torch, instr["per_param"](shape[-1]), math.prod(shape),
+                    clock)})
+            del m16, v16
+        del leaf, got, p, g, m, v
+    torch.cuda.empty_cache()
+
+    # the flagship step's 98 int8-moment leaves, one launch
+    named = [(i, shape) for i, (_, shape) in enumerate(gpt_leaf_shapes())
+             if moment8_eligible(shape)]
+    ids = [i for i, _ in named]
+    leaves = [adamw8_leaf(torch, shape, gen, zero_rows=0.9 * (
+        shape[0] == 50304)) for _, shape in named]
+    plain_ms = check_leaves8_bitwise(
+        torch, "fused_adamw8, 98 leaves",
+        list_update8(torch, leaves, ids, sc, hp), leaves, ids, sc, hp)
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    kept = AdamW8Leaves(ps, ms, vs, ids)        # the trainer's way
+    before = fused_adamw_update8.launches
+    kept.update(gs, sc, **hp)
+    if fused_adamw_update8.launches != before + 1:
+        raise AssertionError("fused_adamw8: the 98 leaves took "
+                             f"{fused_adamw_update8.launches - before} "
+                             f"launches, not one")
+    shapes = [leaf_rows(shape) for _, shape in named]
+    n = sum(R * C for R, C in shapes)
+    b_ms, b_by = bound(sum(10 * R * C + 16 * R for R, C in shapes), 0,
+                       scalar_ops=n * (30 + 2 * (SR_OPS + PHILOX_OPS)))
+    whole = {
+        "leaves": len(named), "params": n, "rows": sum(R for R, _ in shapes),
+        "bitwise_equal": True, "max_abs_err": 0.0,
+        "ms": device_ms(torch, lambda: kept.update(gs, sc, **hp), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "instruction_floor_ms": sum(instruction_floor_ms(
+            torch, instr["per_param"](C), R * C, clock) for R, C in shapes),
+        "host_ms": {
+            "list_entry": host_ms(torch, lambda: fused_adamw_update8_leaves(
+                ps, gs, ms, vs, sc, ids, **hp)),
+            "kept_table": host_ms(torch, lambda: kept.update(gs, sc, **hp))},
+        "plain_ms": plain_ms,
+        "plain_timing": "cuda events around each leaf's call, summed"}
+    del leaves, ps, gs, ms, vs, kept
+    torch.cuda.empty_cache()
+
+    odd = [adamw8_leaf(torch, shape, gen, zero_rows=0.25, edges=True)
+           for shape in ADAMW8_ODD]
+    odd_ids = [5, 17, 200, 3]
+    check_leaves8_bitwise(torch, "fused_adamw8, odd leaves",
+                          list_update8(torch, odd, odd_ids, sc, hp), odd,
+                          odd_ids, sc, hp)
+    whole["odd"] = {"shapes": [list(s) for s in ADAMW8_ODD],
+                    "bitwise_equal": True}
+    emit({"phase": "kernels", "name": "fused_adamw8", "cases": rows,
+          "gpt_1p3b_list": whole})
+    return rows, whole
 
 
 def llama_1b_config():
@@ -2006,9 +2361,9 @@ def train_batch(np):
 def expected_launches(tr) -> dict:
     """Kernel launches per training step of ``tr`` at its current tier,
     counted from the code: one flash forward and backward per layer; one
-    int8-moment AdamW launch per leaf with int8 moments (moment8) and one
-    AdamW launch for all the other leaves; per layer and int8 site (qkv,
-    ffn1, ffn2):
+    int8-moment AdamW launch for all the leaves with int8 moments
+    (moment8) and one AdamW launch for all the other leaves; per layer
+    and int8 site (qkv, ffn1, ffn2):
     - quant8="wgrad": forward a row quantize of the activation (row 10
       with LayerNorm fused at the qkv / ffn1 site) and a column quantize
       of w; dgrad row quantizes of g and w; wgrad SR column quantizes of
@@ -2022,15 +2377,17 @@ def expected_launches(tr) -> dict:
     quantized per model column (columns of the tied head, rows of the
     other)."""
     L = tr.cfg.num_layers
-    n8 = sum(isinstance(m, tuple) for m in tr.opt_state["m"])
     # row 14: one launch for each (p, g, m/v) dtype combination of the
-    # leaves without int8 moments (the gradient has p's dtype)
+    # leaves without int8 moments (the gradient has p's dtype); row 13 one
+    # for each (p, g) dtype pair of the leaves with int8 moments
     groups = {(p.dtype, m.dtype) for p, m in zip(tr._leaves,
                                                  tr.opt_state["m"])
               if not isinstance(m, tuple)}
+    groups8 = {p.dtype for p, m in zip(tr._leaves, tr.opt_state["m"])
+               if isinstance(m, tuple)}
     n = dict.fromkeys(kernel_wrappers(), 0)
     n.update(flash_attention_fwd=L, flash_attention_bwd=L,
-             fused_adamw=len(groups), fused_adamw8=n8)
+             fused_adamw=len(groups), fused_adamw8=len(groups8))
     if tr.quant8:
         fused = sum(tr.fuse_ln_quant in (True, site)
                     for site in ("qkv", "ffn1")) * (tr.quant8 == "wgrad")
@@ -2154,14 +2511,16 @@ PROFILE_PARTS = {
     "flash_bwd_ms": ("flash_bwd_dkdv_wgmma_kernel",
                      "flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel"),
     "adamw_ms": ("adamw_leaves_kernel",),
-    "adamw8_ms": ("adamw8_kernel",),
+    "adamw8_ms": ("adamw8_rows_kernel",),
     # rows 10 and 11: the row kernel with LayerNorm, and the column pair
     # with the LayerNorm prologue (template argument kLn = 2)
     "ln_quantize_ms": ("rowq_ln_kernel", "_kernel<__nv_bfloat16, 2"),
-    "quantize_ms": ("rowq_kernel", "col_amax_kernel", "col_cast_kernel",
-                    "col_sr_cluster_kernel"),
+    "quantize_ms": ("rowq_regs_kernel", "rowq_kernel", "col_amax_kernel",
+                    "col_cast_kernel", "col_sr_cluster_kernel"),
 }
-# of quantize_ms, row 12's one-read kernel alone
+# of quantize_ms, row 8's kernels (the row in registers, and the long
+# rows through shared memory) and row 12's one-read kernel alone
+ROW8_NAMES = ("rowq_regs_kernel", "rowq_kernel")
 ROW12_NAMES = ("col_sr_cluster_kernel",)
 GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "sm80_")
 INT8_NAMES = ("i8", "s8", "imma", "int8", "integer")
@@ -2186,10 +2545,12 @@ def phase_train_profile(torch, np, tr, name: str):
             part = "int8_gemm_ms" if any(n in low for n in INT8_NAMES) \
                 else "bf16_gemm_ms"
         parts[part or "other_ms"] += v
-    parts["row12_ms"] = sum(v for k, v in ms.items()
-                            if any(n in k for n in ROW12_NAMES))
+    for part, names in (("row8_ms", ROW8_NAMES), ("row12_ms", ROW12_NAMES)):
+        parts[part] = sum(v for k, v in ms.items()
+                          if any(n in k for n in names))
     parts["launches"] = {e.key[:100]: e.count for e in ev if any(
-        n in e.key for n in PROFILE_PARTS["adamw_ms"] + ROW12_NAMES)}
+        n in e.key for n in PROFILE_PARTS["adamw_ms"]
+        + PROFILE_PARTS["adamw8_ms"] + ROW8_NAMES + ROW12_NAMES)}
     emit({"phase": name, "wall_ms": wall * 1e3, "device_ms": dev,
           "device_busy_share": dev / (wall * 1e3), **parts,
           "top_kernels_ms": [(k[:100], v) for k, v in list(ms.items())[:14]]})
@@ -2865,6 +3226,11 @@ def phase_train_check_resnet(torch, np):
     torch.cuda.empty_cache()
 
 def main() -> int:
+    # keep CUPTI set up between traces: torch.profiler's default tears it
+    # down after each one, and on the card's machine traces then came
+    # back short of kernel records, or with a former trace's, again and
+    # again after a burst of launches
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2887,15 +3253,16 @@ def main() -> int:
     emit({"phase": "build", "kernels": list(_build.KERNELS),
           "seconds": time.perf_counter() - t0})
     phase_ptxas(sos)
+    sass = phase_sass(torch)
 
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)
     phase_kernels_attn(torch, F)
     adamw_rows, adamw_list = phase_kernels_adamw(torch)
-    quant_rows = phase_kernels_quant(torch)
+    quant_rows = phase_kernels_quant(torch, sass)
     quant_rows.update(phase_kernels_ln(torch))
     phase_int_mm(torch)
-    adamw8_rows = phase_kernels_adamw8(torch)
+    adamw8_rows, adamw8_list = phase_kernels_adamw8(torch, sass)
     int4_rows = phase_kernels_int4(torch)
     bn_rows = phase_kernels_bn(torch, F)
 
@@ -2987,9 +3354,10 @@ def main() -> int:
               "paddle_tpu/ops/quant_matmul.py:447",
               quant_rows["sr_quantize_colwise"],
               largest(quant_rows["sr_quantize_colwise"])),
+        # a flagship step's one launch over its 98 int8-moment leaves
         entry("fused_adamw8", "fused_adamw8.cu",
-              "paddle_tpu/ops/fused_adamw.py:222", adamw8_rows,
-              largest(adamw8_rows)),
+              "paddle_tpu/ops/fused_adamw.py:222",
+              adamw8_rows + [adamw8_list], adamw8_list),
         entry("int4_matmul", "int4_matmul.cu",
               "paddle_tpu/ops/int4_matmul.py:118", int4_rows,
               next(r for r in int4_rows if r["M"] == SLOTS

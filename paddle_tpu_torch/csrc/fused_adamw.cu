@@ -65,19 +65,8 @@ constexpr int kUnroll = 2;
 constexpr long long kChunk = kThreads * 8LL * kUnroll;
 constexpr int kEntryWords = 8;
 
+using ptt::Pack8;
 using ptt::put;
-using ptt::to_f32;
-
-// 8 consecutive values of T, as 16-byte words.
-template <typename T>
-struct Pack8 {
-  static constexpr int kWords = static_cast<int>(sizeof(T)) / 2;
-  uint4 w[kWords];
-  __device__ __forceinline__ T* vals() { return reinterpret_cast<T*>(w); }
-  __device__ __forceinline__ float get(int j) {
-    return to_f32(vals()[j]);
-  }
-};
 
 // Elements e .. e + 7 of src: one or two 16-byte loads when `vec` (all 8
 // inside the leaf, the base 16-byte aligned), else element by element,

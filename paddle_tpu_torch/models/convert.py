@@ -21,7 +21,8 @@ re-quantization; both packages lay them out ``[in, out]``, so nothing of
 theirs is transposed.
 
 ``gpt_trainer_from_jax_params`` takes ``GPTSpmdTrainer.params`` as
-numpy and returns a ``GPTTrainer`` holding them; both packages keep
+numpy and returns a ``GPTTrainer`` holding them (``gpt_params_from_numpy``
+gives the tree alone, for ``trainer.params = ...``); both packages keep
 matmul weights ``[in, out]``, so only names and shapes are checked.
 Trainer options (``quant8``, ``moment8``, ``remat``, ...) pass through,
 and ``np_opt_state`` (``GPTSpmdTrainer.opt_state`` as numpy) replaces
@@ -53,8 +54,9 @@ from .gpt import (GPTConfig, GPTTrainer, block_shapes, flatten_params,
                   top_shapes)
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["gpt_opt_state_to_numpy", "gpt_params_to_numpy",
-           "gpt_trainer_from_jax_params", "llama_from_jax_state",
+__all__ = ["gpt_opt_state_to_numpy", "gpt_params_from_numpy",
+           "gpt_params_to_numpy", "gpt_trainer_from_jax_params",
+           "llama_from_jax_state",
            "momentum_from_numpy", "momentum_to_numpy",
            "resnet_from_jax_state", "resnet_state_to_numpy"]
 
@@ -132,21 +134,17 @@ def _take(src: dict, shapes: dict, where: str, device, dtype,
     return out
 
 
-def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
-                                device=None, dtype=None, np_opt_state=None,
-                                **trainer_kwargs) -> GPTTrainer:
-    """A ``GPTTrainer`` holding the reference trainer's parameters.
+def gpt_params_from_numpy(np_params: Dict, cfg: GPTConfig, device=None,
+                          dtype=None) -> Dict:
+    """The reference trainer's parameters as the port's tree of tensors
+    (``GPTTrainer(params=...)``, or ``trainer.params = ...``).
 
     ``np_params``: ``GPTSpmdTrainer.params`` as numpy (``jax.tree.map(
     np.asarray, trainer.params)``), with ``blocks`` either per layer
     (``layer_NNN`` dicts, ``layer_unroll="full"``) or stacked (each
     leaf ``[1, L, ...]``). Matmul weights are ``[in, out]`` in both
     packages, so nothing is transposed; names and shapes must match
-    exactly. ``dtype`` is the master dtype (default float32);
-    ``np_opt_state`` the reference's ``opt_state`` as numpy (``{"step",
-    "m", "v"}``, ``m``/``v`` trees shaped like ``np_params`` with per
-    layer ``blocks``, int8-moment leaves as ``(q, scale)`` pairs); other
-    keyword arguments go to ``GPTTrainer``."""
+    exactly. ``dtype`` is the master dtype (default float32)."""
     master = resolve_dtype(dtype)
     dev = resolve_device(device)
     top = {k: v for k, v in np_params.items() if k != "blocks"}
@@ -164,8 +162,24 @@ def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
         params["blocks"] = {n: _take(blocks, block_shapes(cfg), "blocks",
                                      dev, master, lead=(L, i))
                             for i, n in enumerate(names)}
-    trainer = GPTTrainer(cfg, device=dev, master_dtype=master,
-                         params=params, **trainer_kwargs)
+    return params
+
+
+def gpt_trainer_from_jax_params(np_params: Dict, cfg: GPTConfig,
+                                device=None, dtype=None, np_opt_state=None,
+                                **trainer_kwargs) -> GPTTrainer:
+    """A ``GPTTrainer`` holding the reference trainer's parameters
+    (``np_params`` as ``gpt_params_from_numpy`` takes them; ``dtype`` the
+    master dtype, default float32). ``np_opt_state``: the reference's
+    ``opt_state`` as numpy (``{"step", "m", "v"}``, ``m``/``v`` trees
+    shaped like ``np_params`` with per layer ``blocks``, int8-moment
+    leaves as ``(q, scale)`` pairs); other keyword arguments go to
+    ``GPTTrainer``."""
+    dev = resolve_device(device)
+    trainer = GPTTrainer(cfg, device=dev, master_dtype=resolve_dtype(dtype),
+                         params=gpt_params_from_numpy(np_params, cfg, dev,
+                                                      dtype),
+                         **trainer_kwargs)
     if np_opt_state is not None:
         trainer.opt_state = _opt_state_from_numpy(np_opt_state, trainer)
     return trainer

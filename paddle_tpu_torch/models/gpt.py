@@ -48,9 +48,9 @@ The int8 switches of the reference trainer are ported:
   rest, logged in ``guard_events()``.
 - ``moment8=True``: the leaves ``moment8_eligible`` picks keep m and
   sqrt(v) as int8 codes with per-row scales (``(q, scale)`` pairs in
-  ``opt_state``, :641) and take the int8-moment AdamW kernel; the
-  others keep ``moment_dtype`` moments and the AdamW kernel, all of
-  them in one launch (:1322).
+  ``opt_state``, :641) and take the int8-moment AdamW kernel, all of
+  them in one launch; the others keep ``moment_dtype`` moments and the
+  AdamW kernel, in one launch too (:1322).
 - ``remat="save_main"`` (:1021) with ``quant8="wgrad"``: per layer the
   backward keeps the block input, ``qkv_out``, the flash out and lse,
   and ``ffn1_out`` (and a fused site's row statistics), and recomputes
@@ -80,7 +80,7 @@ from torch.nn import functional as TF
 from .._device import resolve_device, resolve_dtype
 from ..ops.flash_attention import (flash_attention_qkv_fused,
                                    flash_qkv_packed_bwd, flash_qkv_packed_fwd)
-from ..ops.fused_adamw import (AdamWLeaves, fused_adamw_update8,
+from ..ops.fused_adamw import (AdamW8Leaves, AdamWLeaves,
                                moment8_eligible, moment8_init)
 from ..ops.fused_ce import fused_softmax_cross_entropy
 from ..ops.layer_norm import layer_norm, ln_bwd, ln_fwd
@@ -299,6 +299,21 @@ _REMAT_SLICE = "the remat slice, ROADMAP Queue 1"
 _QUANT8 = (False, True, "dgrad", "wgrad")
 
 
+def _kept_update(kept, table, leaves, scalars, hp):
+    """One AdamW step of ``leaves`` ((p, g, m, v, leaf_id) each) through
+    the leaf table ``kept`` (an ``AdamWLeaves`` or ``AdamW8Leaves``,
+    ``table``): one launch a dtype group. The table of p, m and v is laid
+    out again only when the params or the moments were replaced. Returns
+    the table to keep."""
+    if not leaves:
+        return kept
+    ps, gs, ms, vs, ids = map(list, zip(*leaves))
+    if kept is None or not kept.holds(ps, ms, vs):
+        kept = table(ps, ms, vs, ids)
+    kept.update(gs, scalars, **hp)
+    return kept
+
+
 class GPTTrainer:
     """Functional GPT pretraining step on one device: the port of
     ``paddle_tpu.models.gpt.GPTSpmdTrainer`` with a single-device mesh,
@@ -403,11 +418,7 @@ class GPTTrainer:
                 generator = torch.Generator(self.device).manual_seed(seed)
             params = self._init_params(generator)
         self.params = params
-        self._leaves = [p for _, p in flatten_params(params)]
-        for p in self._leaves:
-            p.requires_grad_(True)
         self.opt_state = {"step": 0, "m": [], "v": []}
-        self._row14 = None         # AdamWLeaves of the leaves without int8
         for p in self._leaves:
             if self.moment8 and moment8_eligible(p):
                 mq, msc, vq, vsc = moment8_init(p)
@@ -417,6 +428,37 @@ class GPTTrainer:
                         for _ in range(2))
             self.opt_state["m"].append(m)
             self.opt_state["v"].append(v)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The parameter tree; the step updates its leaves in place."""
+        return self._params
+
+    @params.setter
+    def params(self, params: Dict[str, Any]) -> None:
+        """Replace the parameters, as the reference's step reassigns its
+        ``params`` (a restore does the same): the new tree must have the
+        old one's paths and each leaf its shape, dtype and device. The
+        optimizer state stays with the leaf positions, as in the
+        reference; the AdamW leaf tables are laid out again."""
+        leaves = flatten_params(params)
+        if hasattr(self, "_params"):
+            def layout(items):
+                return [(path, tuple(t.shape), t.dtype, t.device)
+                        for path, t in items]
+            old, new = layout(flatten_params(self._params)), layout(leaves)
+            if new != old:
+                diff = next(((a, b) for a, b in zip(old, new) if a != b),
+                            (len(old), len(new)))
+                raise ValueError(f"GPTTrainer.params takes a tree of the "
+                                 f"trainer's leaves; first difference "
+                                 f"(was, got): {diff}")
+        self._params = params
+        self._leaves = [p for _, p in leaves]
+        for p in self._leaves:
+            p.requires_grad_(True)
+        self._row13 = None     # AdamW8Leaves of the leaves with int8 moments
+        self._row14 = None     # AdamWLeaves of the others
 
     # -- init --------------------------------------------------------------
     def _init_params(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -530,23 +572,18 @@ class GPTTrainer:
                             device=self.device).reshape(())])
         hp = dict(lr=self.lr, wd=self.wd, b1=b1, b2=b2, eps=1e-8,
                   stoch_round=self._stoch_round, seed=step)
-        rest = []                  # (p, g, m, v, leaf_id): one launch
+        # (p, g, m, v, leaf_id) of the leaves with int8 moments (moment8:
+        # m and v are (codes, scales) pairs) and of the others
+        eight, rest = [], []
+        for i, (p, g, m, v) in enumerate(zip(
+                self._leaves, grads, self.opt_state["m"],
+                self.opt_state["v"])):
+            (eight if isinstance(m, tuple) else rest).append((p, g, m, v, i))
         with torch.no_grad():
-            for i, (p, g, m, v) in enumerate(zip(
-                    self._leaves, grads, self.opt_state["m"],
-                    self.opt_state["v"])):
-                if isinstance(m, tuple):      # int8 moments (moment8)
-                    fused_adamw_update8(p, g, *m, *v, scalars, leaf_id=i,
-                                        **hp)
-                else:
-                    rest.append((p, g, m, v, i))
-            if rest:
-                ps, gs, ms, vs, ids = map(list, zip(*rest))
-                # the leaf table of p, m, v is laid out once, and again
-                # only when opt_state's moments are replaced
-                if self._row14 is None or not self._row14.holds(ps, ms, vs):
-                    self._row14 = AdamWLeaves(ps, ms, vs, ids)
-                self._row14.update(gs, scalars, **hp)
+            self._row13 = _kept_update(self._row13, AdamW8Leaves, eight,
+                                       scalars, hp)
+            self._row14 = _kept_update(self._row14, AdamWLeaves, rest,
+                                       scalars, hp)
         self.opt_state["step"] = step
 
     # -- public step -------------------------------------------------------

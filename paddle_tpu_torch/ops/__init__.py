@@ -3,8 +3,8 @@
 Counterpart of ``paddle_tpu/ops`` for the kernels ported so far:
 ``flash_attention`` (``pallas_ops.py`` ``_fa_forward``, ``_fa_backward``,
 ``_fa_forward_qkvpacked``, ``_fa_backward_hsplit``), ``fused_adamw``
-(``fused_adamw.py`` ``fused_adamw_update``, whose kernel takes a list of
-leaves in one launch, and ``fused_adamw_update8``)
+(``fused_adamw.py`` ``fused_adamw_update`` and ``fused_adamw_update8``,
+whose kernels each take a list of leaves in one launch)
 and ``quant_matmul`` (``quant_matmul.py`` ``_rowq_call``, ``_colq_call``,
 ``_rowq_ln_call``, ``_sr_colq_ln_pallas``, ``_sr_colq_pallas`` and the
 int8 linears over ``torch._int_mm``) and ``int4_matmul``
@@ -21,8 +21,9 @@ from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_fwd_plain,
                               flash_attention_qkv_fused)
 from .batch_norm import bn_train
-from .fused_adamw import (AdamWLeaves, fused_adamw_update,
-                          fused_adamw_update8, fused_adamw_update8_plain,
+from .fused_adamw import (AdamW8Leaves, AdamWLeaves, fused_adamw_update,
+                          fused_adamw_update8, fused_adamw_update8_leaves,
+                          fused_adamw_update8_plain,
                           fused_adamw_update_leaves, fused_adamw_update_plain)
 from .fused_ce import fused_softmax_cross_entropy
 from .layer_norm import layer_norm
@@ -32,10 +33,12 @@ from .quant_matmul import (int8_gelu_linear_all8, int8_linear,
                            quantize_cols, quantize_rows, sr_quantize_colwise,
                            sr_quantize_colwise_ln)
 
-__all__ = ["AdamWLeaves", "bn_train", "flash_attention_bwd", "flash_attention_bwd_plain",
+__all__ = ["AdamW8Leaves", "AdamWLeaves", "bn_train", "flash_attention_bwd",
+           "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_qkv_fused", "fused_adamw_update",
-           "fused_adamw_update8", "fused_adamw_update8_plain",
+           "fused_adamw_update8", "fused_adamw_update8_leaves",
+           "fused_adamw_update8_plain",
            "fused_adamw_update_leaves", "fused_adamw_update_plain",
            "fused_softmax_cross_entropy",
            "int8_gelu_linear_all8", "int8_linear", "int8_linear_all8",

@@ -33,13 +33,16 @@ updated as above, then requantized per row with stochastic rounding
 (m codes in [-127, 127], sqrt(v) codes in [0, 127]). Its streams share
 the key above and differ in the counter's third word: 0 for p (so p's
 bits equal ``fused_adamw_update``'s for the same step and leaf), 1 for
-m, 2 for sqrt(v). ``moment8_eligible``, ``moment8_init`` and
-``moment8_unpack`` are the reference's (:173, :182, :192), so the
-leaves with int8 moments and their state are the same in both packages.
+m, 2 for sqrt(v). Like row 14 it takes a list of leaves in one launch
+per (p, g) dtype pair (``fused_adamw_update8_leaves``; the per-leaf
+entry is a list of one), and the GPT trainer keeps an ``AdamW8Leaves``
+table. ``moment8_eligible``, ``moment8_init`` and ``moment8_unpack``
+are the reference's (:173, :182, :192), so the leaves with int8 moments
+and their state are the same in both packages.
 
 ``fused_adamw_update_leaves.launches`` (row 14's kernel, whichever
-entry called it) and ``fused_adamw_update8.launches`` count kernel
-launches.
+entry called it) and ``fused_adamw_update8.launches`` (row 13's, the
+same) count kernel launches.
 """
 from __future__ import annotations
 
@@ -51,9 +54,9 @@ import torch
 
 from . import _build
 
-__all__ = ["INV127", "AdamWLeaves", "fused_adamw_update",
-           "fused_adamw_update8", "fused_adamw_update8_plain",
-           "fused_adamw_update_leaves",
+__all__ = ["INV127", "AdamW8Leaves", "AdamWLeaves", "fused_adamw_update",
+           "fused_adamw_update8", "fused_adamw_update8_leaves",
+           "fused_adamw_update8_plain", "fused_adamw_update_leaves",
            "fused_adamw_update_plain", "moment8_eligible",
            "moment8_init", "moment8_unpack", "philox_words",
            "stochastic_round_bf16", "uniform01"]
@@ -169,6 +172,114 @@ def _check_leaf(p, g, m, v, stoch_round, device):
                              f"on {device}")
 
 
+def _upload(host: np.ndarray, device) -> torch.Tensor:
+    """A kernel's leaf table on ``device``, copied from pinned memory so
+    that the copy is asynchronous; the caching host allocator keeps the
+    buffer until the copy has run."""
+    return torch.from_numpy(host).pin_memory().to(device, non_blocking=True)
+
+
+def _check_scalars(scalars, device) -> None:
+    if scalars.dtype != torch.float32 or scalars.numel() != 4 \
+            or scalars.device != device or not scalars.is_contiguous():
+        raise ValueError("scalars must be 4 contiguous float32 values on "
+                         "p's device")
+
+
+def _parts(moment) -> tuple:
+    """A moment's tensors: the tensor, or an int8 moment's (codes,
+    scales)."""
+    return tuple(moment) if isinstance(moment, (tuple, list)) else (moment,)
+
+
+class _LeafTable:
+    """What the AdamW kernels' kept leaf tables share (``AdamWLeaves``,
+    row 14, and ``AdamW8Leaves``, row 13): a fixed list of leaves
+    ``(ps[i], ms[i], vs[i])`` with SR streams ``leaf_ids[i]``, all on the
+    CPU or all on CUDA; the addresses the table was laid out at
+    (``holds``); and ``update``, which runs the plain version leaf by leaf
+    on the CPU and the subclass's launch on CUDA (``_lay_out`` once,
+    ``_update_cuda`` a step)."""
+
+    def __init__(self, ps, ms, vs, leaf_ids):
+        name = type(self).__name__
+        lists = (ps, ms, vs, leaf_ids)
+        if len({len(t) for t in lists}) != 1:
+            raise ValueError(f"{name} takes lists of one length; got "
+                             f"{[len(t) for t in lists]}")
+        self._ps, self._ms, self._vs = list(ps), list(ms), list(vs)
+        self._ids = [int(i) for i in leaf_ids]
+        self._tensors = self._flat(ps, ms, vs)
+        self._ptrs = [t.data_ptr() for t in self._tensors]
+        devices = {t.device.type for t in self._tensors}
+        if len(devices) > 1 or not devices <= {"cpu", "cuda"}:
+            raise ValueError(f"{name} takes tensors all on the CPU or all "
+                             f"on CUDA; got {sorted(devices)}")
+        self._cuda = devices == {"cuda"}
+        if self._cuda:
+            self._device = ps[0].device
+            self._live = [i for i, p in enumerate(ps) if p.numel()]
+            self._leaf_ids = np.array([self._ids[i] for i in self._live],
+                                      np.int64)
+            self._f32_p = any(ps[i].dtype != torch.bfloat16
+                              for i in self._live)
+            self._lay_out()
+
+    @staticmethod
+    def _flat(ps, ms, vs) -> list:
+        return [t for p, m, v in zip(ps, ms, vs)
+                for t in (p, *_parts(m), *_parts(v))]
+
+    def holds(self, ps, ms, vs) -> bool:
+        """Whether this table was built for these very tensors, each
+        still at the address the table holds (``p.data = ...`` moves
+        it): one walk over the lists."""
+        flat = self._flat(ps, ms, vs)
+        return len(ps) == len(self._ps) \
+            and len(flat) == len(self._tensors) \
+            and all(map(operator.is_, flat, self._tensors)) \
+            and [t.data_ptr() for t in flat] == self._ptrs
+
+    def update(self, gs, scalars, *, lr: float, wd: float, b1: float,
+               b2: float, eps: float = 1e-8, stoch_round: bool = False,
+               seed: int = 0) -> None:
+        """One AdamW step of every leaf with gradients ``gs`` (in the
+        leaves' order). ``scalars``: f32 tensor ``[clip scale,
+        1/(1-b1^t), 1/(1-b2^t), lr multiplier]`` on the leaves' device."""
+        if len(gs) != len(self._ps):
+            raise ValueError(f"{type(self).__name__} holds {len(self._ps)} "
+                             f"leaves; got {len(gs)} gradients")
+        if not gs:
+            return
+        args = dict(lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
+                    stoch_round=stoch_round, seed=seed)
+        if self._cuda:
+            _check_scalars(scalars, self._device)
+            if stoch_round and self._f32_p:
+                raise ValueError("stochastic rounding writes a bfloat16 p; "
+                                 "got a float32 p")
+            self._update_cuda(gs, scalars, **args)
+            return
+        devices = {t.device.type for t in (*gs, scalars)}
+        if devices != {"cpu"}:
+            raise ValueError(f"fused_adamw takes tensors all on the CPU or "
+                             f"all on CUDA; got {sorted(devices | {'cpu'})}")
+        for p, g, m, v, leaf_id in zip(self._ps, gs, self._ms, self._vs,
+                                       self._ids):
+            self._plain(p, g, m, v, scalars, leaf_id=leaf_id, **args)
+
+    def _keys(self, seed: int) -> np.ndarray:
+        """The step's Philox key of each leaf laid out."""
+        return ((int(seed) & _MASK) + self._leaf_ids * 1000003) & _MASK
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err} "
+            f"({lib.ptt_cuda_error_string(err).decode()})")
+
+
 def _bind(lib):
     fn = lib.ptt_fused_adamw_leaves
     if fn.argtypes is None:
@@ -183,7 +294,7 @@ def _bind(lib):
     return fn
 
 
-class AdamWLeaves:
+class AdamWLeaves(_LeafTable):
     """Row 14 for a fixed list of leaves ``(ps[i], ms[i], vs[i])`` with
     SR streams ``leaf_ids[i]``: p, m and v are checked, and their part
     of the kernel's leaf table laid out, once. Each ``update(gs,
@@ -192,7 +303,8 @@ class AdamWLeaves:
     ``fused_adamw_update_leaves`` (which builds one a call) does. The
     table holds the addresses of p, m and v: keep them (update in place)
     while it is in use; ``holds`` says whether it was built for given
-    tensors. On the CPU ``update`` runs the plain version leaf by leaf.
+    tensors at their present addresses. On the CPU ``update`` runs the
+    plain version leaf by leaf.
 
     The leaf table (``csrc/fused_adamw.cu``), int64 words: ``begin[0..L]``
     (each leaf's first chunk; ``begin[L]`` is the grid), then 8 words a
@@ -200,25 +312,12 @@ class AdamWLeaves:
     two zeros; one table and one launch for each combination of p, g and
     m/v dtypes, with the leaves of no elements left out."""
 
-    def __init__(self, ps, ms, vs, leaf_ids):
-        lists = (ps, ms, vs, leaf_ids)
-        if len({len(t) for t in lists}) != 1:
-            raise ValueError(f"AdamWLeaves takes lists of one length; got "
-                             f"{[len(t) for t in lists]}")
-        self._ps, self._ms, self._vs = list(ps), list(ms), list(vs)
-        self._ids = [int(i) for i in leaf_ids]
-        devices = {t.device.type for t in (*ps, *ms, *vs)}
-        if len(devices) > 1 or not devices <= {"cpu", "cuda"}:
-            raise ValueError(f"AdamWLeaves takes tensors all on the CPU or "
-                             f"all on CUDA; got {sorted(devices)}")
-        self._cuda = devices == {"cuda"}
-        if not self._cuda:
-            return
-        self._device = ps[0].device
-        for p, m, v in zip(ps, ms, vs):
+    _plain = staticmethod(fused_adamw_update_plain)
+
+    def _lay_out(self):
+        for p, m, v in zip(self._ps, self._ms, self._vs):
             _check_leaf(p, p, m, v, False, self._device)
-        self._live = [i for i, p in enumerate(ps) if p.numel()]
-        live = [(ps[i], ms[i], vs[i]) for i in self._live]
+        live = [(self._ps[i], self._ms[i], self._vs[i]) for i in self._live]
         self._shapes = [p.shape for p, _, _ in live]
         self._sizes = np.array([p.numel() for p, _, _ in live], np.int64)
         self._entries = np.zeros((len(live), 8), dtype=np.int64)
@@ -226,53 +325,13 @@ class AdamWLeaves:
             self._entries[:, [0, 2, 3]] = [[t.data_ptr() for t in leaf]
                                            for leaf in live]
         self._entries[:, 4] = self._sizes
-        self._leaf_ids = np.array([self._ids[i] for i in self._live],
-                                  np.int64)
         # dtype combination: 4 * p + 2 * g + m/v (g's added per update)
         self._pm = np.array([4 * _DTYPES[p.dtype] + _DTYPES[m.dtype]
                              for p, m, _ in live], np.int64)
-        self._f32_p = any(p.dtype != torch.bfloat16 for p, _, _ in live)
-
-    def holds(self, ps, ms, vs) -> bool:
-        """Whether this table was built for these very tensors."""
-        return all(len(a) == len(b) and all(map(operator.is_, a, b))
-                   for a, b in ((ps, self._ps), (ms, self._ms),
-                                (vs, self._vs)))
-
-    def update(self, gs, scalars, *, lr: float, wd: float, b1: float,
-               b2: float, eps: float = 1e-8, stoch_round: bool = False,
-               seed: int = 0) -> None:
-        """One AdamW step of every leaf with gradients ``gs`` (in the
-        leaves' order); ``scalars`` as for ``fused_adamw_update_leaves``."""
-        if len(gs) != len(self._ps):
-            raise ValueError(f"AdamWLeaves holds {len(self._ps)} leaves; "
-                             f"got {len(gs)} gradients")
-        if not gs:
-            return
-        args = dict(lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
-                    stoch_round=stoch_round, seed=seed)
-        if self._cuda:
-            self._update_cuda(gs, scalars, **args)
-            return
-        devices = {t.device.type for t in (*gs, scalars)}
-        if devices != {"cpu"}:
-            raise ValueError(f"fused_adamw takes tensors all on the CPU or "
-                             f"all on CUDA; got {sorted(devices | {'cpu'})}")
-        for p, g, m, v, leaf_id in zip(self._ps, gs, self._ms, self._vs,
-                                       self._ids):
-            fused_adamw_update_plain(p, g, m, v, scalars, leaf_id=leaf_id,
-                                     **args)
 
     def _update_cuda(self, gs, scalars, lr, wd, b1, b2, eps, stoch_round,
                      seed):
         device = self._device
-        if scalars.dtype != torch.float32 or scalars.numel() != 4 \
-                or scalars.device != device or not scalars.is_contiguous():
-            raise ValueError("scalars must be 4 contiguous float32 values "
-                             "on p's device")
-        if stoch_round and self._f32_p:
-            raise ValueError("stochastic rounding writes a bfloat16 p; got "
-                             "a float32 p")
         live = [gs[i] for i in self._live]
         g_codes = [_DTYPES.get(g.dtype, -1) for g in live]
         if -1 in g_codes or [g.shape for g in live] != self._shapes or \
@@ -286,8 +345,7 @@ class AdamWLeaves:
             return
         entries = self._entries.copy()
         entries[:, 1] = [g.data_ptr() for g in live]
-        entries[:, 5] = ((int(seed) & _MASK) + self._leaf_ids * 1000003) \
-            & _MASK
+        entries[:, 5] = self._keys(seed)
         combos = self._pm + 2 * np.array(g_codes, np.int64)
         lib = _build.load("fused_adamw")
         fn = _bind(lib)
@@ -299,19 +357,13 @@ class AdamWLeaves:
                 rows = np.flatnonzero(combos == combo)
                 begin = np.zeros(len(rows) + 1, dtype=np.int64)
                 np.cumsum(chunks[rows], out=begin[1:])
-                host = np.concatenate([begin, entries[rows].reshape(-1)])
-                # pinned, so the copy is asynchronous; the caching host
-                # allocator keeps the buffer until the copy has run
-                table = torch.from_numpy(host).pin_memory().to(
-                    device, non_blocking=True)
-                err = fn(table.data_ptr(), len(rows), int(begin[-1]),
-                         scalars.data_ptr(), int(combo) >> 2,
-                         (int(combo) >> 1) & 1, int(combo) & 1, lr, wd, b1,
-                         1 - b1, b2, 1 - b2, eps, int(stoch_round), stream)
-                if err != 0:
-                    raise RuntimeError(
-                        f"fused_adamw kernel launch failed: CUDA error "
-                        f"{err} ({lib.ptt_cuda_error_string(err).decode()})")
+                table = _upload(np.concatenate(
+                    [begin, entries[rows].reshape(-1)]), device)
+                _raise_on(fn(table.data_ptr(), len(rows), int(begin[-1]),
+                             scalars.data_ptr(), int(combo) >> 2,
+                             (int(combo) >> 1) & 1, int(combo) & 1, lr, wd,
+                             b1, 1 - b1, b2, 1 - b2, eps, int(stoch_round),
+                             stream), lib, "fused_adamw")
                 fused_adamw_update_leaves.launches += 1
 
 
@@ -456,67 +508,152 @@ def fused_adamw_update8_plain(p, g, mq, msc, vq, vsc, scalars, *,
     return p, mq, msc, vq, vsc
 
 
-def _check_cuda8(p, g, mq, msc, vq, vsc, scalars, stoch_round):
+def _check_leaf8(p, mq, msc, vq, vsc, device) -> None:
+    """A leaf as row 13's kernel takes it: float32/bfloat16 p ``[..., C]``
+    with C % 8 == 0, int8 codes ``[R, C]`` and f32 scales ``[R, 1]``, all
+    contiguous on ``device``; p 16-byte aligned, the codes 8-byte aligned
+    (a thread step is 8 elements: 16 bytes of bf16 p, 8 of each code
+    array)."""
     R, C = mq.shape if mq.dim() == 2 else (0, 0)
-    ok = (p.dtype in _DTYPES and g.dtype in _DTYPES
-          and mq.dtype == vq.dtype == torch.int8
+    ok = (p.dtype in _DTYPES and mq.dtype == vq.dtype == torch.int8
           and msc.dtype == vsc.dtype == torch.float32
           and mq.dim() == 2 and vq.shape == mq.shape
           and msc.shape == vsc.shape == (R, 1)
-          and p.numel() == g.numel() == R * C and p.shape[-1] == C
-          and g.shape == p.shape)
+          and p.dim() >= 1 and p.numel() == R * C and p.shape[-1] == C)
     if not ok:
         raise ValueError(
-            f"fused_adamw8 kernel takes float32/bfloat16 p, g of one shape "
-            f"[..., C], int8 codes [R, C] and f32 scales [R, 1]; got p "
-            f"{p.dtype}{tuple(p.shape)}, g {g.dtype}{tuple(g.shape)}, m_q "
-            f"{mq.dtype}{tuple(mq.shape)}, m_scale {msc.dtype}"
-            f"{tuple(msc.shape)}, v_q {vq.dtype}{tuple(vq.shape)}, v_scale "
-            f"{vsc.dtype}{tuple(vsc.shape)}")
-    if C % 4 or C > 28672:
-        raise ValueError(f"fused_adamw8 kernel keeps two f32 rows in "
-                         f"shared memory: C % 4 == 0 and C <= 28672; got "
-                         f"C={C}")
-    if stoch_round and p.dtype != torch.bfloat16:
-        raise ValueError("stochastic rounding writes a bfloat16 p; got "
-                         f"{p.dtype}")
-    for name, t in (("p", p), ("g", g), ("m_q", mq), ("m_scale", msc),
-                    ("v_q", vq), ("v_scale", vsc)):
-        if not t.is_contiguous() or t.device != p.device:
+            f"fused_adamw8 kernel takes a float32/bfloat16 p [..., C], int8 "
+            f"codes [R, C] and f32 scales [R, 1]; got p {p.dtype}"
+            f"{tuple(p.shape)}, m_q {mq.dtype}{tuple(mq.shape)}, m_scale "
+            f"{msc.dtype}{tuple(msc.shape)}, v_q {vq.dtype}{tuple(vq.shape)}"
+            f", v_scale {vsc.dtype}{tuple(vsc.shape)}")
+    if C % 8:
+        raise ValueError(f"fused_adamw8 kernel steps 8 elements of a row: "
+                         f"C % 8 == 0; got C={C}")
+    for name, t, align in (("p", p, 16), ("m_q", mq, 8), ("m_scale", msc, 4),
+                           ("v_q", vq, 8), ("v_scale", vsc, 4)):
+        if not t.is_contiguous() or t.device != device or t.data_ptr() % align:
             raise ValueError(f"fused_adamw8 kernel needs {name} contiguous "
-                             f"on {p.device}")
-    if scalars.dtype != torch.float32 or scalars.numel() != 4 \
-            or scalars.device != p.device or not scalars.is_contiguous():
-        raise ValueError("scalars must be 4 contiguous float32 values on "
-                         "p's device")
+                             f"on {device}, its base {align}-byte aligned")
 
 
-def _adamw8_cuda(p, g, mq, msc, vq, vsc, scalars, lr, wd, b1, b2, eps,
-                 stoch_round, leaf_id, seed):
-    _check_cuda8(p, g, mq, msc, vq, vsc, scalars, stoch_round)
+def _lib8():
     lib = _build.load("fused_adamw8")
-    fn = lib.ptt_fused_adamw8
+    fn = lib.ptt_fused_adamw8_leaves
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ctypes.c_longlong, i, i, i] + [f] * 7 \
-            + [ctypes.c_uint, i, vp]
+        fn.argtypes = [vp, i, ctypes.c_longlong, vp, i, i, f, f, f, f, f, f,
+                       f, i, vp]
         fn.restype = i
+        lib.ptt_fused_adamw8_block_elements.argtypes = []
+        lib.ptt_fused_adamw8_block_elements.restype = ctypes.c_longlong
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
-    R, C = mq.shape
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(p.data_ptr(), g.data_ptr(), mq.data_ptr(), msc.data_ptr(),
-                 vq.data_ptr(), vsc.data_ptr(), scalars.data_ptr(), R, C,
-                 _DTYPES[p.dtype], _DTYPES[g.dtype], lr, wd, b1, 1 - b1,
-                 b2, 1 - b2, eps, _key(seed, leaf_id), int(stoch_round),
-                 stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_adamw8 kernel launch failed: CUDA error {err} "
-            f"({lib.ptt_cuda_error_string(err).decode()})")
-    fused_adamw_update8.launches += 1
-    return p, mq, msc, vq, vsc
+    return lib
+
+
+def _rows_per_block(C: int, block: int) -> int:
+    """Rows of width C a block of row 13's kernel takes: its ``block``
+    elements (``ptt_fused_adamw8_block_elements``, whole block steps of
+    2048) when C is a multiple of 2048 that divides them, else one
+    row."""
+    return block // C if C % 2048 == 0 and block % C == 0 else 1
+
+
+class AdamW8Leaves(_LeafTable):
+    """Row 13 for a fixed list of leaves ``(ps[i], ms[i], vs[i])`` with SR
+    streams ``leaf_ids[i]``, where ``ms[i]`` is ``(m_q, m_scale)`` and
+    ``vs[i]`` is ``(v_q, v_scale)`` (``moment8_init``): the leaves are
+    checked, and their part of the kernel's leaf table laid out, once.
+    Each ``update(gs, scalars, **hp)`` checks the gradients, writes their
+    addresses and the step's Philox keys into the table and launches once
+    for each (p, g) dtype pair, exactly as ``fused_adamw_update8_leaves``
+    (which builds one a call) does. Like ``AdamWLeaves`` it holds
+    addresses: ``holds`` says whether it was built for given tensors at
+    their present addresses. On the CPU ``update`` runs the plain version
+    leaf by leaf.
+
+    The leaf table (``csrc/fused_adamw8.cu``), int64 words:
+    ``begin[0..L]`` (each leaf's first block; ``begin[L]`` is the grid),
+    then 10 words a leaf: the p, g, m code, m scale, v code and v scale
+    addresses, R, C, the rows a block takes (``_rows_per_block``), the
+    Philox key; the leaves of no elements left out."""
+
+    @staticmethod
+    def _plain(p, g, m, v, scalars, **kw):
+        fused_adamw_update8_plain(p, g, *m, *v, scalars, **kw)
+
+    def _lay_out(self):
+        for p, m, v in zip(self._ps, self._ms, self._vs):
+            _check_leaf8(p, *m, *v, self._device)
+        self._shapes = [self._ps[i].shape for i in self._live]
+        self._entries = np.zeros((len(self._live), 10), dtype=np.int64)
+        block = _lib8().ptt_fused_adamw8_block_elements()
+        for row, i in enumerate(self._live):
+            R, C = self._ms[i][0].shape
+            self._entries[row, [0, 2, 3, 4, 5]] = [
+                t.data_ptr()
+                for t in (self._ps[i], *self._ms[i], *self._vs[i])]
+            self._entries[row, 6:9] = R, C, _rows_per_block(C, block)
+        # a block a group of rows: begin[] counts blocks
+        self._blocks = -(-self._entries[:, 6] // self._entries[:, 8])
+        self._p_codes = np.array(
+            [_DTYPES[self._ps[i].dtype] for i in self._live], np.int64)
+
+    def _update_cuda(self, gs, scalars, lr, wd, b1, b2, eps, stoch_round,
+                     seed):
+        device = self._device
+        live = [gs[i] for i in self._live]
+        g_codes = [_DTYPES.get(g.dtype, -1) for g in live]
+        if -1 in g_codes or [g.shape for g in live] != self._shapes or \
+                not all(g.is_contiguous() and g.device == device
+                        and g.data_ptr() % 16 == 0 for g in live):
+            got = [(g.dtype, tuple(g.shape)) for g in gs]
+            raise ValueError(
+                f"fused_adamw8 kernel takes float32/bfloat16 gradients of "
+                f"their leaves' shapes, contiguous on {device} with 16-byte "
+                f"aligned bases; got {got}")
+        if not live:
+            return
+        entries = self._entries.copy()
+        entries[:, 1] = [g.data_ptr() for g in live]
+        entries[:, 9] = self._keys(seed)
+        combos = 2 * self._p_codes + np.array(g_codes, np.int64)
+        lib = _lib8()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for combo in np.unique(combos):
+                sel = np.flatnonzero(combos == combo)
+                begin = np.zeros(len(sel) + 1, dtype=np.int64)
+                np.cumsum(self._blocks[sel], out=begin[1:])
+                table = _upload(np.concatenate(
+                    [begin, entries[sel].reshape(-1)]), device)
+                _raise_on(lib.ptt_fused_adamw8_leaves(
+                    table.data_ptr(), len(sel), int(begin[-1]),
+                    scalars.data_ptr(), int(combo) >> 1, int(combo) & 1, lr,
+                    wd, b1, 1 - b1, b2, 1 - b2, eps, int(stoch_round),
+                    stream), lib, "fused_adamw8")
+                fused_adamw_update8.launches += 1
+
+
+def fused_adamw_update8_leaves(ps, gs, ms, vs, scalars, leaf_ids, *,
+                               lr: float, wd: float, b1: float, b2: float,
+                               eps: float = 1e-8, stoch_round: bool = False,
+                               seed: int = 0) -> None:
+    """One-pass AdamW with int8 moments on a list of leaves, in place:
+    leaf ``i`` is ``(ps[i], gs[i], ms[i], vs[i])`` with ``ms[i] = (m_q,
+    m_scale)``, ``vs[i] = (v_q, v_scale)`` and SR stream ``leaf_ids[i]``,
+    each updated exactly as ``fused_adamw_update8`` would update it
+    alone. CPU tensors take the plain version leaf by leaf; CUDA tensors
+    one kernel launch for each (p, g) dtype pair in the list. A caller
+    that updates the same leaves every step keeps an ``AdamW8Leaves``."""
+    if len({len(t) for t in (ps, gs, ms, vs, leaf_ids)}) != 1:
+        raise ValueError(f"fused_adamw_update8_leaves takes lists of one "
+                         f"length; got {[len(t) for t in (ps, gs, ms, vs)]}"
+                         f" and {len(leaf_ids)} leaf ids")
+    AdamW8Leaves(ps, ms, vs, leaf_ids).update(
+        gs, scalars, lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
+        stoch_round=stoch_round, seed=seed)
 
 
 def fused_adamw_update8(p, g, mq, msc, vq, vsc, scalars, *, lr: float,
@@ -527,17 +664,13 @@ def fused_adamw_update8(p, g, mq, msc, vq, vsc, scalars, *, lr: float,
     returns ``(p, m_q, m_scale, v_q, v_scale)``. ``mq``/``vq`` ``[R, C]``
     int8 codes of m and sqrt(v), ``msc``/``vsc`` their ``[R, 1]`` f32
     scales (``moment8_init``); otherwise as ``fused_adamw_update``. CPU
-    tensors take the plain version, CUDA tensors the kernel."""
-    args = dict(lr=lr, wd=wd, b1=b1, b2=b2, eps=eps,
-                stoch_round=stoch_round, leaf_id=leaf_id, seed=seed)
-    tensors = (p, g, mq, msc, vq, vsc, scalars)
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return fused_adamw_update8_plain(*tensors, **args)
-    if devices == {"cuda"}:
-        return _adamw8_cuda(*tensors, **args)
-    raise ValueError(f"fused_adamw_update8 takes tensors all on the CPU or "
-                     f"all on CUDA; got {sorted(devices)}")
+    tensors take the plain version, CUDA tensors the kernel
+    (``fused_adamw_update8_leaves`` with a list of one)."""
+    fused_adamw_update8_leaves([p], [g], [(mq, msc)], [(vq, vsc)], scalars,
+                               [leaf_id], lr=lr, wd=wd, b1=b1, b2=b2,
+                               eps=eps, stoch_round=stoch_round, seed=seed)
+    return p, mq, msc, vq, vsc
 
 
+# row 13's launches, whichever entry made them
 fused_adamw_update8.launches = 0

@@ -11,7 +11,9 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
 - the RTN quantize: ``quantize_rowwise`` (:47, plain), ``_apply_act``
   (:71, f32 tanh-gelu), ``quantize_rowwise_fast`` (:140), and the two
   kernels behind it, ``quantize_rows`` (``_rowq_call`` :114, kernel row
-  8: per-row scales, optionally of gelu(x)) and ``quantize_cols``
+  8: per-row scales, optionally of gelu(x); on the card the row stays in
+  registers, a warp a row or a block a row by shape, up to K = 16384,
+  and longer rows are staged in shared memory) and ``quantize_cols``
   (``_colq_call`` :129, row 9: per-column scales);
 - the SR column quantize ``sr_quantize_colwise`` (:479, the kernel of
   ``_sr_colq_pallas`` :447, row 12): per-column scales, codes
@@ -293,8 +295,9 @@ def _stream(t):
 
 
 # a block's shared memory on Hopper after the opt-in (232,448 bytes),
-# less the block reductions' static scratch: the row kernels stage a row
-# of K floats there (the int8 CE head's dlg rows have K = vocab, 50304)
+# less the block reductions' static scratch: row 10, and row 8 past the
+# K = 16384 it keeps in registers, stage a row of K floats there (the
+# int8 CE head's dlg rows have K = vocab, 50304)
 _ROW_MAX_K = (232448 - 64) // 4
 
 

@@ -15,7 +15,8 @@ streams of different (step, leaf) pairs differ, and inf/nan are kept.
 The list entry ``fused_adamw_update_leaves`` is held to the per-leaf
 plain version bit for bit, SR on, on mixed shapes and in any list
 order, and so is an ``AdamWLeaves`` table kept over steps with new
-gradients each step. On the card (tests marked ``cuda``) the kernel is held to the
+gradients each step; a kept table no longer holds a leaf whose storage
+was swapped. On the card (tests marked ``cuda``) the kernel is held to the
 plain version bit for bit, SR included: one leaf, every dtype
 combination of a list with odd lengths and a misaligned view, and 300
 leaves in one launch.
@@ -257,6 +258,18 @@ def test_kept_table_equals_per_leaf_plain_over_steps():
         table.update([torch.zeros(1)] * 2, sc, **kw)
     with pytest.raises(ValueError, match="one length"):
         AdamWLeaves([torch.zeros(1)], [], [], [0])
+
+
+def test_holds_sees_a_swapped_storage():
+    """A kept table holds the leaves' addresses: after ``p.data =
+    p.data.clone()`` it no longer holds that leaf (it would write at the
+    old address), so the trainer lays it out again."""
+    p, _, m, v = _leaves("cpu")[0]
+    table = AdamWLeaves([p], [m], [v], [0])
+    assert table.holds([p], [m], [v])
+    p.data = p.data.clone()
+    assert not table.holds([p], [m], [v])
+    assert AdamWLeaves([p], [m], [v], [0]).holds([p], [m], [v])
 
 
 @pytest.fixture

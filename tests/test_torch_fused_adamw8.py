@@ -20,8 +20,16 @@ reference (``paddle_tpu.ops.fused_adamw``, JAX on the CPU).
   seeds within 4 standard errors of the value.
 - With stochastic rounding on, p's bits equal the bf16-moment kernel's
   (row 14) for the same step and leaf: the two share Philox stream 0.
+- The list entry ``fused_adamw_update8_leaves``, and an ``AdamW8Leaves``
+  table kept over two steps with new gradient tensors, give each leaf
+  (C 128 to 8192, a leaf of one row, a 3-D leaf) bit for bit what the
+  per-leaf plain version gives it; a kept table no longer holds a leaf
+  whose storage was swapped.
 - On the card (tests marked ``cuda``) the kernel equals the plain
-  version bit for bit.
+  version bit for bit: one leaf, and lists of every (p, g) dtype pair
+  kept over two steps in one launch a step, with a row past the 8192
+  elements a thread keeps in registers, zeros and values too small for
+  the fast division.
 """
 import types
 
@@ -29,8 +37,10 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.fused_adamw import (fused_adamw_update,
+from paddle_tpu_torch.ops.fused_adamw import (AdamW8Leaves,
+                                              fused_adamw_update,
                                               fused_adamw_update8,
+                                              fused_adamw_update8_leaves,
                                               fused_adamw_update8_plain,
                                               moment8_eligible, moment8_init,
                                               moment8_unpack)
@@ -43,6 +53,10 @@ GPT_1P3B_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
                    (50304, 2048), (1024, 2048), (2048,), (6144,), (8192,)]
 EDGE_SHAPES = [(64, 384), (8, 128), (7, 128), (8, 100), (255, 256),
                (4, 16, 1024), (16, 32768), (8, 65536), (128, 512)]
+# the list entry's leaves: C from 128 to 8192, a leaf of one row, a 3-D
+# leaf ([8, 256] codes), and their SR streams
+LIST_SHAPES = [(24, 128), (8, 2048), (1, 2048), (8, 8192), (2, 4, 256)]
+LIST_IDS = [3, 40, 7, 0, 91]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,9 +86,10 @@ def _state(shape, seed):
     vq = rng.randint(0, 128, shape).astype(np.int8)
     msc = (10.0 ** rng.uniform(-4, -2, (R, 1))).astype(np.float32)
     vsc = (10.0 ** rng.uniform(-4, -2, (R, 1))).astype(np.float32)
-    g[3] = 0
-    mq[3] = 0
-    vq[3] = 0
+    if R > 3:
+        g[3] = 0
+        mq[3] = 0
+        vq[3] = 0
     return p, g, mq, msc, vq, vsc
 
 
@@ -192,6 +207,83 @@ def test_master_sr_bits_equal_the_bf16_moment_kernel():
     assert not torch.equal(row13, tp)
 
 
+def _list_leaves(shapes, device="cpu", p_dtype=torch.bfloat16,
+                 g_dtype=torch.bfloat16, seed=10):
+    """Leaves ``(p, g, (m_q, m_scale), (v_q, v_scale))`` of ``shapes``
+    (codes ``[R, C]`` with C the last dim), each with elements whose m2
+    and v2 come out 0 and elements whose m2 and sqrt(v2) fall below the
+    fast division's range (g 1e-20, codes 0)."""
+    out = []
+    for i, shape in enumerate(shapes):
+        C = shape[-1]
+        p, g, mq, msc, vq, vsc = _state((int(np.prod(shape)) // C, C),
+                                        seed + i)
+        g[:, ::7], mq[:, ::7], vq[:, ::7] = 0, 0, 0
+        g[:, 5::13], mq[:, 5::13], vq[:, 5::13] = 1e-20, 0, 0
+        p, g, mq, msc, vq, vsc = (t.to(device) for t in _torch(
+            p, g, mq, msc, vq, vsc))
+        out.append((p.reshape(shape).to(p_dtype),
+                    g.reshape(shape).to(g_dtype), (mq, msc), (vq, vsc)))
+    return out
+
+
+def _copies(leaves):
+    return [(p.clone(), g, tuple(t.clone() for t in m),
+             tuple(t.clone() for t in v)) for p, g, m, v in leaves]
+
+
+def _assert_leaves_equal(got, want):
+    for k, ((p, _, m, v), (wp, _, wm, wv)) in enumerate(zip(got, want)):
+        for name, a, b in zip(("p", "m_q", "m_scale", "v_q", "v_scale"),
+                              (p, *m, *v), (wp, *wm, *wv)):
+            assert torch.equal(a, b), f"leaf {k}: {name} differs"
+
+
+def _kept_steps(leaves, ids, sc, kw, steps=2):
+    """An ``AdamW8Leaves`` kept over ``steps`` steps (new gradient
+    tensors and seed each step) and the per-leaf plain version, on
+    copies of ``leaves``; returns (kept, plain, the table's launches)."""
+    kept, plain = _copies(leaves), _copies(leaves)
+    ps, _, ms, vs = zip(*kept)
+    table = AdamW8Leaves(ps, ms, vs, ids)
+    assert table.holds(ps, ms, vs)
+    assert not table.holds([p for p, *_ in plain], ms, vs)
+    before = fused_adamw_update8.launches
+    for step in range(steps):
+        grads = [g * (1 + step) for _, g, _, _ in leaves]
+        args = dict(kw, seed=kw["seed"] + step)
+        table.update(grads, sc, **args)
+        for (p, _, m, v), g, i in zip(plain, grads, ids):
+            fused_adamw_update8_plain(p, g, *m, *v, sc, leaf_id=i, **args)
+    return kept, plain, fused_adamw_update8.launches - before
+
+
+def test_list_entry_and_kept_table_equal_per_leaf_plain():
+    leaves = _list_leaves(LIST_SHAPES)
+    sc = torch.from_numpy(_scalars())
+    kw = dict(HP, stoch_round=True, seed=STEP)
+    got = _copies(leaves)
+    before = fused_adamw_update8.launches
+    fused_adamw_update8_leaves(*map(list, zip(*got)), sc, LIST_IDS, **kw)
+    assert fused_adamw_update8.launches == before         # CPU: plain
+    want = _copies(leaves)
+    for (p, g, m, v), i in zip(want, LIST_IDS):
+        fused_adamw_update8_plain(p, g, *m, *v, sc, leaf_id=i, **kw)
+    _assert_leaves_equal(got, want)
+    assert not torch.equal(got[0][0], leaves[0][0])
+    kept, plain, launches = _kept_steps(leaves, LIST_IDS, sc, kw)
+    assert launches == 0
+    _assert_leaves_equal(kept, plain)
+    # the kept table holds addresses: a swapped storage is not held
+    ps, _, ms, vs = zip(*kept)
+    table = AdamW8Leaves(ps, ms, vs, LIST_IDS)
+    ps[1].data = ps[1].data.clone()
+    assert not table.holds(ps, ms, vs)
+    with pytest.raises(ValueError, match="one length"):
+        fused_adamw_update8_leaves(list(ps), [], list(ms), list(vs), sc,
+                                   LIST_IDS, **kw)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -216,3 +308,21 @@ def test_cuda_kernel_matches_plain_bit_for_bit(cuda, p_dtype, sr):
     assert fused_adamw_update8.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    ("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+    ("float32", "bfloat16"), ("float32", "float32")])
+def test_cuda_list_kernel_matches_plain_bit_for_bit(cuda, p_dtype, g_dtype):
+    """The trainer's way on the card: an ``AdamW8Leaves`` kept over two
+    steps, one launch a step, SR on with a bf16 p; a row of 16384 takes
+    the steps past the 8192 elements a thread keeps in registers."""
+    leaves = _list_leaves(LIST_SHAPES + [(16, 16384)], cuda,
+                          getattr(torch, p_dtype), getattr(torch, g_dtype))
+    sc = torch.from_numpy(_scalars()).to(cuda)
+    kw = dict(HP, stoch_round=p_dtype == "bfloat16", seed=STEP)
+    kept, plain, launches = _kept_steps(leaves, LIST_IDS + [12], sc, kw)
+    torch.cuda.synchronize()
+    assert launches == 2
+    _assert_leaves_equal(kept, plain)

@@ -12,18 +12,27 @@ One jitted reference step (value_and_grad of ``_forward_loss``, then
 ``_adamw``: the trainer's own step) runs three times in a module
 fixture.
 
+The same jitted step also takes one step, then has its ``params``
+reassigned to nudged copies (numpy, through ``gpt_params_from_numpy``
+on the port's side) and takes the next: the reference reassigns
+``trainer.params`` every step, and the port's trainer must take the new
+tree with the optimizer state kept by leaf position.
+
 Tolerances (f32 on both sides, another summation order): step-0 loss
 ``atol=1e-5``; gradients ``atol=1e-6, rtol=1e-4``; the three-step loss
-trajectory ``atol=1e-5``; parameters after three steps ``atol=1e-4``, a
-third of one Adam step (lr 3e-4): Adam divides by sqrt(v), so a 1e-8
-gradient difference on a leaf element with a tiny v moves its update
-by a visible fraction of a step, never by more.
+trajectory, and the loss after the reassignment, ``atol=1e-5``;
+parameters after three steps, and after the step that follows the
+reassignment, ``atol=1e-4``, a third of one Adam step (lr 3e-4): Adam
+divides by sqrt(v), so a 1e-8 gradient difference on a leaf element
+with a tiny v moves its update by a visible fraction of a step, never
+by more.
 """
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.models.convert import (gpt_params_to_numpy,
+from paddle_tpu_torch.models.convert import (gpt_params_from_numpy,
+                                             gpt_params_to_numpy,
                                              gpt_trainer_from_jax_params)
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTTrainer,
                                          block_shapes, flatten_params,
@@ -65,6 +74,19 @@ def _np_params(seed: int):
     return params
 
 
+def _nudged(np_params):
+    """``np_params`` with every leaf moved by ~1% of itself (numpy, a
+    fixed seed): the tree a caller assigns to ``trainer.params``."""
+    rng = np.random.RandomState(2)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return (node * (1 + 0.01 * rng.standard_normal(node.shape))
+                ).astype(np.float32)
+    return walk(np_params)
+
+
 def _batch():
     rng = np.random.RandomState(1)
     ids = rng.randint(0, TINY["vocab_size"], (B, T)).astype(np.int32)
@@ -74,9 +96,11 @@ def _batch():
 @pytest.fixture(scope="module")
 def ref():
     """Three steps of the reference trainer: per-step losses, the step-0
-    gradients, and the parameters after the last step (all numpy).
-    JAX is imported here: the card's machine runs this file's cuda test
-    without it."""
+    gradients, and the parameters after the last step; and from step 0's
+    optimizer state, one step of ``_nudged`` parameters assigned after
+    it: its loss and the parameters it gives (all numpy). JAX is
+    imported here: the card's machine runs this file's cuda test without
+    it."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -103,6 +127,7 @@ def ref():
     params, opt_state = jax.device_put((tr.params, tr.opt_state),
                                        NamedSharding(mesh, P()))
     losses = []
+    nudged = _nudged(np_params)
     with jax.set_mesh(mesh):
         for i in range(STEPS):
             loss, grads = loss_and_grads(params, ids, labels)
@@ -110,8 +135,16 @@ def ref():
             losses.append(float(loss))
             if i == 0:
                 grads0 = jax.tree.map(np.asarray, grads)
+                opt_state0 = opt_state
+        # trainer.params = nudged after step 0, then the next step
+        assigned = jax.device_put(jax.tree.map(jnp.asarray, nudged),
+                                  NamedSharding(mesh, P()))
+        loss, grads = loss_and_grads(assigned, ids, labels)
+        assigned, _ = adamw(assigned, grads, opt_state0)
     return {"np_params": np_params, "losses": losses, "grads0": grads0,
-            "params": jax.tree.map(np.asarray, params)}
+            "params": jax.tree.map(np.asarray, params),
+            "reassigned": {"np_params": nudged, "loss": float(loss),
+                           "params": jax.tree.map(np.asarray, assigned)}}
 
 
 def _leaves(tree):
@@ -166,6 +199,31 @@ def test_three_step_trajectory_matches_reference(ref):
     got = _leaves(gpt_params_to_numpy(port.params))
     for g, w in zip(got, _leaves(ref["params"])):
         np.testing.assert_allclose(g, w, atol=1e-4)
+
+
+def test_reassigned_params_take_the_next_step_as_the_reference(ref):
+    """One step, then ``port.params = `` the reference's reassigned tree:
+    the next step's loss and parameters match the reference's, with the
+    AdamW state of step 0 kept by leaf position."""
+    port = _port(ref["np_params"])
+    ids, labels = _batch()
+    port.train_step(ids, labels)
+    want = ref["reassigned"]
+    cfg = GPTConfig(**TINY, dtype="float32")
+    port.params = gpt_params_from_numpy(want["np_params"], cfg,
+                                        device="cpu", dtype="float32")
+    loss = float(port.train_step(ids, labels))
+    assert port.opt_state["step"] == 2
+    np.testing.assert_allclose(loss, want["loss"], atol=1e-5)
+    got = _leaves(gpt_params_to_numpy(port.params))
+    for g, w in zip(got, _leaves(want["params"])):
+        np.testing.assert_allclose(g, w, atol=1e-4)
+    # a tree that is not the trainer's is refused
+    bad = gpt_params_from_numpy(want["np_params"], cfg, device="cpu",
+                                dtype="float32")
+    bad["wpe"] = bad["wpe"][:-1]
+    with pytest.raises(ValueError, match="wpe"):
+        port.params = bad
 
 
 def test_converter_round_trip_in_both_layouts(ref):

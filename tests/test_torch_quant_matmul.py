@@ -32,6 +32,10 @@ all-zero row and column) and handed to both packages.
   2.4%), and its mean over seeds converges to the exact product.
 - The seed derivation equals the reference's int32 arithmetic, wrap
   included.
+- On the card (tests marked ``cuda``) every kernel equals its plain
+  version bit for bit: row 8 at each of its routes (a warp a row, a
+  block a row, the long rows of the int8 CE head, the decode shapes),
+  row 12 on both of its routes.
 """
 import numpy as np
 import pytest
@@ -267,18 +271,34 @@ def cuda():
     return torch.device("cuda")
 
 
+# row 8's routes (csrc/quantize.cu, picked from the shape): a block a
+# row (K = 8192; the decode shapes M = 1, 8 at K = 5504 and 2048), a warp
+# a row (M >= 1024, K <= 2048), and the rows staged in shared memory (K
+# = 50304, the int8 CE head's; K = 200, not a multiple of 16)
+ROW8_SHAPES = [(96, 200), (96, 8192), (1, 5504), (8, 2048), (1024, 2048),
+               (1024, 128), (3, 50304)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("gelu", [False, True])
-def test_cuda_kernels_match_plain_bit_for_bit(cuda, dtype, gelu):
-    x = torch.from_numpy(_x((96, 200), 8, zero_row=2, zero_col=5)).to(
+@pytest.mark.parametrize("shape", ROW8_SHAPES)
+def test_cuda_kernels_match_plain_bit_for_bit(cuda, dtype, gelu, shape):
+    """Rows 8, 9 and 12 against their plain versions, an all-zero row
+    and column included: row 8 at every route, the column kernels where
+    the rows are a multiple of 16."""
+    zero_row = shape[0] // 2 if shape[0] > 1 else None
+    x = torch.from_numpy(_x(shape, 8, zero_row=zero_row, zero_col=5)).to(
         cuda, getattr(torch, dtype))
     act = "gelu" if gelu else None
-    pairs = [(qm.quantize_rows(x, act), qm.quantize_rows_plain(x, act)),
-             (qm.sr_quantize_colwise(x, 77, act),
-              qm.sr_quantize_colwise_plain(x, 77, act))]
-    if not gelu:
-        pairs.append((qm.quantize_cols(x), qm.quantize_cols_plain(x)))
+    before = qm.quantize_rows.launches
+    pairs = [(qm.quantize_rows(x, act), qm.quantize_rows_plain(x, act))]
+    assert qm.quantize_rows.launches == before + 1
+    if shape[0] % 16 == 0:
+        pairs.append((qm.sr_quantize_colwise(x, 77, act),
+                      qm.sr_quantize_colwise_plain(x, 77, act)))
+        if not gelu:
+            pairs.append((qm.quantize_cols(x), qm.quantize_cols_plain(x)))
     torch.cuda.synchronize()
     for got, want in pairs:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
