@@ -476,7 +476,8 @@ def hot_path(ins) -> dict:
     """The instructions a thread executes on a straight-line kernel's
     common path, from its SASS (``sass_function``): the subroutines (the
     CALLed slow paths of the correctly rounded division and square root,
-    placed after the kernel's code), the code a conditional branch skips
+    placed after the kernel's code), the branches to a shuffle's
+    divergent fallback (BRA.DIV), the code a conditional branch skips
     around a CALL (the call's set-up), the code after an unconditional
     forward branch up to its target, loop bodies (the rare loops) and
     NOPs left out. Returns {"instructions", "path": their addresses,
@@ -485,7 +486,9 @@ def hot_path(ins) -> dict:
     [(start, end)]}."""
     calls = [branch_target(a) for _, _, o, a in ins if o.startswith("CALL")]
     end = min(calls) if calls else ins[-1][0] + 1
-    main = [i for i in ins if i[0] < end]
+    # BRA.DIV leaves for a shuffle's fallback only when the warp has
+    # diverged, never on the common path: neither a skip nor a guard
+    main = [i for i in ins if i[0] < end and not i[2].startswith("BRA.DIV")]
     loops = [(branch_target(a), addr) for addr, _, o, a in main
              if o.startswith("BRA") and branch_target(a) is not None
              and branch_target(a) <= addr]
@@ -517,8 +520,9 @@ def phase_ptxas(sos):
     """ptxas's report on the flash kernels and row 7's (-Xptxas -v, kept
     beside each library as lib<name>-<hash>.log): each kernel's register
     and spill lines and any wgmma serialisation note, in the order ptxas
-    compiled the kernels, by library; and rows 8's and 13's kernels by
-    name: registers, spills, blocks an SM."""
+    compiled the kernels, by library; and the register kernels of rows
+    8 and 10, the one-read column kernel of rows 9 and 12 and row 13's
+    kernel by name: registers, spills, blocks an SM."""
     out = {}
     for so in sos:
         name = so.name.split("-")[0][3:]
@@ -532,12 +536,14 @@ def phase_ptxas(sos):
         if so.name.startswith(("libfused_adamw8-", "libquantize-")):
             kernels.update(ptxas_kernels(so.with_suffix(".log"),
                                          ("adamw8_rows_kernel",
-                                          "rowq_regs_kernel")))
-    emit({"phase": "ptxas", "lines": out, "rows_8_13": kernels})
+                                          "rowq_regs_kernel",
+                                          "rowq_ln_regs_kernel",
+                                          "col_cluster_kernel")))
+    emit({"phase": "ptxas", "lines": out, "rows_8_9_10_12_13": kernels})
     if not out.get("int4_matmul") or not kernels or not any(
             k.startswith("flash_attention") and v for k, v in out.items()):
         raise AssertionError("no -Xptxas -v report for the flash, int4, "
-                             "row 8 or row 13 kernels")
+                             "quantize or row 13 kernels")
 
 
 def ptxas_kernels(log, names) -> dict:
@@ -926,7 +932,9 @@ ROWQ_CASES += [(M, K, False, f"Int8Linear x, decode path (M={M})")
                for M in (1, 8, 64, 512) for K in (2048, 5504)]
 COLQ_CASES = [(D_MODEL, 3 * D_MODEL, False, "wqkv (fwd)"),
               (D_MODEL, F_FFN, False, "win (fwd)"),
-              (F_FFN, D_MODEL, False, "wout (fwd)")]
+              (F_FFN, D_MODEL, False, "wout (fwd)"),
+              (50304, D_MODEL, False,
+               "tied head chunk [V, D] (ce_int8 dx, ce_chunks=1)")]
 SRQ_CASES = [(M_TOK, D_MODEL, False, "LN output (qkv, ffn1 wgrad)"),
              (M_TOK, F_FFN, True, "ffn1_out, gelu fused (ffn2 wgrad)"),
              (M_TOK, 3 * D_MODEL, False, "g of qkv (wgrad)"),
@@ -956,23 +964,34 @@ def check_equal(torch, name, got, want) -> None:
 
 
 def sr_laws(torch, name, x, q, scale, act) -> dict:
-    """Row 12's laws on the card: every code the floor or the ceiling of
-    act(x) / scale, and an all-zero column at scale 1/127 with codes 0."""
+    """Row 12's laws on the card: every code floor(v) or floor(v) + 1 for
+    v = act(x) / scale (clipped to [-127, 127]), and an all-zero column at
+    scale 1/127 with codes 0. floor(v) + 1 is ceil(v) but where v is an
+    integer: there the f32 sum v + u (u <= 1 - 2^-23, the reference's
+    uniform) can round up to v + 1, as it does in the reference's
+    arithmetic; such codes are counted."""
     from paddle_tpu_torch.ops.quant_matmul import _apply_act
     v = _apply_act(x.float(), act) / scale
     qf = q.float()
-    ok = (qf == torch.floor(v).clamp(-127, 127)) | \
-        (qf == torch.ceil(v).clamp(-127, 127))
+    lo = torch.floor(v)
+    ok = (qf == lo.clamp(-127, 127)) | (qf == (lo + 1).clamp(-127, 127))
     if not bool(ok.all()):
-        raise AssertionError(f"{name}: {int((~ok).sum())} SR codes are "
-                             f"neither floor nor ceil of x / scale")
+        bad = (~ok).nonzero()[:4].tolist()
+        raise AssertionError(
+            f"{name}: {int((~ok).sum())} SR codes are neither floor(v) nor "
+            f"floor(v) + 1 of v = x / scale, e.g. at {bad}: v "
+            f"{[v[i, j].item() for i, j in bad]}, codes "
+            f"{[qf[i, j].item() for i, j in bad]}")
+    up = int(((v == lo) & (qf == (lo + 1).clamp(-127, 127))
+              & (qf != lo.clamp(-127, 127))).sum())
     zero = (x == 0).all(0)
     if bool(zero.any()) and not (
             bool((scale[0, zero] == 1.0 / 127.0).all())
             and bool((q[:, zero] == 0).all())):
         raise AssertionError(f"{name}: an all-zero column is not at scale "
                              f"1/127 with codes 0")
-    return {"floor_or_ceil": True, "zero_columns": int(zero.sum())}
+    return {"floor_or_ceil": True, "integer_quotients_rounded_up": up,
+            "zero_columns": int(zero.sum())}
 
 
 def sr_unbiased(torch, quantize, exact) -> dict:
@@ -1025,7 +1044,7 @@ def sr_instructions(torch, gelu: bool) -> dict:
     card's top clock."""
     from paddle_tpu_torch.ops import _build
     loops = sass_loops(_build.build(["quantize"])[0],
-                       f"col_sr_cluster_kernelI13__nv_bfloat16Li{int(gelu)}E")
+                       f"col_cluster_kernelI13__nv_bfloat16Li{int(gelu)}ELb1E")
 
     def n(loop, prefix):
         return sum(v for op, v in loop["ops"].items() if op.startswith(prefix))
@@ -1071,6 +1090,62 @@ def rowq_instructions(torch, cases) -> dict:
                             f"{int(gelu)}ELi{nu}ELb{int(warp)}E")
         out[gelu, warp, nu] = hot_path(ins)["instructions"] / (16 * nu)
     return out
+
+
+def colq_instructions(torch) -> dict:
+    """Row 9's one-read kernel (bf16 x, RTN) from its SASS: the
+    instructions a value of its three innermost loops, each counted over
+    the values one pass of its body takes: the copies (cp.async of
+    16-byte vectors, 8 values each), the maxima (16-byte vectors read
+    back from shared memory) and the cast (an item of 4 columns x 16
+    rows, 64 values, stored as 4 16-byte runs: the loop with the 16-byte
+    global stores and no call to __fdiv_rn's slow path)."""
+    from paddle_tpu_torch.ops import _build
+    loops = sass_loops(_build.build(["quantize"])[0],
+                       "col_cluster_kernelI13__nv_bfloat16Li0ELb0E")
+
+    def n(loop, prefix):
+        return sum(v for op, v in loop["ops"].items() if op.startswith(prefix))
+
+    def innermost(lp):
+        return not any(o is not lp and lp["start"] <= o["start"]
+                       and o["end"] <= lp["end"] for o in loops)
+
+    def pick(what, keep):
+        found = [lp for lp in loops if innermost(lp) and keep(lp)]
+        if not found:
+            raise AssertionError(f"row 9 SASS: no {what} loop among "
+                                 f"{[lp['ops'] for lp in loops]}")
+        return max(found, key=lambda lp: lp["instructions"])
+    copy = pick("copy", lambda lp: n(lp, "LDGSTS"))
+    maxima = pick("maxima", lambda lp: n(lp, "LDS.128")
+                  and not n(lp, "STG") and not n(lp, "LDGSTS"))
+    cast = pick("cast", lambda lp: n(lp, "STG.E.128") >= 4
+                and not n(lp, "CALL"))
+    per = {"copy": copy["instructions"] / (8 * n(copy, "LDGSTS")),
+           "maxima": maxima["instructions"] / (8 * n(maxima, "LDS.128")),
+           "cast": cast["instructions"] / (64 * (n(cast, "STG.E.128") // 4))}
+    return {"instructions_per_value": per, "per_value": sum(per.values())}
+
+
+def rowln_instructions(torch) -> dict:
+    """Row 10's kernel at the trainer's K = 2048 (a warp a row, 64 bf16
+    values a lane) from its SASS: the common path of the loop that walks
+    rows (``hot_path`` over its body: the CALLed slow paths of the
+    correctly rounded divisions and square root and their set-up, and
+    the loop that casts a unit again through __fdiv_rn, left out) over
+    the 64 values a lane takes a row. The block's one load of g and b,
+    before the loop, is left out."""
+    from paddle_tpu_torch.ops import _build
+    ins = sass_function(_build.build(["quantize"])[0],
+                        "rowq_ln_regs_kernelI13__nv_bfloat16Li4ELb1E")
+    loops = sass_loops(_build.build(["quantize"])[0],
+                       "rowq_ln_regs_kernelI13__nv_bfloat16Li4ELb1E")
+    rows = loops[0]                       # the largest: the row loop
+    body = [i for i in ins if rows["start"] <= i[0] < rows["end"]]
+    path = hot_path(body)
+    return {"row_loop_instructions": rows["instructions"],
+            "per_value": path["instructions"] / 64}
 
 
 def adamw8_instructions(torch) -> dict:
@@ -1137,6 +1212,30 @@ def instruction_floor_ms(torch, per_value: float, values: int,
     return per_value * values / (sms * 4 * 32 * clock_hz) * 1e3
 
 
+def colq_routes_check(torch, gen) -> list:
+    """Both of row 9's routes against the plain version, bit for bit: R
+    at the one-read limit and 16 rows past it (the two-pass pair), bf16
+    x, 64 columns with an all-zero one."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    limit = qm.cols_one_read_max_rows(torch.bfloat16)
+    out = []
+    for R in (limit, limit + 16):
+        x = quant_input(torch, R, 64, gen, zero_col=True)
+        check_equal(torch, f"quantize_cols {R}x64", qm.quantize_cols(x),
+                    qm.quantize_cols_plain(x))
+        out.append({"rows": R, "route": colq_route(torch, R),
+                    "bitwise_equal": True})
+        del x
+    return out
+
+
+def colq_route(torch, R: int) -> str:
+    """Row 9's route for R rows of bf16 x, as the wrapper picks it."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    return "one read" if R <= qm.cols_one_read_max_rows(torch.bfloat16) \
+        else "two-pass"
+
+
 def sr_routes_check(torch, gen) -> list:
     """Both of row 12's routes against the plain version, bit for bit:
     R at the one-read limit and 16 rows past it (the two-pass pair), bf16
@@ -1159,7 +1258,7 @@ def sr_routes_check(torch, gen) -> list:
 
 
 def phase_sass(torch) -> dict:
-    """The SASS instructions rows 8, 12 and 13 execute a value (the
+    """The SASS instructions rows 8, 9, 10, 12 and 13 execute a value (the
     toolkit's cuobjdump over each library) and the card's top SM clock,
     for the instruction floors the kernel phases report. Run before any
     trace: on the card's machine, traces taken right after these
@@ -1168,10 +1267,13 @@ def phase_sass(torch) -> dict:
             "row12": {gelu: sr_instructions(torch, gelu)
                       for gelu in (False, True)},
             "row8": rowq_instructions(torch, ROWQ_CASES),
+            "row9": colq_instructions(torch),
+            "row10": rowln_instructions(torch),
             "row13": adamw8_instructions(torch)}
     emit({"phase": "sass", "clock_mhz": sass["clock_hz"] / 1e6,
           "row8_per_value": {f"gelu={g} warp={w} units={u}": v
                              for (g, w, u), v in sass["row8"].items()},
+          "row9": sass["row9"], "row10": sass["row10"],
           "row12": sass["row12"],
           "row13": {k: v for k, v in sass["row13"].items()
                     if k != "per_param"}})
@@ -1184,14 +1286,16 @@ def phase_kernels_quant(torch, sass):
     plain version's Philox words), row 12's laws on the card, device
     ms of kernel and plain version, and the bound. Row 8 also: its route
     and the instructions a value from its SASS with the compute floor
-    they set. Row 12 (one launch, x read once) also: the two-pass pair's
-    ms on the same input (the route an R past the limit takes), the
-    instructions a value and their floor; both routes checked at the
-    one-read limit. No single PyTorch call computes these functions:
-    library_ms is null."""
+    they set. Rows 9 and 12 (one launch, x read once, up to a row
+    limit) also: the route, the two-pass pair's ms on the same input
+    (the route an R past the limit takes), the instructions a value and
+    their floor; both routes checked at the one-read limit. Row 9 also:
+    the kernel events of 5 calls under the profiler (one a call). No
+    single PyTorch call computes these functions: library_ms is null."""
     from paddle_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device="cuda").manual_seed(3)
     clock, instr, instr8 = sass["clock_hz"], sass["row12"], sass["row8"]
+    instr9 = sass["row9"]["per_value"]
     out = {}
     specs = [("quantize_rows", ROWQ_CASES, qm.quantize_rows,
               qm.quantize_rows_plain, False),
@@ -1237,12 +1341,30 @@ def phase_kernels_quant(torch, sass):
                     "instructions_per_value": instr[gelu]["per_value"],
                     "instruction_floor_ms": instruction_floor_ms(
                         torch, instr[gelu]["per_value"], R * C, clock)})
+            if name == "quantize_cols":
+                route = colq_route(torch, R)
+                events = kernel_events(torch, lambda: kern(x), 5)
+                if route == "one read" and list(events.values()) != [5]:
+                    raise AssertionError(f"quantize_cols {R}x{C}: 5 calls "
+                                         f"ran kernels {events}")
+                row.update({
+                    "route": route,
+                    "kernel_events_per_call": sum(events.values()) / 5,
+                    "two_pass_ms": device_ms(
+                        torch, lambda: qm._cols_two_pass(x, None, None), 10)})
+                if route == "one read":
+                    row.update({
+                        "instructions_per_value": instr9,
+                        "instruction_floor_ms": instruction_floor_ms(
+                            torch, instr9, R * C, clock)})
             rows.append(row)
             del x
         result = {"phase": "kernels", "name": name, "cases": rows}
         if sr:
             result["unbiased"] = sr_unbiased_gelu(torch, gen)
             result["routes"] = sr_routes_check(torch, gen)
+        if name == "quantize_cols":
+            result["routes"] = colq_routes_check(torch, gen)
         emit(result)
         out[name] = rows
     return out
@@ -1276,29 +1398,72 @@ def ln_input(torch, R, C, gen, edge: bool):
     return x, g, b
 
 
-def phase_kernels_ln(torch):
+def row10_route_name(K: int) -> str:
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    route = qm.row10_route(K)
+    if route is None:
+        return "staged in shared memory"
+    G, nu = route
+    return (f"{'warp' if G == 32 else f'block of {G} threads'} a row, "
+            f"{16 * nu} values a thread")
+
+
+def check_ln_equal(torch, name, got, want) -> None:
+    for part, a, w in zip(("codes", "scales", "mean", "rstd"), got, want):
+        if not torch.equal(a, w):
+            raise AssertionError(
+                f"{name}: kernel {part} differ from the plain version in "
+                f"{int((a != w).sum())} of {a.numel()} elements")
+
+
+def ln_routes_check(torch, gen) -> dict:
+    """Row 10's routes against the plain version bit for bit: each
+    register route at its K limit and one unit past it (K 2048 | 2064,
+    16384 | 16400), 64 rows with a constant one and a g = b = 0 column;
+    and, the order following K and not M, rows of the trainer's [6144,
+    2048] quantized alone equal to their rows in the batch."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    routes = []
+    for K in (2048, 2064, 16384, 16400):
+        x, g, b = ln_input(torch, 64, K, gen, True)
+        check_ln_equal(torch, f"ln_quantize_rowwise 64x{K}",
+                       qm.ln_quantize_rowwise(x, g, b),
+                       qm.ln_quantize_rowwise_plain(x, g, b))
+        routes.append({"K": K, "route": row10_route_name(K),
+                       "bitwise_equal": True})
+    x, g, b = ln_input(torch, M_TOK, D_MODEL, gen, False)
+    batch = qm.ln_quantize_rowwise(x, g, b)
+    for i in (0, 1001, M_TOK - 1):
+        check_ln_equal(torch, f"ln_quantize_rowwise row {i} alone",
+                       qm.ln_quantize_rowwise(x[i:i + 1], g, b),
+                       [t[i:i + 1] for t in batch])
+    return {"routes": routes, "row_alone_equals_batch_row": True}
+
+
+def phase_kernels_ln(torch, sass):
     """Kernel rows 10 and 11 against their plain versions bit for bit
     (codes, scales and row 10's mean and rstd), row 11 under row 12's SR
     laws on the card, and, at the trainer's shape, device ms of kernel,
     plain version and the unfused pair each replaces (the port's
     LayerNorm, then row 8; LayerNorm's output from the statistics, then
     row 12: what fuse_ln_quant=False / fuse_bwd_colq=False run), beside
-    the bound. No single PyTorch call computes either: library_ms null."""
+    the bound. Row 10 also: its route, the staged kernel's ms on the same
+    input (the route K past 16384 takes, and every K before this
+    design), the instructions a value from its SASS and their floor;
+    its routes at their limits. No single PyTorch call computes either:
+    library_ms null."""
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.layer_norm import ln_apply, ln_fwd
     gen = torch.Generator(device="cuda").manual_seed(6)
+    clock, instr10 = sass["clock_hz"], sass["row10"]["per_value"]
     rows10, rows11 = [], []
     for i, (R, C, what, edge) in enumerate(LN_CASES):
         x, g, b = ln_input(torch, R, C, gen, edge)
         got = qm.ln_quantize_rowwise(x, g, b)
         want = qm.ln_quantize_rowwise_plain(x, g, b)
         torch.cuda.synchronize()
-        for part, a, w in zip(("codes", "scales", "mean", "rstd"), got, want):
-            if not torch.equal(a, w):
-                raise AssertionError(
-                    f"ln_quantize_rowwise {R}x{C} {what}: kernel {part} "
-                    f"differ from the plain version in "
-                    f"{int((a != w).sum())} of {a.numel()} elements")
+        check_ln_equal(torch, f"ln_quantize_rowwise {R}x{C} {what}", got,
+                       want)
         mean, rstd = want[2], want[3]
         seed = 2000 + i
         args11 = (x, mean, rstd, g, b, seed)
@@ -1330,6 +1495,12 @@ def phase_kernels_ln(torch):
                                       ln_quantize_rowwise_plain(x, g, b), 2),
                 "unfused_pair_ms": device_ms(torch, lambda: qm.quantize_rows(
                     ln_fwd(x, g, b)[0]), 10),
+                "staged_ms": device_ms(torch, lambda: qm._rows_ln_cuda(
+                    x, g, b, staged=True), 10),
+                "route": row10_route_name(C),
+                "instructions_per_value": instr10,
+                "instruction_floor_ms": instruction_floor_ms(
+                    torch, instr10, n, clock),
                 "library_ms": None, "bound_ms": b10[0], "bound_by": b10[1]})
             r11.update({
                 "ms": device_ms(torch, lambda: qm.sr_quantize_colwise_ln(
@@ -1350,7 +1521,7 @@ def phase_kernels_ln(torch):
                                                       seed),
         ln_apply(x, mean, rstd, g, b))
     emit({"phase": "kernels", "name": "ln_quantize_rowwise",
-          "cases": rows10})
+          "cases": rows10, **ln_routes_check(torch, gen)})
     emit({"phase": "kernels", "name": "sr_quantize_colwise_ln",
           "cases": rows11, "unbiased": unbiased})
     return {"ln_quantize_rowwise": rows10, "sr_quantize_colwise_ln": rows11}
@@ -1866,7 +2037,7 @@ def int4_regime(M: int) -> str:
     return "decode" if M <= 16 else "prefill"
 
 
-def int4_events(torch, fn, calls: int) -> dict:
+def kernel_events(torch, fn, calls: int) -> dict:
     """{kernel name: launches} of ``calls`` calls of ``fn`` under the
     profiler."""
     _, ev = traced(torch, lambda: lambda: [fn() for _ in range(calls)],
@@ -1924,7 +2095,7 @@ def phase_int4_checks(torch, gen) -> dict:
     events = {}
     for M in (1, 16, 17, 512):
         x, p, s, _, _ = int4_operands(torch, M, 2048, 2048, 128, gen)
-        ev = int4_events(torch, lambda: int4_matmul(x, p, s, 128), 10)
+        ev = kernel_events(torch, lambda: int4_matmul(x, p, s, 128), 10)
         if len(ev) != 1 or next(iter(ev.values())) != 10 or \
                 "int4_mm_" not in next(iter(ev)):
             raise AssertionError(f"int4 M {M}: 10 calls gave kernel events "
@@ -2512,16 +2683,24 @@ PROFILE_PARTS = {
                      "flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel"),
     "adamw_ms": ("adamw_leaves_kernel",),
     "adamw8_ms": ("adamw8_rows_kernel",),
-    # rows 10 and 11: the row kernel with LayerNorm, and the column pair
-    # with the LayerNorm prologue (template argument kLn = 2)
-    "ln_quantize_ms": ("rowq_ln_kernel", "_kernel<__nv_bfloat16, 2"),
+    # rows 10 and 11: the row kernels with LayerNorm (in registers,
+    # staged), and the column pair with the LayerNorm prologue (template
+    # argument kLn = 2)
+    "ln_quantize_ms": ("rowq_ln_regs_kernel", "rowq_ln_kernel",
+                       "_kernel<__nv_bfloat16, 2"),
     "quantize_ms": ("rowq_regs_kernel", "rowq_kernel", "col_amax_kernel",
-                    "col_cast_kernel", "col_sr_cluster_kernel"),
+                    "col_cast_kernel", "col_cluster_kernel"),
 }
 # of quantize_ms, row 8's kernels (the row in registers, and the long
-# rows through shared memory) and row 12's one-read kernel alone
+# rows through shared memory), row 9's one-read kernel (RTN, template
+# argument SR false) with its two-pass cast, row 12's one-read kernel
+# (SR, with and without gelu); of ln_quantize_ms, row 10's kernels
 ROW8_NAMES = ("rowq_regs_kernel", "rowq_kernel")
-ROW12_NAMES = ("col_sr_cluster_kernel",)
+ROW9_NAMES = ("col_cluster_kernel<__nv_bfloat16, 0, false>",
+              "col_cast_kernel<__nv_bfloat16, 0, false>")
+ROW10_NAMES = ("rowq_ln_regs_kernel", "rowq_ln_kernel")
+ROW12_NAMES = ("col_cluster_kernel<__nv_bfloat16, 0, true>",
+               "col_cluster_kernel<__nv_bfloat16, 1, true>")
 GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "sm80_")
 INT8_NAMES = ("i8", "s8", "imma", "int8", "integer")
 
@@ -2545,12 +2724,14 @@ def phase_train_profile(torch, np, tr, name: str):
             part = "int8_gemm_ms" if any(n in low for n in INT8_NAMES) \
                 else "bf16_gemm_ms"
         parts[part or "other_ms"] += v
-    for part, names in (("row8_ms", ROW8_NAMES), ("row12_ms", ROW12_NAMES)):
+    named = (("row8_ms", ROW8_NAMES), ("row9_ms", ROW9_NAMES),
+             ("row10_ms", ROW10_NAMES), ("row12_ms", ROW12_NAMES))
+    for part, names in named:
         parts[part] = sum(v for k, v in ms.items()
                           if any(n in k for n in names))
     parts["launches"] = {e.key[:100]: e.count for e in ev if any(
         n in e.key for n in PROFILE_PARTS["adamw_ms"]
-        + PROFILE_PARTS["adamw8_ms"] + ROW8_NAMES + ROW12_NAMES)}
+        + PROFILE_PARTS["adamw8_ms"] + sum((n for _, n in named), ()))}
     emit({"phase": name, "wall_ms": wall * 1e3, "device_ms": dev,
           "device_busy_share": dev / (wall * 1e3), **parts,
           "top_kernels_ms": [(k[:100], v) for k, v in list(ms.items())[:14]]})
@@ -3260,7 +3441,7 @@ def main() -> int:
     phase_kernels_attn(torch, F)
     adamw_rows, adamw_list = phase_kernels_adamw(torch)
     quant_rows = phase_kernels_quant(torch, sass)
-    quant_rows.update(phase_kernels_ln(torch))
+    quant_rows.update(phase_kernels_ln(torch, sass))
     phase_int_mm(torch)
     adamw8_rows, adamw8_list = phase_kernels_adamw8(torch, sass)
     int4_rows = phase_kernels_int4(torch)
@@ -3339,9 +3520,13 @@ def main() -> int:
         entry("quantize_rows", "quantize.cu",
               "paddle_tpu/ops/quant_matmul.py:114", quant_rows[
                   "quantize_rows"], largest(quant_rows["quantize_rows"])),
+        # the weights' one-read route; the tied head's [50304, 2048] (ce_int8
+        # only) takes the two-pass pair
         entry("quantize_cols", "quantize.cu",
               "paddle_tpu/ops/quant_matmul.py:129", quant_rows[
-                  "quantize_cols"], largest(quant_rows["quantize_cols"])),
+                  "quantize_cols"], largest(
+                      r for r in quant_rows["quantize_cols"]
+                      if r["route"] == "one read")),
         entry("ln_quantize_rowwise", "quantize.cu",
               "paddle_tpu/ops/quant_matmul.py:215",
               quant_rows["ln_quantize_rowwise"],

@@ -14,7 +14,9 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   8: per-row scales, optionally of gelu(x); on the card the row stays in
   registers, a warp a row or a block a row by shape, up to K = 16384,
   and longer rows are staged in shared memory) and ``quantize_cols``
-  (``_colq_call`` :129, row 9: per-column scales);
+  (``_colq_call`` :129, row 9: per-column scales; on the card one launch
+  that reads x once, row 12's thread-block cluster with an RTN cast, up
+  to ``cols_one_read_max_rows`` rows, and the two-pass pair past that);
 - the SR column quantize ``sr_quantize_colwise`` (:479, the kernel of
   ``_sr_colq_pallas`` :447, row 12): per-column scales, codes
   ``floor(x / scale + u)``. The TPU's ``prng_random_bits`` becomes
@@ -24,7 +26,7 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   the card it is one launch that reads x once (a thread-block cluster a
   32-column strip, all rows in its blocks' shared memory) up to
   ``sr_cols_one_read_max_rows`` rows; a taller x takes the two-pass
-  pair rows 9 and 11 run, picked from the shape before the launch;
+  pair row 11 runs, picked from the shape before the launch;
 - the LayerNorm-fused quantizes: ``ln_quantize_rowwise`` (:239, the
   kernel of ``_rowq_ln_call`` :215, row 10: LayerNorm and row 8's RTN
   in one read of the pre-LN x, also returning the rows' mean and
@@ -32,10 +34,14 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   ``_sr_colq_ln_pallas`` :296, row 11: row 12's SR column quantize of
   ``((x - mean) * rstd) * g + b`` from those statistics, drawing row
   12's Philox words, so the fused and the unfused wgrad quantize of
-  one activation take the same noise). Row 10's kernel sums a row in a
-  fixed order (each of 256 threads its own strided elements one by
-  one, then ``block_sum``'s butterfly and warp order); its plain
-  version sums in that order too, so the two agree bit for bit;
+  one activation take the same noise). Row 10's kernel keeps the row in
+  registers (a warp a row up to K = 2048, a block a row up to 16384;
+  longer rows, and K % 16 != 0, staged in shared memory) and sums it
+  in a fixed order that K alone sets (``row10_route``,
+  ``_kernel_row_sums``: each thread's four partial sums, the warp
+  butterfly, the warps in order), never M, so a row has the same bits
+  in any batch; its plain version sums in that order too, so the two
+  agree bit for bit;
 - the matmul core ``int8_dot_dequant`` (:327): an XLA ``dot_general``
   in the reference, here ``torch._int_mm`` (int8 x int8 -> int32, exact:
   6144 * 127**2 < 2**31) and the f32 epilogue ``y * a_scale *
@@ -85,17 +91,18 @@ from . import _build
 from .fused_adamw import INV127, philox_words, uniform01
 from .layer_norm import LN_EPS, ln_apply, ln_bwd
 
-__all__ = ["int8_dgrad", "int8_dot_dequant", "int8_gelu_linear_all8",
-           "int8_gelu_linear_all8_bwd", "int8_linear", "int8_linear_all8",
-           "int8_linear_all8_bwd", "int8_linear_dgrad8", "int8_ln_linear_all8",
-           "int8_ln_linear_all8_bwd", "int8_ln_matmul", "int8_matmul",
-           "layer_seed", "ln_quantize_rowwise", "ln_quantize_rowwise_plain",
-           "quantize_cols", "quantize_cols_plain", "quantize_rows",
-           "quantize_rows_plain", "quantize_rowwise",
-           "quantize_rowwise_fast", "site_seed", "sr_quantize_colwise",
+__all__ = ["cols_one_read_max_rows", "int8_dgrad", "int8_dot_dequant",
+           "int8_gelu_linear_all8", "int8_gelu_linear_all8_bwd", "int8_linear",
+           "int8_linear_all8", "int8_linear_all8_bwd", "int8_linear_dgrad8",
+           "int8_ln_linear_all8", "int8_ln_linear_all8_bwd", "int8_ln_matmul",
+           "int8_matmul", "layer_seed", "ln_quantize_rowwise",
+           "ln_quantize_rowwise_plain", "quantize_cols", "quantize_cols_plain",
+           "quantize_rows", "quantize_rows_plain", "quantize_rowwise",
+           "quantize_rowwise_fast", "row10_route", "site_seed",
+           "sr_cols_one_read_max_rows", "sr_quantize_colwise",
            "sr_quantize_colwise_ln", "sr_quantize_colwise_ln_plain",
-           "sr_quantize_colwise_plain", "sr_cols_one_read_max_rows",
-           "step_seed", "wgrad_seeds", "wrap_int32"]
+           "sr_quantize_colwise_plain", "step_seed", "wgrad_seeds",
+           "wrap_int32"]
 
 _MASK = 0xFFFFFFFF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,20 +208,33 @@ def sr_quantize_colwise_plain(x2, seed: int, act=None):
     return _column_major(q.to(torch.int8)), scale
 
 
-def _kernel_row_sums(v, vec: int):
-    """Row sums of ``v [M, K]`` (f32) in row 10's kernel order, ``[M,
-    1]``: thread t of 256 adds elements ``t * vec + j``, then ``(t +
-    256) * vec + j``, ..., one by one from 0 (``vec`` = 16 bytes of x);
-    then ``block_sum``: within each warp lane l adds lane l + 16, then
-    l + 8, 4, 2, 1 (the butterfly as lane 0 sees it); then the 8 warps'
-    sums in order."""
-    M, K = v.shape
-    v = TF.pad(v, (0, (-K) % (_THREADS * vec))).view(M, -1, _THREADS, vec)
-    acc = torch.zeros((M, _THREADS), dtype=torch.float32, device=v.device)
-    for it in range(v.shape[1]):
-        for j in range(vec):
-            acc = acc + v[:, it, :, j]
-    lanes = acc.view(M, _THREADS // 32, 32)
+# row 10's register routes (csrc/quantize.cu launch_rows_ln): a warp a
+# row up to K = 2048, a block a row up to 16384, units of 16 values
+_UNIT, _WARP_MAX_K, _REG_MAX_K = 16, 2048, 16384
+
+
+def row10_route(K: int):
+    """Row 10's kernel route for rows of ``K`` values, by K alone: ``(G,
+    NU)`` (G threads a row, NU units of 16 values a thread: a warp a row
+    up to K = 2048, else a block a row, G and NU as row 8's block route)
+    while the row fits the registers (K <= 16384, K % 16 == 0), else
+    None (the staged kernel)."""
+    if K % _UNIT or K > _REG_MAX_K:
+        return None
+    units = K // _UNIT
+    G = 32 if K <= _WARP_MAX_K else _THREADS
+    nu = 1 if units <= G else 2 if units <= 2 * G else 4
+    if K > _WARP_MAX_K:
+        G = (-(-units // nu) + 31) // 32 * 32
+    return G, nu
+
+
+def _threads_then_warps(acc):
+    """The sum over a row's G threads of ``acc [M, G]`` in the kernels'
+    order: within each warp lane l adds lane l + 16, then l + 8, 4, 2, 1
+    (the butterfly as lane 0 sees it); then the warps' sums in order."""
+    M, G = acc.shape
+    lanes = acc.view(M, G // 32, 32)
     for o in (16, 8, 4, 2, 1):
         lanes = lanes[..., :o] + lanes[..., o:2 * o]
     warps = lanes[..., 0]
@@ -224,11 +244,44 @@ def _kernel_row_sums(v, vec: int):
     return total[:, None]
 
 
+def _kernel_row_sums(v, vec: int):
+    """Row sums of ``v [M, K]`` (f32) in row 10's kernel order, ``[M,
+    1]``; the order follows K alone (``row10_route``), never M. Register
+    routes: thread t of G keeps four partial sums p[k] of the values 4 i
+    + k of its units (unit u * G + t holds columns (u * G + t) * 16 ..
+    + 15), adding unit by unit, i by i, from 0; then (p0 + p1) + (p2 +
+    p3); then the warp butterfly and the warps in order. The staged
+    route: thread t of 256 adds elements ``t * vec + j``, then ``(t +
+    256) * vec + j``, ..., one by one from 0 (``vec`` = 16 bytes of x);
+    then the butterfly and the 8 warps in order. Values past K add
+    zeros."""
+    M, K = v.shape
+    route = row10_route(K)
+    if route is None:
+        v = TF.pad(v, (0, (-K) % (_THREADS * vec))).view(M, -1, _THREADS,
+                                                         vec)
+        acc = torch.zeros((M, _THREADS), dtype=torch.float32,
+                          device=v.device)
+        for it in range(v.shape[1]):
+            for j in range(vec):
+                acc = acc + v[:, it, :, j]
+        return _threads_then_warps(acc)
+    G, nu = route
+    v = TF.pad(v, (0, nu * G * _UNIT - K)).view(M, nu, G, 4, 4)
+    p = torch.zeros((M, G, 4), dtype=torch.float32, device=v.device)
+    for u in range(nu):
+        for i in range(4):
+            p = p + v[:, u, :, i, :]
+    return _threads_then_warps((p[..., 0] + p[..., 1])
+                               + (p[..., 2] + p[..., 3]))
+
+
 def ln_quantize_rowwise_plain(x2, g, b):
     """Kernel row 10 in plain PyTorch: LayerNorm of ``x2 [M, K]`` (f32
     statistics, eps 1e-5) and the per-row RTN of its f32 output: ``(q
     [M, K] int8, scale, mean, rstd [M, 1] f32)``. Sums in the kernel's
-    order; ``rstd = 1 / sqrt(var + eps)`` (correctly rounded)."""
+    order (``_kernel_row_sums``: set by K, so a row has the same bits in
+    any batch); ``rstd = 1 / sqrt(var + eps)`` (correctly rounded)."""
     xf = x2.float()
     vec = 16 // x2.element_size()
     k = torch.full((xf.shape[0], 1), float(xf.shape[1]), device=xf.device)
@@ -271,13 +324,13 @@ def _lib():
                                           ctypes.c_uint, vp, vp, vp, vp, vp]
         lib.ptt_quantize_cols.restype = i
         lib.ptt_quantize_rows_ln.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll,
-                                             i, i, vp]
+                                             i, i, i, vp]
         lib.ptt_quantize_rows_ln.restype = i
-        lib.ptt_sr_quantize_cols_one_read.argtypes = [vp, vp, vp, ll, i, i,
-                                                      i, ctypes.c_uint, vp]
-        lib.ptt_sr_quantize_cols_one_read.restype = i
-        lib.ptt_sr_cols_one_read_max_rows.argtypes = [i, i]
-        lib.ptt_sr_cols_one_read_max_rows.restype = i
+        lib.ptt_quantize_cols_one_read.argtypes = [vp, vp, vp, ll, i, i, i,
+                                                   i, ctypes.c_uint, vp]
+        lib.ptt_quantize_cols_one_read.restype = i
+        lib.ptt_cols_one_read_max_rows.argtypes = [i, i, i]
+        lib.ptt_cols_one_read_max_rows.restype = i
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -325,14 +378,19 @@ def _rows_cuda(x2, act):
 
 def _f32_vector(what: str, name: str, t, n: int, device):
     """A LayerNorm parameter or statistic as the kernels take it: f32,
-    contiguous, ``n`` values, on ``device`` (a tensor elsewhere raises)."""
+    contiguous, ``n`` values from a 16-byte aligned address, on
+    ``device`` (a tensor elsewhere raises)."""
     if t.device != device or t.numel() != n:
         raise ValueError(f"{what} kernel: {name} must hold {n} values on "
                          f"{device}; got {tuple(t.shape)} on {t.device}")
-    return t.reshape(n).float().contiguous()
+    t = t.reshape(n).float().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
-def _rows_ln_cuda(x2, g, b):
+def _rows_ln_cuda(x2, g, b, staged: bool = False):
+    """Row 10 on the route K picks (``row10_route``), or with ``staged``
+    the staged kernel at any K (its own summation order: for timing the
+    former route beside the new)."""
     what = "ln_quantize_rowwise"
     _check_cuda(what, x2)
     M, K = x2.shape
@@ -347,7 +405,7 @@ def _rows_ln_cuda(x2, g, b):
         err = lib.ptt_quantize_rows_ln(
             x2.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
             scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(), M, K,
-            _DTYPES[x2.dtype], _stream(x2))
+            _DTYPES[x2.dtype], int(staged), _stream(x2))
     _raise_on(err, lib, what)
     return q, scale, mean, rstd
 
@@ -358,7 +416,14 @@ def sr_cols_one_read_max_rows(dtype, act=None) -> int:
     of at most 16 blocks, each at most half an SM's shared memory, holds
     a 32-column strip of all rows: x, and act(x) in f32 with gelu);
     more rows take the two-pass pair."""
-    return _lib().ptt_sr_cols_one_read_max_rows(_DTYPES[dtype], _ACTS[act])
+    return _lib().ptt_cols_one_read_max_rows(_DTYPES[dtype], _ACTS[act], 1)
+
+
+def cols_one_read_max_rows(dtype) -> int:
+    """The most rows ``quantize_cols`` takes in one read of x on the card
+    for ``dtype`` (row 12's cluster, its blocks' rows a multiple of 16);
+    more rows take the two-pass pair."""
+    return _lib().ptt_cols_one_read_max_rows(_DTYPES[dtype], 0, 0)
 
 
 def _cols_name(seed, ln) -> str:
@@ -368,23 +433,23 @@ def _cols_name(seed, ln) -> str:
 
 def _cols_cuda(x2, act, seed, ln=()):
     """Rows 9 and 12, or row 11 when ``ln`` holds (mean, rstd, g, b).
-    Row 12 takes the one-read cluster kernel when R fits it (by shape,
-    before any launch), else the two-pass pair rows 9 and 11 run."""
+    Rows 9 and 12 take the one-read cluster kernel when R fits it (by
+    shape, before any launch), else the two-pass pair row 11 runs."""
     what = _cols_name(seed, ln)
     _check_cuda(what, x2)
     R, C = x2.shape
     if R % 16:
         raise ValueError(f"{what} kernel writes the codes column-major in "
                          f"16-row pieces: rows % 16 == 0; got {R}")
-    if seed is not None and not ln and \
-            R <= sr_cols_one_read_max_rows(x2.dtype, act):
-        return _sr_cols_one_read(x2, act, seed)
+    if not ln and R <= (cols_one_read_max_rows(x2.dtype) if seed is None
+                        else sr_cols_one_read_max_rows(x2.dtype, act)):
+        return _cols_one_read(x2, act, seed)
     return _cols_two_pass(x2, act, seed, ln)
 
 
 def _cols_two_pass(x2, act, seed, ln=()):
     """The two-pass pair (an amax pass, then the cast) on a checked
-    ``x2``: rows 9 and 11, and row 12 past the one-read limit."""
+    ``x2``: row 11, and rows 9 and 12 past the one-read limit."""
     what = _cols_name(seed, ln)
     R, C = x2.shape
     if ln:
@@ -405,16 +470,19 @@ def _cols_two_pass(x2, act, seed, ln=()):
     return qt.t(), scale
 
 
-def _sr_cols_one_read(x2, act, seed):
+def _cols_one_read(x2, act, seed):
+    """The one-read cluster kernel on a checked ``x2``: row 12 (SR from
+    ``seed``), or row 9 (RTN) when ``seed`` is None."""
     R, C = x2.shape
     qt = torch.empty((C, R), dtype=torch.int8, device=x2.device)
     scale = torch.empty((1, C), dtype=torch.float32, device=x2.device)
     lib = _lib()
     with torch.cuda.device(x2.device):
-        err = lib.ptt_sr_quantize_cols_one_read(
+        err = lib.ptt_quantize_cols_one_read(
             x2.data_ptr(), qt.data_ptr(), scale.data_ptr(), R, C,
-            _DTYPES[x2.dtype], _ACTS[act], int(seed) & _MASK, _stream(x2))
-    _raise_on(err, lib, "sr_quantize_colwise")
+            _DTYPES[x2.dtype], _ACTS[act], int(seed is not None),
+            0 if seed is None else int(seed) & _MASK, _stream(x2))
+    _raise_on(err, lib, _cols_name(seed, ()))
     return qt.t(), scale
 
 

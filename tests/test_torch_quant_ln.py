@@ -97,16 +97,89 @@ def test_row10_constant_row_and_zero_gain_column():
     assert not q[:, 5].any()
 
 
+@pytest.mark.parametrize("K", [2048, 2064, 200])
+def test_row10_routes_match_the_pallas_kernel(K):
+    """Row 10's plain version on each of its kernel's routes (a warp a
+    row at K = 2048, a block a row at 2064, the staged kernel at K % 16
+    != 0) against ``_rowq_ln_call`` in interpret mode, with
+    ``test_row10_matches_the_pallas_kernel``'s bars."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops.quant_matmul import _rowq_ln_call
+    dtype = "bfloat16" if K % 16 == 0 else "float32"
+    x, g, b = _ln_inputs((16, K), K)
+    ref = _rowq_ln_call(jnp.asarray(x).astype(dtype), jnp.asarray(g),
+                        jnp.asarray(b), True)
+    tx, tg, tb = _t(x, g, b)
+    got = qm.ln_quantize_rowwise(tx.to(getattr(torch, dtype)), tg, tb)
+    dq = np.abs(got[0].numpy().astype(np.int32) - np.asarray(ref[0], np.int32))
+    assert dq.max() <= 1 and (dq != 0).mean() <= 1e-3
+    for a, r in zip(got[1:], ref[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5)
+
+
+def _row_sums_in_order(v):
+    """Row sums of ``v [M, K]`` in the order row 10's register routes
+    document (``csrc/quantize.cu``), in float32 numpy one add at a time:
+    thread t of G keeps partials p[k] of values 4 i + k of its units
+    (unit u * G + t: columns (u * G + t) * 16 ..), unit by unit, i by i;
+    then (p0 + p1) + (p2 + p3); then the warp butterfly; then the warps
+    in order."""
+    M, K = v.shape
+    G, nu = qm.row10_route(K)
+    vp = np.zeros((M, nu * G * 16), np.float32)
+    vp[:, :K] = v
+    vp = vp.reshape(M, nu, G, 16)
+    p = np.zeros((M, G, 4), np.float32)
+    for u in range(nu):
+        for j in range(16):
+            p[:, :, j % 4] = p[:, :, j % 4] + vp[:, u, :, j]
+    s = (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+    lanes = s.reshape(M, G // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    total = lanes[:, 0, 0]
+    for w in range(1, G // 32):
+        total = total + lanes[:, w, 0]
+    return total[:, None]
+
+
 def test_row10_sums_in_the_kernel_order():
     """The plain version's statistics are the kernel's, not torch's own
     reductions: they differ from ``x.mean()`` in the last bits on some
-    rows (another summation order) and agree to 1e-5."""
-    x, g, b = _ln_inputs((64, 2048), 2)
-    _, _, m, _ = qm.ln_quantize_rowwise(*_t(x, g, b))
-    torch_mean = torch.from_numpy(x).mean(-1, keepdim=True)
-    assert (m != torch_mean).any()
-    np.testing.assert_allclose(m.numpy(), torch_mean.numpy(), rtol=1e-5,
-                               atol=1e-7)
+    rows (another summation order) and agree to 1e-5. They equal the
+    documented order done one add at a time in numpy (a warp a row at K
+    = 2048, a block a row of 160 threads at 2064); the order follows K:
+    G and NU are ``row10_route(K)``."""
+    assert qm.row10_route(2048) == (32, 4)
+    assert qm.row10_route(2064) == (160, 1)
+    assert qm.row10_route(16384) == (256, 4)
+    assert qm.row10_route(16400) is None and qm.row10_route(200) is None
+    for K in (2048, 2064):
+        x, g, b = _ln_inputs((64, K), 2)
+        _, _, m, r = qm.ln_quantize_rowwise(*_t(x, g, b))
+        torch_mean = torch.from_numpy(x).mean(-1, keepdim=True)
+        assert (m != torch_mean).any()
+        np.testing.assert_allclose(m.numpy(), torch_mean.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+        want_m = _row_sums_in_order(x) / np.float32(K)
+        np.testing.assert_array_equal(m.numpy(), want_m)
+        xc = x - want_m
+        var = _row_sums_in_order(xc * xc) / np.float32(K)
+        np.testing.assert_array_equal(
+            r.numpy(), np.float32(1) / np.sqrt(var + np.float32(1e-5)))
+
+
+@pytest.mark.parametrize("K", [256, 2064, 200])
+def test_row10_row_alone_equals_row_in_a_batch(K):
+    """The summation order follows K, not M: a row's codes, scale, mean
+    and rstd are the same alone as among 47 other rows."""
+    x, g, b = _ln_inputs((48, K), 12)
+    tx, tg, tb = _t(x, g, b)
+    batch = qm.ln_quantize_rowwise(tx, tg, tb)
+    for i in (0, 31, 47):
+        alone = qm.ln_quantize_rowwise(tx[i:i + 1], tg, tb)
+        for a, w in zip(alone, batch):
+            assert torch.equal(a, w[i:i + 1])
 
 
 def _stats(x):
@@ -297,3 +370,48 @@ def test_cuda_row_kernel_takes_the_int8_ce_heads_vocab_rows(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="shared memory"):
         qm.quantize_rows(torch.zeros((16, 65536), device=cuda))
+
+
+# row 10's routes, by K alone (``qm.row10_route``): a warp a row (K =
+# 256, 2048), a block a row (2064, 16384), the staged kernel (16400; and
+# 200, K % 16 != 0): each register route at its limit and one unit past
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [256, 2048, 2064, 16384, 16400, 200])
+@pytest.mark.parametrize("M", [1, 16, 37])
+def test_cuda_row10_routes_bit_for_bit(cuda, dtype, K, M):
+    """Row 10 on every route at M = 1, 16 and an odd M: codes, scales,
+    mean and rstd equal the plain version's, a constant row (variance 0)
+    and a g = b = 0 column (codes 0) included."""
+    x, g, b = _ln_inputs((M, K), K + M)
+    x[M // 2] = 0.75
+    g[5] = b[5] = 0
+    tx = torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+    tg, tb = (t.to(cuda) for t in _t(g, b))
+    before = qm.ln_quantize_rowwise.launches
+    got = qm.ln_quantize_rowwise(tx, tg, tb)
+    want = qm.ln_quantize_rowwise_plain(tx, tg, tb)
+    torch.cuda.synchronize()
+    assert qm.ln_quantize_rowwise.launches == before + 1
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert not got[0][:, 5].any() and got[2][M // 2, 0].item() == 0.75
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2048, 2064, 200])
+def test_cuda_row10_row_alone_equals_row_in_a_batch(cuda, K):
+    """The kernel's order follows K, not M: at the trainer's [6144, 2048]
+    (and 512 rows at the other routes) the batch equals the plain
+    version, and rows quantized alone equal their rows in the batch."""
+    M = 6144 if K == 2048 else 512
+    x, g, b = _ln_inputs((M, K), 13)
+    tx = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    tg, tb = (t.to(cuda) for t in _t(g, b))
+    batch = qm.ln_quantize_rowwise(tx, tg, tb)
+    for a, w in zip(batch, qm.ln_quantize_rowwise_plain(tx, tg, tb)):
+        assert torch.equal(a, w)
+    for i in (0, 1001, M - 1):
+        alone = qm.ln_quantize_rowwise(tx[i:i + 1], tg, tb)
+        for a, w in zip(alone, batch):
+            assert torch.equal(a, w[i:i + 1])

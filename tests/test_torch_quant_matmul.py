@@ -35,7 +35,8 @@ all-zero row and column) and handed to both packages.
 - On the card (tests marked ``cuda``) every kernel equals its plain
   version bit for bit: row 8 at each of its routes (a warp a row, a
   block a row, the long rows of the int8 CE head, the decode shapes),
-  row 12 on both of its routes.
+  rows 9 and 12 on both of their routes (one read of x on a
+  thread-block cluster, and the two-pass pair past its row limit).
 """
 import numpy as np
 import pytest
@@ -82,6 +83,21 @@ def test_rows_and_cols_match_pallas_kernels_bit_for_bit(dtype):
     q, s = qm.quantize_rows(tx)
     assert q.dtype == torch.int8 and s.shape == (64, 1)
     assert s[5, 0].item() == np.float32(1 / 127) and not q[5].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cols_head_chunk_matches_pallas_kernel_bit_for_bit(dtype):
+    """Row 9 at a head-chunk-like [D, Vc] (``ce_int8``'s untied head
+    chunks): C not a multiple of 32, an all-zero column (scale 1/127,
+    codes 0); codes and scales equal ``_colq_call``'s in interpret mode."""
+    from paddle_tpu.ops.quant_matmul import _colq_call
+    jx, tx = _both(_x((128, 200), 12, zero_col=33), dtype)
+    ref = _colq_call(jx, True)
+    q, s = qm.quantize_cols(tx)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ref[1]))
+    assert s[0, 33].item() == np.float32(1 / 127) and not q[:, 33].any()
+    assert q.t().is_contiguous()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -345,5 +361,48 @@ def test_cuda_sr_cols_both_routes_at_the_limit(cuda, dtype, gelu):
             cuda, getattr(torch, dtype))
         got = qm.sr_quantize_colwise(x, 99, act)
         want = qm.sr_quantize_colwise_plain(x, 99, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# row 9 (``quantize_cols``) in one read: the trainer's weights (wqkv,
+# win, wout), a head-chunk-like [D, Vc] with C not a multiple of 32, a
+# few rows and columns; the int8 CE head's tied [50304, 2048] is past the
+# one-read limit (the two-pass pair)
+COL9_SHAPES = [(2048, 6144), (2048, 8192), (8192, 2048), (2048, 200),
+               (16, 64), (16, 8), (50304, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", COL9_SHAPES)
+def test_cuda_cols_match_plain_bit_for_bit(cuda, dtype, shape):
+    """Row 9's codes and scales equal the plain version's, an all-zero
+    column included (scale 1/127, codes 0), one launch a call."""
+    R, C = shape
+    x = torch.from_numpy(_x(shape, R + C, zero_col=C // 3)).to(
+        cuda, getattr(torch, dtype))
+    before = qm.quantize_cols.launches
+    got, want = qm.quantize_cols(x), qm.quantize_cols_plain(x)
+    torch.cuda.synchronize()
+    assert qm.quantize_cols.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].t().is_contiguous()
+    assert bool((got[0][:, C // 3] == 0).all())
+    assert got[1][0, C // 3].item() == np.float32(1 / 127)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_cols_both_routes_at_the_limit(cuda, dtype):
+    """At row 9's one-read row limit and 16 rows past it (the two-pass
+    pair, picked by shape before the launch) the codes and scales equal
+    the plain version's."""
+    limit = qm.cols_one_read_max_rows(getattr(torch, dtype))
+    assert limit % 16 == 0
+    for R in (limit, limit + 16):
+        x = torch.from_numpy(_x((R, 64), 13, zero_col=7)).to(
+            cuda, getattr(torch, dtype))
+        got, want = qm.quantize_cols(x), qm.quantize_cols_plain(x)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
