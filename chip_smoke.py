@@ -23,7 +23,7 @@ no result):
              GPT-1.3B trainer's packed shape; and the padded-prefix law
              at the kernel's own level: rows 0..299 of a causal S=512
              call whose positions past 300 are padding equal the S=300
-             call bit for bit), the flash backward (the
+             call bit for bit, bf16 and f32), the flash backward (the
              trainer's packed shape, separate [B, S, H, D] tensors, a
              ragged S, D=64 and D=256; two runs must give the same
              bits), each flash case with its achieved TFLOP/s beside the
@@ -59,23 +59,31 @@ no result):
              from torch.profiler's CUDA trace (a trace without device
              time, or short of a whole number of events per call for
              some kernel, is taken again, PROFILE_TRIES times in all,
-             then the phase fails), and the bound: the larger of bytes
+             then the time comes from CUDA events around the same
+             calls), and the bound: the larger of bytes
              / 3.35 TB/s and the operations at their peak rates (H100
              SXM data sheet).
    kernels, rows 10 and 11 — LayerNorm + row quantize and the SR column
              quantize of LN(x) from its row statistics, bit for bit
              against their plain versions at the trainer's [6144, 2048]
              (LN1's and LN2's g and b) and on a constant row and a
-             g = b = 0 column; row 11 under row 12's SR laws; ms beside
-             the bound, the plain version and the unfused pair each
-             replaces.
+             g = b = 0 column; row 11 under row 12's SR laws and equal
+             to the two-pass pair; ms beside the bound, the plain
+             version and the unfused pair each replaces; row 11's
+             route (one read of x up to its row limit), one kernel
+             event a call, the pair's ms, the instruction floor from
+             its SASS and its ptxas line, both routes at the limit.
    kernels-attn — the flash kernels at head_dims off {64, 128, 256}
              (32, 80, 96, 64 and 160 in bf16 and 192 in f16, run at the
              next tile width) and
-             in f32 (64 and 128, f32 FMAs on the CUDA cores), causal and
+             in f32 (64, 128 and 256; the forward 3xTF32 on wgmma, the
+             backward f32 FMAs on the CUDA cores), causal and
              not, forward and backward against the plain versions (the
              backward the same bits twice); ms and TFLOP/s beside the
-             bound, the plain version and PyTorch's SDPA (a yardstick).
+             bound (f32 forward: three TF32 products a product, with the
+             scalar-rate bound beside it), the plain version and
+             PyTorch's SDPA (a yardstick); the f32 forward on packed
+             views.
    kernels, row 7 — int4_matmul against its plain version at Llama-1B's
              four linear shapes (down_proj at group 64), M in {1, 8, 16,
              512} and a ragged 300, within one bf16 step of the output's
@@ -199,7 +207,8 @@ no result):
              running statistics; tolerances at RESNET_F32_TOL).
 
 Then the line {"phase": "profiler", ...} (how many traces came back
-without device time, or short of events, and were taken again), the
+without device time, or short of events, and were taken again, and how
+many kernel timings fell back to CUDA events), the
 line {"kernels": [...]}
 (launches from the train-flagship phase, int4_matmul's from
 serve-int4, the BN kernels' from train-resnet50, every path's beside
@@ -226,6 +235,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense tensor-core bf16, same source
 INT8_OPS_PER_S = 1979e12         # dense tensor-core int8, same source
+TF32_FLOPS_PER_S = 495e12        # dense tensor-core TF32, same source
 # scalar float32 outside the tensor cores, same source; the quantize
 # and AdamW kernels' integer operations (Philox) are counted at it too
 SCALAR_OPS_PER_S = 67e12
@@ -248,10 +258,17 @@ ROUTE_TOL = 0.125
 # most so far), and once returned one that read a kernel at half its
 # time; such a trace, or one whose kernels did not each run a whole
 # number of times per timed call, is taken again, its setup included,
-# up to PROFILE_TRIES times in all
+# up to PROFILE_TRIES times in all (five short traces in a row were
+# seen once, on a plain version's burst of small kernels); a kernel's
+# device_ms then falls back to CUDA events around the same calls
 PROFILE_TRIES = 5
 EMPTY_TRACES = 0
 SHORT_TRACES = 0
+EVENT_TIMINGS = 0
+
+
+class TraceError(RuntimeError):
+    """torch.profiler returned no whole CUDA trace in PROFILE_TRIES."""
 
 SLOTS, MAX_LEN, MIN_BUCKET = 16, 512, 32
 PROMPT_LENS = (24, 48, 96, 180, 300)
@@ -325,20 +342,34 @@ def traced(torch, setup, with_cpu: bool = False, calls: int = 0):
             why = f"no CUDA device time ({len(prof.events())} events)"
         print(f"chip_smoke: torch.profiler traced {why}; tracing again",
               file=sys.stderr, flush=True)
-    raise RuntimeError(f"torch.profiler traced no whole CUDA trace in "
-                       f"{PROFILE_TRIES} traces")
+    raise TraceError(f"torch.profiler traced no whole CUDA trace in "
+                     f"{PROFILE_TRIES} traces")
 
 
 def device_ms(torch, fn, iters: int) -> float:
     """Device time per call: the sum of every kernel the call launches,
-    from torch.profiler's CUDA trace of ``iters`` calls."""
+    from torch.profiler's CUDA trace of ``iters`` calls; when no whole
+    trace comes back (TraceError), CUDA events around ``iters`` calls
+    (the span on the device, gaps between kernels included), counted in
+    the "profiler" line."""
+    global EVENT_TIMINGS
     for _ in range(3):
         fn()
 
     def calls():
         for _ in range(iters):
             fn()
-    _, ev = traced(torch, lambda: calls, calls=iters)
+    try:
+        _, ev = traced(torch, lambda: calls, calls=iters)
+    except TraceError:
+        EVENT_TIMINGS += 1
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        calls()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
     return sum(e.self_device_time_total for e in ev) / 1e3 / iters
 
 
@@ -521,8 +552,9 @@ def phase_ptxas(sos):
     beside each library as lib<name>-<hash>.log): each kernel's register
     and spill lines and any wgmma serialisation note, in the order ptxas
     compiled the kernels, by library; and the register kernels of rows
-    8 and 10, the one-read column kernel of rows 9 and 12 and row 13's
-    kernel by name: registers, spills, blocks an SM."""
+    8 and 10, the one-read column kernel of rows 9, 11 and 12 and row
+    13's kernel by name: registers, spills, blocks an SM (returned), and
+    so the f32 flash forward at each tile width."""
     out = {}
     for so in sos:
         name = so.name.split("-")[0][3:]
@@ -531,7 +563,7 @@ def phase_ptxas(sos):
                 ln.replace("ptxas info    :", "").strip()
                 for ln in so.with_suffix(".log").read_text().splitlines()
                 if "registers" in ln or "spill" in ln or "C75" in ln)
-    kernels = {}
+    kernels, f32 = {}, {}
     for so in sos:
         if so.name.startswith(("libfused_adamw8-", "libquantize-")):
             kernels.update(ptxas_kernels(so.with_suffix(".log"),
@@ -539,11 +571,16 @@ def phase_ptxas(sos):
                                           "rowq_regs_kernel",
                                           "rowq_ln_regs_kernel",
                                           "col_cluster_kernel")))
-    emit({"phase": "ptxas", "lines": out, "rows_8_9_10_12_13": kernels})
+        if so.name.startswith("libflash_attention_fwd-"):
+            f32 = ptxas_kernels(so.with_suffix(".log"),
+                                ("flash_fwd_f32_kernel",))
+    emit({"phase": "ptxas", "lines": out, "rows_8_to_13": kernels,
+          "flash_fwd_f32": f32})
     if not out.get("int4_matmul") or not kernels or not any(
             k.startswith("flash_attention") and v for k, v in out.items()):
         raise AssertionError("no -Xptxas -v report for the flash, int4, "
                              "quantize or row 13 kernels")
+    return kernels
 
 
 def ptxas_kernels(log, names) -> dict:
@@ -632,12 +669,15 @@ def padded_prefix(torch, g) -> list:
     kernel's own level: rows 0..299 of a causal S=512 call whose
     positions past 300 are padding (other random values) equal the
     S=300 call bit for bit, out and lse, at the wgmma kernel's widths
-    128 (one and two consumer warpgroups) and 64."""
+    128 (one and two consumer warpgroups) and 64 in bf16, and the f32
+    kernel's 128."""
     from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
     rows = []
-    for B, H, D in ((1, 16, 128), (4, 64, 128), (1, 8, 64)):
+    for B, H, D, dt in ((1, 16, 128, torch.bfloat16),
+                        (4, 64, 128, torch.bfloat16),
+                        (1, 8, 64, torch.bfloat16), (1, 8, 128, torch.float32)):
         q, k, v = (torch.randn(B, 512, H, D, device="cuda", generator=g)
-                   .bfloat16() for _ in range(3))
+                   .to(dt) for _ in range(3))
         out, lse = flash_attention_fwd(q, k, v, causal=True,
                                        return_lse=True)
         cut = [t[:, :300].contiguous() for t in (q, k, v)]
@@ -645,8 +685,8 @@ def padded_prefix(torch, g) -> list:
         torch.cuda.synchronize()
         same = bool(torch.equal(out[:, :300], out3)
                     and torch.equal(lse[..., :300], lse3))
-        rows.append({"B": B, "H": H, "D": D, "S": 512, "prefix": 300,
-                     "bitwise": same})
+        rows.append({"B": B, "H": H, "D": D, "dtype": str(dt)[6:], "S": 512,
+                     "prefix": 300, "bitwise": same})
         if not same:
             raise AssertionError(f"flash forward {B, H, D}: rows 0..299 of "
                                  f"the padded S=512 call differ from the "
@@ -1033,18 +1073,20 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def sr_instructions(torch, gelu: bool) -> dict:
-    """Row 12's one-read kernel (bf16 x) from its SASS: the instructions
-    an element of the cast (the loop that casts one item, 4 columns x 4
-    rows, Philox included: the loop with the wide multiplies and no
-    call to __fdiv_rn's slow path) and of the maxima pass (the loop that
-    reads 16-byte vectors of x, 8 values each, from shared memory;
-    with gelu, act(x) too). The compute floor: those instructions at
-    one warp instruction a clock on each of an SM's 4 schedulers at the
-    card's top clock."""
+def sr_instructions(torch, pro: int) -> dict:
+    """The SR one-read kernel (bf16 x) from its SASS, with the prologue
+    ``pro`` (0 none and 1 gelu: row 12; 2 LayerNorm: row 11): the
+    instructions an element of the cast (the loop that casts one item, 4
+    columns x 4 rows, Philox included, with LayerNorm h taken again:
+    the loop with the wide multiplies and no call to __fdiv_rn's slow
+    path) and of the maxima pass (the loop that reads 16-byte vectors of
+    x, 8 values each, from shared memory; with gelu, act(x) too; with
+    LayerNorm, h and the rows' statistics). The compute floor: those
+    instructions at one warp instruction a clock on each of an SM's 4
+    schedulers at the card's top clock."""
     from paddle_tpu_torch.ops import _build
     loops = sass_loops(_build.build(["quantize"])[0],
-                       f"col_cluster_kernelI13__nv_bfloat16Li{int(gelu)}ELb1E")
+                       f"col_cluster_kernelI13__nv_bfloat16Li{pro}ELb1E")
 
     def n(loop, prefix):
         return sum(v for op, v in loop["ops"].items() if op.startswith(prefix))
@@ -1258,13 +1300,14 @@ def sr_routes_check(torch, gen) -> list:
 
 
 def phase_sass(torch) -> dict:
-    """The SASS instructions rows 8, 9, 10, 12 and 13 execute a value (the
+    """The SASS instructions rows 8 to 13 execute a value (the
     toolkit's cuobjdump over each library) and the card's top SM clock,
     for the instruction floors the kernel phases report. Run before any
     trace: on the card's machine, traces taken right after these
     subprocesses came back short of kernel records, again and again."""
     sass = {"clock_hz": sm_clock_hz(),
-            "row12": {gelu: sr_instructions(torch, gelu)
+            "row11": sr_instructions(torch, 2),
+            "row12": {gelu: sr_instructions(torch, int(gelu))
                       for gelu in (False, True)},
             "row8": rowq_instructions(torch, ROWQ_CASES),
             "row9": colq_instructions(torch),
@@ -1274,7 +1317,7 @@ def phase_sass(torch) -> dict:
           "row8_per_value": {f"gelu={g} warp={w} units={u}": v
                              for (g, w, u), v in sass["row8"].items()},
           "row9": sass["row9"], "row10": sass["row10"],
-          "row12": sass["row12"],
+          "row11": sass["row11"], "row12": sass["row12"],
           "row13": {k: v for k, v in sass["row13"].items()
                     if k != "per_param"}})
     return sass
@@ -1440,6 +1483,36 @@ def ln_routes_check(torch, gen) -> dict:
     return {"routes": routes, "row_alone_equals_batch_row": True}
 
 
+def row11_route(torch, R: int) -> str:
+    """Row 11's route for R rows of bf16 x, as the wrapper picks it."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    return "one read" if R <= qm.sr_cols_one_read_max_rows(
+        torch.bfloat16, ln=True) else "two-pass"
+
+
+def row11_routes_check(torch, gen) -> list:
+    """Both of row 11's routes bit for bit against the plain version and
+    against each other (the two-pass pair called on the same input): R
+    at the one-read limit and 16 rows past it, bf16 x, 64 columns with a
+    constant row and a g = b = 0 column."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    out = []
+    limit = qm.sr_cols_one_read_max_rows(torch.bfloat16, ln=True)
+    for R in (limit, limit + 16):
+        x, g, b = ln_input(torch, R, 64, gen, True)
+        _, _, mean, rstd = qm.ln_quantize_rowwise(x, g, b)
+        args = (x, mean, rstd, g, b, 7)
+        got = qm.sr_quantize_colwise_ln(*args)
+        check_equal(torch, f"sr_quantize_colwise_ln {R}x64", got,
+                    qm.sr_quantize_colwise_ln_plain(*args))
+        check_equal(torch, f"sr_quantize_colwise_ln {R}x64, the pair", got,
+                    qm._cols_two_pass(x, None, 7, (mean, rstd, g, b)))
+        out.append({"rows": R, "route": row11_route(torch, R),
+                    "bitwise_equal": True, "pair_bitwise_equal": True})
+        del x, got
+    return out
+
+
 def phase_kernels_ln(torch, sass):
     """Kernel rows 10 and 11 against their plain versions bit for bit
     (codes, scales and row 10's mean and rstd), row 11 under row 12's SR
@@ -1450,12 +1523,20 @@ def phase_kernels_ln(torch, sass):
     the bound. Row 10 also: its route, the staged kernel's ms on the same
     input (the route K past 16384 takes, and every K before this
     design), the instructions a value from its SASS and their floor;
-    its routes at their limits. No single PyTorch call computes either:
+    its routes at their limits. Row 11 also: its route (one launch that
+    reads x once up to a row limit), the kernel events of 5 calls (one
+    a call), the two-pass pair's ms and codes on the same input (the
+    route past the limit, and every R before this design), the
+    instructions a value from its SASS and their floor, its ptxas line;
+    both routes at the limit. No single PyTorch call computes either:
     library_ms null."""
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.layer_norm import ln_apply, ln_fwd
     gen = torch.Generator(device="cuda").manual_seed(6)
     clock, instr10 = sass["clock_hz"], sass["row10"]["per_value"]
+    instr11 = sass["row11"]["per_value"]
+    ptxas11 = {k: v for k, v in sass["ptxas"].items()
+               if k.startswith("col_cluster_kernelI13__nv_bfloat16Li2E")}
     rows10, rows11 = [], []
     for i, (R, C, what, edge) in enumerate(LN_CASES):
         x, g, b = ln_input(torch, R, C, gen, edge)
@@ -1470,6 +1551,9 @@ def phase_kernels_ln(torch, sass):
         got11 = qm.sr_quantize_colwise_ln(*args11)
         check_equal(torch, f"sr_quantize_colwise_ln {R}x{C} {what}", got11,
                     qm.sr_quantize_colwise_ln_plain(*args11))
+        check_equal(torch, f"sr_quantize_colwise_ln {R}x{C} {what}, the "
+                    f"pair", got11, qm._cols_two_pass(x, None, seed,
+                                                      (mean, rstd, g, b)))
         h = ln_apply(x, mean, rstd, g, b)
         laws = sr_laws(torch, "sr_quantize_colwise_ln", h, *got11, None)
         r10 = {"shape": [R, C], "operand": what, "bitwise_equal": True,
@@ -1502,7 +1586,21 @@ def phase_kernels_ln(torch, sass):
                 "instruction_floor_ms": instruction_floor_ms(
                     torch, instr10, n, clock),
                 "library_ms": None, "bound_ms": b10[0], "bound_by": b10[1]})
+            events = kernel_events(
+                torch, lambda: qm.sr_quantize_colwise_ln(*args11), 5)
+            route = row11_route(torch, R)
+            if route == "one read" and list(events.values()) != [5]:
+                raise AssertionError(f"sr_quantize_colwise_ln {R}x{C}: 5 "
+                                     f"calls ran kernels {events}")
             r11.update({
+                "route": route,
+                "kernel_events_per_call": sum(events.values()) / 5,
+                "two_pass_ms": device_ms(torch, lambda: qm._cols_two_pass(
+                    x, None, seed, (mean, rstd, g, b)), 10),
+                "instructions_per_value": instr11,
+                "instruction_floor_ms": instruction_floor_ms(
+                    torch, instr11, n, clock),
+                "ptxas": ptxas11,
                 "ms": device_ms(torch, lambda: qm.sr_quantize_colwise_ln(
                     *args11), 10),
                 "plain_ms": device_ms(torch, lambda: qm.
@@ -1523,7 +1621,8 @@ def phase_kernels_ln(torch, sass):
     emit({"phase": "kernels", "name": "ln_quantize_rowwise",
           "cases": rows10, **ln_routes_check(torch, gen)})
     emit({"phase": "kernels", "name": "sr_quantize_colwise_ln",
-          "cases": rows11, "unbiased": unbiased})
+          "cases": rows11, "unbiased": unbiased,
+          "routes": row11_routes_check(torch, gen)})
     return {"ln_quantize_rowwise": rows10, "sr_quantize_colwise_ln": rows11}
 
 
@@ -2684,8 +2783,8 @@ PROFILE_PARTS = {
     "adamw_ms": ("adamw_leaves_kernel",),
     "adamw8_ms": ("adamw8_rows_kernel",),
     # rows 10 and 11: the row kernels with LayerNorm (in registers,
-    # staged), and the column pair with the LayerNorm prologue (template
-    # argument kLn = 2)
+    # staged), and the column kernels with the LayerNorm prologue
+    # (template argument kLn = 2: the one-read kernel and the pair)
     "ln_quantize_ms": ("rowq_ln_regs_kernel", "rowq_ln_kernel",
                        "_kernel<__nv_bfloat16, 2"),
     "quantize_ms": ("rowq_regs_kernel", "rowq_kernel", "col_amax_kernel",
@@ -2694,11 +2793,15 @@ PROFILE_PARTS = {
 # of quantize_ms, row 8's kernels (the row in registers, and the long
 # rows through shared memory), row 9's one-read kernel (RTN, template
 # argument SR false) with its two-pass cast, row 12's one-read kernel
-# (SR, with and without gelu); of ln_quantize_ms, row 10's kernels
+# (SR, with and without gelu); of ln_quantize_ms, row 10's kernels and
+# row 11's (the one-read kernel, and the pair past its row limit)
 ROW8_NAMES = ("rowq_regs_kernel", "rowq_kernel")
 ROW9_NAMES = ("col_cluster_kernel<__nv_bfloat16, 0, false>",
               "col_cast_kernel<__nv_bfloat16, 0, false>")
 ROW10_NAMES = ("rowq_ln_regs_kernel", "rowq_ln_kernel")
+ROW11_NAMES = ("col_cluster_kernel<__nv_bfloat16, 2, true>",
+               "col_amax_kernel<__nv_bfloat16, 2>",
+               "col_cast_kernel<__nv_bfloat16, 2, true>")
 ROW12_NAMES = ("col_cluster_kernel<__nv_bfloat16, 0, true>",
                "col_cluster_kernel<__nv_bfloat16, 1, true>")
 GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "sm80_")
@@ -2725,7 +2828,8 @@ def phase_train_profile(torch, np, tr, name: str):
                 else "bf16_gemm_ms"
         parts[part or "other_ms"] += v
     named = (("row8_ms", ROW8_NAMES), ("row9_ms", ROW9_NAMES),
-             ("row10_ms", ROW10_NAMES), ("row12_ms", ROW12_NAMES))
+             ("row10_ms", ROW10_NAMES), ("row11_ms", ROW11_NAMES),
+             ("row12_ms", ROW12_NAMES))
     for part, names in named:
         parts[part] = sum(v for k, v in ms.items()
                           if any(n in k for n in names))
@@ -2836,24 +2940,37 @@ def phase_train_check(torch, np, name: str, recipe: dict):
 # kernel's {64, 128, 256} in bf16 and f16 (tile widths 32, 96, 96, 64,
 # 192 and 192: width 192 has its own 32-column panels and, in the
 # backward, output columns split across three panels a warpgroup), and
-# f32 (f32 FMAs on the CUDA cores)
+# f32 (the forward 3xTF32 on wgmma, the backward f32 FMAs on the CUDA
+# cores) at 64, 128 and 256
 ATTN_CASES = [(32, "bfloat16", True), (80, "bfloat16", True),
               (96, "bfloat16", False), (64, "bfloat16", False),
               (160, "bfloat16", True), (192, "float16", False),
-              (64, "float32", True), (128, "float32", False)]
+              (64, "float32", True), (128, "float32", False),
+              (256, "float32", True)]
 ATTN_SHAPE = (4, 512, 8)
 F32_TOL = 1e-4                   # f32 kernels vs plain (atol=rtol)
 
 
 def attn_bound(B, S, H, D, causal, itemsize, backward: bool):
-    """flash_bound / flash_bwd_bound, with f32 matmuls counted at the
-    scalar f32 rate (the f32 kernels use no tensor cores)."""
+    """flash_bound / flash_bwd_bound at the rate of the design each
+    kernel uses: bf16/f16 products on the tensor cores; the f32 forward's
+    as three TF32 products each (3xTF32) at the TF32 rate; the f32
+    backward's at the scalar f32 rate (no tensor cores). With f32, also
+    ``scalar_bound_ms``: every f32 product at the scalar rate, the bound
+    of a kernel that uses no tensor cores (a 3xTF32 kernel may beat it)."""
     n_bytes = (8 if backward else 4) * B * S * H * D * itemsize \
         + B * H * S * 4
     flops = (10 if backward else 4) * B * H * score_pairs(S, causal) * D
-    if itemsize == 4:
-        return bound(n_bytes, 0, scalar_ops=flops)
-    return bound(n_bytes, flops)
+    if itemsize != 4:
+        return bound(n_bytes, flops)
+    scalar = bound(n_bytes, 0, scalar_ops=flops)
+    if backward:
+        return scalar + ({"scalar_bound_ms": scalar[0]},)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 3 * flops / TF32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"scalar_bound_ms": scalar[0]})
 
 
 def phase_kernels_attn(torch, F):
@@ -2899,8 +3016,8 @@ def phase_kernels_attn(torch, F):
                                                  is_causal=causal)
         lib_do = do.transpose(1, 2)
         item = q.element_size()
-        fb, fby = attn_bound(B, S, H, D, causal, item, False)
-        bb, bby = attn_bound(B, S, H, D, causal, item, True)
+        fb, fby, *fx = attn_bound(B, S, H, D, causal, item, False)
+        bb, bby, *bx = attn_bound(B, S, H, D, causal, item, True)
         rows.append({
             "B": B, "S": S, "H": H, "D": D, "dtype": dt, "causal": causal,
             "fwd": with_rates({
@@ -2913,7 +3030,7 @@ def phase_kernels_attn(torch, F):
                     "library_ms": device_ms(torch, lambda: (
                         F.scaled_dot_product_attention(
                             qt, kt, vt, is_causal=causal)), 10),
-                    "bound_ms": fb, "bound_by": fby},
+                    "bound_ms": fb, "bound_by": fby, **(fx[0] if fx else {})},
                 flash_flops(B, S, H, D, causal, False)),
             "bwd": with_rates({
                     "max_abs_err": max(
@@ -2928,15 +3045,45 @@ def phase_kernels_attn(torch, F):
                     "library_ms": device_ms(torch, lambda: (
                         torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
                                             retain_graph=True)), 5),
-                    "bound_ms": bb, "bound_by": bby},
+                    "bound_ms": bb, "bound_by": bby, **(bx[0] if bx else {})},
                 flash_flops(B, S, H, D, causal, True))})
         del grads, again, plain, lib_out
     emit({"phase": "kernels-attn",
           "tolerance": {"bf16_out_atol_rtol": OUT_TOL,
                         "bf16_grad_atol_rtol": GRAD_TOL,
                         "f32_atol_rtol": F32_TOL, "lse_atol": LSE_TOL},
-          "cases": rows})
+          "cases": rows, "f32_packed": attn_f32_packed(torch, F, g)})
     return rows
+
+
+def attn_f32_packed(torch, F, g) -> dict:
+    """The f32 forward on the packed route: q, k, v strided views of one
+    [B, S, 3 H D] projection (ATTN_SHAPE, D=128, causal), against the
+    plain version at F32_TOL; ms beside the bound, the plain version and
+    SDPA on the same views."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    B, S, H = ATTN_SHAPE
+    D, causal = 128, True
+    qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g)
+    q, k, v = qkv.view(B, S, 3, H, D).unbind(2)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fb, fby, fx = attn_bound(B, S, H, D, causal, 4, False)
+    return with_rates({
+        "B": B, "S": S, "H": H, "D": D, "causal": causal,
+        "max_abs_err": (out - ref).abs().max().item(),
+        "ms": device_ms(torch, lambda: flash_attention_fwd(
+            q, k, v, causal=causal), 10),
+        "plain_ms": device_ms(torch, lambda: flash_attention_fwd_plain(
+            q, k, v, causal), 3),
+        "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 10),
+        "bound_ms": fb, "bound_by": fby, **fx},
+        flash_flops(B, S, H, D, causal, False))
 
 
 # ---- row 15: the BatchNorm kernels ----
@@ -3433,8 +3580,8 @@ def main() -> int:
     sos = _build.build()
     emit({"phase": "build", "kernels": list(_build.KERNELS),
           "seconds": time.perf_counter() - t0})
-    phase_ptxas(sos)
-    sass = phase_sass(torch)
+    ptxas = phase_ptxas(sos)
+    sass = dict(phase_sass(torch), ptxas=ptxas)
 
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)
@@ -3501,7 +3648,8 @@ def main() -> int:
         return max(rows, key=lambda r: (r["shape"][0] * r["shape"][1],
                                         r.get("gelu", False)))
     emit({"phase": "profiler", "empty_traces_taken_again": EMPTY_TRACES,
-          "short_traces_taken_again": SHORT_TRACES})
+          "short_traces_taken_again": SHORT_TRACES,
+          "timings_by_cuda_events": EVENT_TIMINGS})
     emit({"kernels": [
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               "paddle_tpu/ops/pallas_ops.py:152,645", fwd_rows,

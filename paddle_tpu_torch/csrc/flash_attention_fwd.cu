@@ -61,14 +61,26 @@
 // output columns) and only the true width is written back; the softmax
 // scale comes from the caller (1/sqrt(true head_dim)), never from DP.
 //
-// float32 (q, k, v and out): `flash_fwd_f32_kernel` below, f32 FMAs on
-// the CUDA cores (no TF32), so it holds to the reference's f32 (its
-// interpret mode is exact f32) to ~1e-5. One query row per warp, eight
-// rows per block; k/v stream through shared memory in 32-key tiles, one
-// key per lane for the scores, and each lane owns head_dim/32 output
-// columns for PV. Head_dim any multiple of 4 up to 256. Bound by its
-// scalar FMAs (67 TFLOP/s f32): a simple kernel that is right; TF32 or
-// wgmma for f32 is later work.
+// float32 (q, k, v and out): `flash_fwd_f32_kernel` below puts both
+// products on the tensor cores as 3xTF32: each f32 operand a = hi + lo
+// with hi = tf32(a) and lo = a - hi, and a b ~= lo*hi + hi*lo + hi*hi in
+// f32 sums, ~2^-21 of |a b| a product where one TF32 product keeps ~2^-11
+// and would not hold the reference's f32 (its interpret mode is exact
+// f32) to 1e-4. wgmma takes TF32 only K-major, and P V's V is MN-major,
+// so v cannot go from TMA to the tensor cores as it lands: a producer
+// warpgroup loads q, k and v with plain 16-byte loads, splits each value
+// and stores the halves where wgmma reads them (v transposed, its keys
+// in the order the score accumulator leaves P's keys in, so P is the
+// register A operand as it stands); one consumer warpgroup owns the
+// block's 64 query rows. The split triples the operands' shared memory,
+// so a tile is BK = 64 keys up to width 128 (32 at 192, 16 at 256), one
+// buffer each for k and v; width, masks and tile skipping as above, so a
+// row's bits do not follow S here either. Head_dim any multiple of 4 up
+// to 256, at the next width of 32/64/96/128/192/256. Bound by the tensor
+// cores: three TF32 products (495 TFLOP/s dense) for each f32 one.
+// (A first design on mma.sync m16n8k8 TF32, its fragments split by each
+// warp from cp.async tiles, was slower on an H100: its loads and splits,
+// not its products, set its time; PERF.md has the numbers.)
 //
 // Inputs need a unit stride in D and 16-byte aligned rows and strides
 // (the Python wrapper checks; TMA needs both). The launcher returns
@@ -435,149 +447,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                                     scale, causal, stream);
 }
 
-// ---- float32: f32 FMAs on the CUDA cores, no TF32 ----
-
-constexpr int kF32Rows = 8;          // query rows per block, one per warp
-constexpr int kF32Keys = 32;         // keys per tile, one per lane
-constexpr int kF32Threads = kF32Rows * 32;
-constexpr int kF32Cols = 8;          // output columns per lane (256 / 32)
-
-// f32 shared memory: q rows [8][hd], k and v tiles [32][hd + 1] (the odd
-// pitch keeps a lane-per-key read of a column free of bank conflicts).
-__host__ __device__ inline size_t f32_smem_bytes(int hd) {
-  return sizeof(float) *
-         (size_t(kF32Rows) * hd + 2 * size_t(kF32Keys) * (hd + 1));
-}
-
-// Rows row0..row0+ROWS-1 of one head into a shared [ROWS][ld] tile by
-// float4 (hd is a multiple of 4); rows past S are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
-                                              const float* src,
-                                              long long row_stride, int row0,
-                                              int S, int hd) {
-  const int per_row = hd / 4;
-  for (int i = threadIdx.x; i < ROWS * per_row; i += blockDim.x) {
-    const int r = i / per_row;
-    const int c = (i % per_row) * 4;
-    const int s = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < S) {
-      val = *reinterpret_cast<const float4*>(src + s * row_stride + c);
-    }
-    float* d = dst + r * ld + c;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__global__ void __launch_bounds__(kF32Threads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int S, int H, int hd,
-                     Strides st, float scale, int causal) {
-  extern __shared__ __align__(16) float fsm[];
-  const int ld = hd + 1;
-  float* sQ = fsm;
-  float* sK = sQ + kF32Rows * hd;
-  float* sV = sK + kF32Keys * ld;
-
-  const int q0 = blockIdx.x * kF32Rows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qpos = q0 + warp;
-  const float* qh = q + b * st.q_b + h * st.q_h;
-  const float* kh = k + b * st.k_b + h * st.k_h;
-  const float* vh = v + b * st.v_b + h * st.v_h;
-
-  load_rows_f32<kF32Rows>(sQ, hd, qh, st.q_s, q0, S, hd);
-  const float* qrow = sQ + warp * hd;
-  float m = kNegInf;
-  float l = 0.f;
-  float o[kF32Cols];
-#pragma unroll
-  for (int i = 0; i < kF32Cols; ++i) o[i] = 0.f;
-
-  const int nk = (S + kF32Keys - 1) / kF32Keys;
-  const int j_last =
-      causal ? min((q0 + kF32Rows - 1) / kF32Keys, nk - 1) : nk - 1;
-  for (int j = 0; j <= j_last; ++j) {
-    __syncthreads();                     // previous k/v tile fully read
-    load_rows_f32<kF32Keys>(sK, ld, kh, st.k_s, j * kF32Keys, S, hd);
-    load_rows_f32<kF32Keys>(sV, ld, vh, st.v_s, j * kF32Keys, S, hd);
-    __syncthreads();
-    // lane = key: its score against this warp's query row
-    const int kpos = j * kF32Keys + lane;
-    const float* krow = sK + lane * ld;
-    float s = 0.f;
-    for (int c = 0; c < hd; ++c) s = fmaf(qrow[c], krow[c], s);
-    s *= scale;
-    if (kpos >= S || (causal && kpos > qpos)) s = kNegInf;
-    const float m_new = fmaxf(m, warp_max(s));
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * alpha + warp_sum(p);
-    m = m_new;
-    // lane = output columns lane, lane + 32, ...: O = alpha O + P V
-#pragma unroll
-    for (int i = 0; i < kF32Cols; ++i) o[i] *= alpha;
-    for (int jj = 0; jj < kF32Keys; ++jj) {
-      const float pj = __shfl_sync(0xffffffffu, p, jj);
-      const float* vrow = sV + jj * ld;
-#pragma unroll
-      for (int i = 0; i < kF32Cols; ++i) {
-        const int c = lane + 32 * i;
-        if (c < hd) o[i] = fmaf(pj, vrow[c], o[i]);
-      }
-    }
-  }
-
-  if (qpos >= S) return;
-  const float l_safe = (l == 0.f) ? 1.f : l;
-  float* dst = out + b * st.o_b + (long long)qpos * st.o_s + h * st.o_h;
-#pragma unroll
-  for (int i = 0; i < kF32Cols; ++i) {
-    const int c = lane + 32 * i;
-    if (c < hd) dst[c] = o[i] / l_safe;
-  }
-  if (lane == 0) lse[((long long)b * H + h) * S + qpos] = m + logf(l_safe);
-}
-
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, float* lse, int B, int S, int H, int hd,
-                       const Strides& st, float scale, int causal,
-                       cudaStream_t stream) {
-  const int smem = static_cast<int>(f32_smem_bytes(hd));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + kF32Rows - 1) / kF32Rows, H, B);
-  flash_fwd_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, hd,
-      st, scale, causal);
-  return cudaGetLastError();
-}
-
 // The smallest instantiated tile width that holds head_dim `hd`.
 inline int tile_width(int hd) {
   if (hd <= 32) return 32;
@@ -586,6 +455,366 @@ inline int tile_width(int hd) {
   if (hd <= 128) return 128;
   if (hd <= 192) return 192;
   return 256;
+}
+
+
+// ---- float32: 3xTF32 products on wgmma, a converting producer ----
+
+// f32 tiles, from the width alone (never S): BQ = 64 query rows a block
+// (one consumer warpgroup) and BK keys a tile, the most that keeps q, k
+// and v^T in hi and lo halves within 192 KB of shared memory (64 up to
+// width 128, 32 at 192, 16 at 256). Every tile sits on 1024 bytes: q hi,
+// q lo [BQ][DP], k hi, k lo [BK][DP] (K-major, panels of 32 floats, the
+// 128-byte swizzle), v^T hi, v^T lo [DP][BK] (panels of VW keys, the
+// 128- or, at 16 keys, 64-byte swizzle), then the mbarriers.
+template <int DP>
+struct F32Tiles {
+  static constexpr int BQ = 64;
+  static constexpr int BK = DP <= 128 ? 64 : DP == 192 ? 32 : 16;
+  static constexpr int VW = BK < 32 ? BK : 32;     // keys a v^T panel row
+  static constexpr int Q_TILE = BQ * DP * 4;       // bytes
+  static constexpr int KV_TILE = BK * DP * 4;
+  __host__ __device__ static constexpr int q_off(int lo) {
+    return lo * Q_TILE;
+  }
+  __host__ __device__ static constexpr int k_off(int lo) {
+    return 2 * Q_TILE + lo * KV_TILE;
+  }
+  __host__ __device__ static constexpr int v_off(int lo) {
+    return 2 * Q_TILE + (2 + lo) * KV_TILE;
+  }
+  static constexpr int bar_off = 2 * Q_TILE + 4 * KV_TILE;
+  static constexpr int SMEM = bar_off + 8 * 5 + 1024;
+  // the consumer warpgroup, then the producer warpgroup
+  static constexpr int THREADS = 256;
+};
+
+// x as a TF32 pair: hi = x rounded to TF32's 10 stored mantissa bits
+// (to nearest, ties away), lo = x - hi, exact in f32; the tensor core
+// reads lo's top 19 bits. hi*hi + hi*lo + lo*hi leaves out lo*lo and lo's
+// cut bits: ~2^-21 of |a b| a product, against TF32's 2^-11 alone.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The 16-byte chunk of 4 consecutive K-dim values (k0 % 4 == 0) of row r
+// in a K-major tile of `rows` rows stored as panels of PW floats, with the
+// swizzle of a PW * 4-byte row (128: chunk ^ r % 8; 64: ^ (r / 2) % 4).
+template <int PW>
+__device__ __forceinline__ uint32_t kmajor_off(int rows, int r, int k0) {
+  constexpr int RB = PW * 4;
+  const int sw = RB == 128 ? (r & 7) : ((r >> 1) & 3);
+  return (k0 / PW) * rows * RB + r * RB + ((((k0 % PW) >> 2) ^ sw) << 4);
+}
+
+// The descriptor of k8 step kk of a K-major tile (rows at `tile`, panels
+// of PW floats).
+template <int PW>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
+                                                int kk) {
+  constexpr int RB = PW * 4;
+  return ptt::wgmma_desc(tile + (8 * kk / PW) * rows * RB + (8 * kk % PW) * 4,
+                         16, 8 * RB, RB);
+}
+
+// The producer's share of ROWS rows x DP columns of one head (rows r0..,
+// columns 0..hd-1; zeros past S and hd) as 16-byte units: load them, then
+// store them split into the hi and lo K-major tiles.
+template <int DP, int ROWS>
+struct RowUnits {
+  static constexpr int CH = DP / 4;                    // chunks a row
+  static constexpr int N = (ROWS * CH + 127) / 128;    // units a thread
+  float4 val[N];
+
+  __device__ __forceinline__ void load(const float* src, long long rs, int r0,
+                                       int S, int hd, int pid) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = pid + 128 * i, r = u / CH, c = (u % CH) * 4;
+      val[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (u < ROWS * CH && r0 + r < S && c < hd) {
+        val[i] = *reinterpret_cast<const float4*>(src + (r0 + r) * rs + c);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo,
+                                        int pid) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = pid + 128 * i, r = u / CH, c = (u % CH) * 4;
+      if (u < ROWS * CH) {
+        uint4 h, l;
+        split_tf32(val[i].x, h.x, l.x);
+        split_tf32(val[i].y, h.y, l.y);
+        split_tf32(val[i].z, h.z, l.z);
+        split_tf32(val[i].w, h.w, l.w);
+        const uint32_t off = kmajor_off<32>(ROWS, r, c);
+        *reinterpret_cast<uint4*>(hi + off) = h;
+        *reinterpret_cast<uint4*>(lo + off) = l;
+      }
+    }
+  }
+};
+
+// The producer's share of a v tile (BK keys from k0, columns 0..hd-1),
+// stored transposed and split into v^T hi and lo [DP][BK]: the k8 step's
+// slot t holds key 2t, slot t + 4 key 2t + 1 (the order the score
+// accumulator leaves P's keys in, so that P is the A operand as it
+// stands). A unit is the 4 keys of one such half of a k8 step (keys
+// 8 kg + half + 2i) x 4 columns: one 16-byte chunk of each of 4 v^T
+// rows; 8 neighbouring lanes take the 8 chunks of one 128-byte row.
+template <int DP, int BK, int VW>
+struct VUnits {
+  static constexpr int HK = BK / 4;                    // halves of k8 steps
+  static constexpr int N = (HK * (DP / 4) + 127) / 128;
+  float4 val[N][4];
+
+  __device__ __forceinline__ void load(const float* src, long long rs, int k0,
+                                       int S, int hd, int pid) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = pid + 128 * i, hk = u % HK, c = (u / HK) * 4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * (hk / 2) + hk % 2 + 2 * e;
+        val[i][e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (u < HK * (DP / 4) && key < S && c < hd) {
+          val[i][e] = *reinterpret_cast<const float4*>(src + key * rs + c);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo,
+                                        int pid) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = pid + 128 * i, hk = u % HK, c = (u / HK) * 4;
+      if (u >= HK * (DP / 4)) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {             // column c + e: a v^T row
+        uint4 h, l;
+        split_tf32(lane_of(val[i][0], e), h.x, l.x);
+        split_tf32(lane_of(val[i][1], e), h.y, l.y);
+        split_tf32(lane_of(val[i][2], e), h.z, l.z);
+        split_tf32(lane_of(val[i][3], e), h.w, l.w);
+        const uint32_t off = kmajor_off<VW>(DP, c + e, 4 * hk);
+        *reinterpret_cast<uint4*>(hi + off) = h;
+        *reinterpret_cast<uint4*>(lo + off) = l;
+      }
+    }
+  }
+};
+
+// One block a (64-row q tile, head, batch): a consumer warpgroup and a
+// producer warpgroup. Both products are TF32 wgmma in 3xTF32 form, small
+// products first into the same f32 accumulator:
+//  - the producer loads q once and each k and v tile with 16-byte loads,
+//    splits every value into its TF32 pair and stores the halves in the
+//    layouts wgmma reads: q and k K-major, v transposed (v^T, keys
+//    K-major), since wgmma takes TF32 only K-major; k and v have a buffer
+//    each and their own full/empty mbarriers, so k_{j+1} is written while
+//    the consumer runs softmax_j and P_j V_j, v_{j+1} while it runs
+//    S_{j+1}; v's loads start once k's tile is stored, so one
+//    tile's loads hold registers at a time (faster on an H100 than both
+//    at once);
+//  - the consumer: S_j = Q K_j^T as 3 x DP / 8 SS products m64nBKk8; the
+//    online softmax of the 16-bit kernels in registers (Softmax<BK>);
+//    P_j split in registers into the A operands of 3 x BK / 8 RS products
+//    m64nDPk8 into O. (Issuing S_j before P_{j-1} V_{j-1}, as the 16-bit
+//    kernels do, needs both products' registers at once: at widths 32-256
+//    ptxas spilled and serialised the products, and it ran slower on an
+//    H100.)
+//  - a causal block stops at its diagonal tile, the mask is applied only
+//    on diagonal and ragged tiles, and keys past S and columns past hd
+//    are zeros in the tiles.
+template <int DP>
+__global__ void __launch_bounds__(F32Tiles<DP>::THREADS, DP <= 64 ? 2 : 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, int hd,
+                     Strides st, float scale_log2, int causal) {
+  using C = F32Tiles<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = ptt::align_1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* k_full = bar_q + 1;
+  uint64_t* k_empty = bar_q + 2;
+  uint64_t* v_full = bar_q + 3;
+  uint64_t* v_empty = bar_q + 4;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nk = (S + BK - 1) / BK;
+  const int tiles = causal ? min((q0 + BQ - 1) / BK + 1, nk) : nk;
+
+  if (threadIdx.x == 0) {
+    ptt::mbar_init(bar_q, 128);
+    ptt::mbar_init(k_full, 128);
+    ptt::mbar_init(v_full, 128);
+    ptt::mbar_init(k_empty, 4);              // one arrival a consumer warp
+    ptt::mbar_init(v_empty, 4);
+    ptt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {                  // the producer
+    const int pid = threadIdx.x - 128;
+    const float* kh = k + b * st.k_b + h * st.k_h;
+    const float* vh = v + b * st.v_b + h * st.v_h;
+    {
+      RowUnits<DP, BQ> qu;
+      qu.load(q + b * st.q_b + h * st.q_h, st.q_s, q0, S, hd, pid);
+      qu.store(smem + C::q_off(0), smem + C::q_off(1), pid);
+      ptt::fence_proxy_async();
+      ptt::mbar_arrive(bar_q);
+    }
+    for (int j = 0; j < tiles; ++j) {
+      RowUnits<DP, BK> ku;
+      VUnits<DP, BK, C::VW> vu;
+      ku.load(kh, st.k_s, j * BK, S, hd, pid);
+      ptt::mbar_wait(k_empty, (j & 1) ^ 1);
+      ku.store(smem + C::k_off(0), smem + C::k_off(1), pid);
+      ptt::fence_proxy_async();
+      ptt::mbar_arrive(k_full);
+      vu.load(vh, st.v_s, j * BK, S, hd, pid);
+      ptt::mbar_wait(v_empty, (j & 1) ^ 1);
+      vu.store(smem + C::v_off(0), smem + C::v_off(1), pid);
+      ptt::fence_proxy_async();
+      ptt::mbar_arrive(v_full);
+    }
+    return;
+  }
+
+  // the consumer: this thread holds rows row0 and row1 = row0 + 8,
+  // columns 8 n + c2 + {0, 1}
+  const int lane = threadIdx.x & 31;
+  const int c2 = (lane & 3) * 2;
+  const int row0 = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const uint32_t sbase = ptt::smem_u32(smem);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) ptt::mbar_arrive(bar);
+  };
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  Softmax<BK> sm{kNegInf, kNegInf, 0.f, 0.f};
+  ptt::mbar_wait(bar_q, 0);
+  for (int j = 0; j < tiles; ++j) {
+    // S_j = Q K_j^T: q lo k hi, q hi k lo, q hi k hi a k8 step
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    ptt::mbar_wait(k_full, j & 1);
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const uint64_t qh = kmajor_desc<32>(sbase + C::q_off(0), BQ, kk);
+      const uint64_t ql = kmajor_desc<32>(sbase + C::q_off(1), BQ, kk);
+      const uint64_t kh = kmajor_desc<32>(sbase + C::k_off(0), BK, kk);
+      const uint64_t kl = kmajor_desc<32>(sbase + C::k_off(1), BK, kk);
+      ptt::wgmma_tf32_ss<BK>(sc, ql, kh);
+      ptt::wgmma_tf32_ss<BK>(sc, qh, kl);
+      ptt::wgmma_tf32_ss<BK>(sc, qh, kh);
+    }
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs(sc);
+    release(k_empty);
+    const bool edge = j * BK + BK > S || (causal && j * BK + BK - 1 > q0);
+    float a0, a1;
+    sm.step(sc, j * BK, edge, S, causal, row0, row1, c2, scale_log2, a0, a1);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      o[4 * n] *= a0;
+      o[4 * n + 1] *= a0;
+      o[4 * n + 2] *= a1;
+      o[4 * n + 3] *= a1;
+    }
+    // P_j as the A operands: slot t of k8 step kk is key 8 kk + 2t (the
+    // accumulator's column 2t), slot t + 4 key 8 kk + 2t + 1
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+    ptt::mbar_wait(v_full, j & 1);
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t vh = kmajor_desc<C::VW>(sbase + C::v_off(0), DP, kk);
+      const uint64_t vl = kmajor_desc<C::VW>(sbase + C::v_off(1), DP, kk);
+      ptt::wgmma_tf32_rs<DP>(o, pl[kk], vh);
+      ptt::wgmma_tf32_rs<DP>(o, ph[kk], vl);
+      ptt::wgmma_tf32_rs<DP>(o, ph[kk], vh);
+    }
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs(o);
+    release(v_empty);
+  }
+
+  float l0 = sm.l0, l1 = sm.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float ls0 = l0 == 0.f ? 1.f : l0;
+  const float ls1 = l1 == 0.f ? 1.f : l1;
+  float* ob = out + b * st.o_b + h * st.o_h;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = 8 * n + c2;
+    if (col < hd) {                       // hd is a multiple of 4
+      if (row0 < S) {
+        *reinterpret_cast<float2*>(ob + row0 * st.o_s + col) =
+            make_float2(o[4 * n] / ls0, o[4 * n + 1] / ls0);
+      }
+      if (row1 < S) {
+        *reinterpret_cast<float2*>(ob + row1 * st.o_s + col) =
+            make_float2(o[4 * n + 2] / ls1, o[4 * n + 3] / ls1);
+      }
+    }
+  }
+  if ((lane & 3) == 0) {
+    float* lb = lse + (static_cast<long long>(b) * H + h) * S;
+    if (row0 < S) lb[row0] = (sm.m0 + log2f(ls0)) * kLn2;
+    if (row1 < S) lb[row1] = (sm.m1 + log2f(ls1)) * kLn2;
+  }
+}
+
+template <int DP>
+cudaError_t launch_f32_dp(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int B, int S, int H, int hd,
+                          const Strides& st, float scale, int causal,
+                          cudaStream_t stream) {
+  using C = F32Tiles<DP>;
+  auto kernel = flash_fwd_f32_kernel<DP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, hd,
+      st, scale * kLog2e, causal);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -610,7 +839,18 @@ int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (dtype == 2) {
     if (D % 4) return cudaErrorInvalidValue;
-    return launch_f32(q, k, v, out, lse, B, S, H, D, st, scale, causal, s);
+#define PTT_FLASH_F32_CASE(DIM)                                            \
+  if (tile_width(D) == DIM)                                                \
+    return launch_f32_dp<DIM>(q, k, v, out, lse, B, S, H, D, st, scale,    \
+                              causal, s);
+    PTT_FLASH_F32_CASE(32)
+    PTT_FLASH_F32_CASE(64)
+    PTT_FLASH_F32_CASE(96)
+    PTT_FLASH_F32_CASE(128)
+    PTT_FLASH_F32_CASE(192)
+    PTT_FLASH_F32_CASE(256)
+#undef PTT_FLASH_F32_CASE
+    return cudaErrorInvalidValue;
   }
   if (D % 8) return cudaErrorInvalidValue;
   const int dp = tile_width(D);

@@ -26,7 +26,9 @@ The kernels take bf16 and f16 at any head_dim that is a multiple of 8
 up to 256 (run at the next instantiated tile width, 32/64/96/128/192/
 256, with zero-filled columns past the true head_dim; wgmma kernels
 with TMA rings), and f32 at any
-multiple of 4 up to 256 (f32 FMAs on the CUDA cores, no TF32). q, k,
+multiple of 4 up to 256 (the forward's products on wgmma as 3xTF32,
+three TF32 products a product, ~2^-21 of each product; the backward's
+f32 FMAs on the CUDA cores). q, k,
 v, out and dO whose strides or base the kernels' TMA maps cannot take
 (a non-unit stride in head_dim, other strides or the base not 16-byte
 aligned) are copied to dense tensors first; in-place dq/dk/dv must

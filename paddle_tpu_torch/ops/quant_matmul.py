@@ -26,7 +26,8 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   the card it is one launch that reads x once (a thread-block cluster a
   32-column strip, all rows in its blocks' shared memory) up to
   ``sr_cols_one_read_max_rows`` rows; a taller x takes the two-pass
-  pair row 11 runs, picked from the shape before the launch;
+  pair (an amax pass, then the cast), picked from the shape before the
+  launch;
 - the LayerNorm-fused quantizes: ``ln_quantize_rowwise`` (:239, the
   kernel of ``_rowq_ln_call`` :215, row 10: LayerNorm and row 8's RTN
   in one read of the pre-LN x, also returning the rows' mean and
@@ -34,7 +35,10 @@ Counterpart of ``paddle_tpu/ops/quant_matmul.py``:
   ``_sr_colq_ln_pallas`` :296, row 11: row 12's SR column quantize of
   ``((x - mean) * rstd) * g + b`` from those statistics, drawing row
   12's Philox words, so the fused and the unfused wgrad quantize of
-  one activation take the same noise). Row 10's kernel keeps the row in
+  one activation take the same noise; on the card row 12's cluster
+  kernel with the LayerNorm taken from the staged x for the maxima and
+  again in the cast, up to ``sr_cols_one_read_max_rows(dtype, ln=True)``
+  rows, the pair past them). Row 10's kernel keeps the row in
   registers (a warp a row up to K = 2048, a block a row up to 16384;
   longer rows, and K % 16 != 0, staged in shared memory) and sums it
   in a fixed order that K alone sets (``row10_route``,
@@ -327,7 +331,8 @@ def _lib():
                                              i, i, i, vp]
         lib.ptt_quantize_rows_ln.restype = i
         lib.ptt_quantize_cols_one_read.argtypes = [vp, vp, vp, ll, i, i, i,
-                                                   i, ctypes.c_uint, vp]
+                                                   i, ctypes.c_uint, vp, vp,
+                                                   vp, vp, vp]
         lib.ptt_quantize_cols_one_read.restype = i
         lib.ptt_cols_one_read_max_rows.argtypes = [i, i, i]
         lib.ptt_cols_one_read_max_rows.restype = i
@@ -410,13 +415,15 @@ def _rows_ln_cuda(x2, g, b, staged: bool = False):
     return q, scale, mean, rstd
 
 
-def sr_cols_one_read_max_rows(dtype, act=None) -> int:
-    """The most rows ``sr_quantize_colwise`` takes in one read of x on
-    the card for ``dtype`` and ``act`` (``csrc/quantize.cu``: a cluster
-    of at most 16 blocks, each at most half an SM's shared memory, holds
-    a 32-column strip of all rows: x, and act(x) in f32 with gelu);
-    more rows take the two-pass pair."""
-    return _lib().ptt_cols_one_read_max_rows(_DTYPES[dtype], _ACTS[act], 1)
+def sr_cols_one_read_max_rows(dtype, act=None, ln: bool = False) -> int:
+    """The most rows ``sr_quantize_colwise`` (``act``), or with ``ln``
+    ``sr_quantize_colwise_ln``, takes in one read of x on the card for
+    ``dtype`` (``csrc/quantize.cu``: a cluster of at most 16 blocks, each
+    at most half an SM's shared memory, holds a 32-column strip of all
+    rows: x, and act(x) in f32 with gelu, or the rows' mean and rstd with
+    LayerNorm); more rows take the two-pass pair."""
+    return _lib().ptt_cols_one_read_max_rows(
+        _DTYPES[dtype], _ACT_LN if ln else _ACTS[act], 1)
 
 
 def cols_one_read_max_rows(dtype) -> int:
@@ -433,29 +440,39 @@ def _cols_name(seed, ln) -> str:
 
 def _cols_cuda(x2, act, seed, ln=()):
     """Rows 9 and 12, or row 11 when ``ln`` holds (mean, rstd, g, b).
-    Rows 9 and 12 take the one-read cluster kernel when R fits it (by
-    shape, before any launch), else the two-pass pair row 11 runs."""
+    Each takes the one-read cluster kernel when R fits it (by shape,
+    before any launch), else the two-pass pair."""
     what = _cols_name(seed, ln)
     _check_cuda(what, x2)
     R, C = x2.shape
     if R % 16:
         raise ValueError(f"{what} kernel writes the codes column-major in "
                          f"16-row pieces: rows % 16 == 0; got {R}")
-    if not ln and R <= (cols_one_read_max_rows(x2.dtype) if seed is None
-                        else sr_cols_one_read_max_rows(x2.dtype, act)):
-        return _cols_one_read(x2, act, seed)
+    limit = (cols_one_read_max_rows(x2.dtype) if seed is None
+             else sr_cols_one_read_max_rows(x2.dtype, act, bool(ln)))
+    if R <= limit:
+        return _cols_one_read(x2, act, seed, ln)
     return _cols_two_pass(x2, act, seed, ln)
+
+
+def _ln_ptrs(what: str, x2, ln):
+    """Row 11's (mean, rstd, g, b) as the kernels take them, and their
+    addresses (None without LayerNorm)."""
+    if not ln:
+        return (), [None] * 4
+    R, C = x2.shape
+    ln = [_f32_vector(what, name, t, n, x2.device) for name, t, n in
+          zip(("mean", "rstd", "g", "b"), ln, (R, R, C, C))]
+    return ln, [t.data_ptr() for t in ln]
 
 
 def _cols_two_pass(x2, act, seed, ln=()):
     """The two-pass pair (an amax pass, then the cast) on a checked
-    ``x2``: row 11, and rows 9 and 12 past the one-read limit."""
+    ``x2``: rows 9, 11 and 12 past the one-read limit (and, called
+    directly, at any R, for timing the two routes on one input)."""
     what = _cols_name(seed, ln)
     R, C = x2.shape
-    if ln:
-        ln = [_f32_vector(what, name, t, n, x2.device) for name, t, n in
-              zip(("mean", "rstd", "g", "b"), ln, (R, R, C, C))]
-    ln_ptrs = [t.data_ptr() for t in ln] if ln else [None] * 4
+    ln, ln_ptrs = _ln_ptrs(what, x2, ln)
     qt = torch.empty((C, R), dtype=torch.int8, device=x2.device)
     scale = torch.empty((1, C), dtype=torch.float32, device=x2.device)
     amax = torch.empty(C, dtype=torch.float32, device=x2.device)
@@ -470,19 +487,23 @@ def _cols_two_pass(x2, act, seed, ln=()):
     return qt.t(), scale
 
 
-def _cols_one_read(x2, act, seed):
+def _cols_one_read(x2, act, seed, ln=()):
     """The one-read cluster kernel on a checked ``x2``: row 12 (SR from
-    ``seed``), or row 9 (RTN) when ``seed`` is None."""
+    ``seed``), row 11 when ``ln`` holds (mean, rstd, g, b), or row 9
+    (RTN) when ``seed`` is None."""
+    what = _cols_name(seed, ln)
     R, C = x2.shape
+    ln, ln_ptrs = _ln_ptrs(what, x2, ln)
     qt = torch.empty((C, R), dtype=torch.int8, device=x2.device)
     scale = torch.empty((1, C), dtype=torch.float32, device=x2.device)
     lib = _lib()
     with torch.cuda.device(x2.device):
         err = lib.ptt_quantize_cols_one_read(
             x2.data_ptr(), qt.data_ptr(), scale.data_ptr(), R, C,
-            _DTYPES[x2.dtype], _ACTS[act], int(seed is not None),
-            0 if seed is None else int(seed) & _MASK, _stream(x2))
-    _raise_on(err, lib, _cols_name(seed, ()))
+            _DTYPES[x2.dtype], _ACT_LN if ln else _ACTS[act],
+            int(seed is not None), 0 if seed is None else int(seed) & _MASK,
+            *ln_ptrs, _stream(x2))
+    _raise_on(err, lib, what)
     return qt.t(), scale
 
 

@@ -18,8 +18,10 @@ different summation order; backward ``atol=1e-5`` on gradients of
 magnitude ~1-10 (five f32 matmuls in another order). On the card the
 kernels take bf16 and are held to their plain versions at
 ``atol=rtol=2e-2`` (bf16 rounding of out, of P and of dS) and
-``atol=1e-3`` for ``lse``; the f32 kernels at ``1e-4`` (f32 FMAs in
-another order). Head_dims off the reference kernel's {64, 128, 256}
+``atol=1e-3`` for ``lse``; the f32 kernels at ``1e-4`` (the forward's
+3xTF32 products, ~2^-21 of each product, and the backward's f32 FMAs,
+in another order); the 3xTF32 arithmetic is also held to that bar on
+the CPU. Head_dims off the reference kernel's {64, 128, 256}
 (32, 80, 96) are held to the reference kernel in interpret mode too,
 and the wrapper's contract (every head_dim up to 256 whose row is a
 whole number of 16 bytes, bf16/f16/f32) is checked on CPU tensors.
@@ -301,6 +303,54 @@ def test_no_grad_calls_skip_the_function():
     assert flash_attention_fwd(q, k, v).grad_fn is not None
 
 
+def _tf32_pair(x):
+    """The f32 kernel's split of f32 ``x`` into TF32 halves: hi rounded to
+    TF32's 10 stored mantissa bits (to nearest, ties away), lo = x - hi,
+    of which the tensor core reads the top 19 bits (the rest cut)."""
+    hi = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def _tf32_products(eq, a, b, terms: int):
+    """``einsum(eq, a, b)`` as the f32 kernel's TF32 products form it:
+    every product of TF32 values is exact in f32; 3 terms (lo hi + hi lo +
+    hi hi, the kernel's 3xTF32) or 1 (hi hi, one TF32 product)."""
+    (ah, al), (bh, bl) = _tf32_pair(a), _tf32_pair(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+@pytest.mark.parametrize("D,causal", [(64, True), (128, False)])
+def test_three_tf32_products_hold_the_f32_tolerance(D, causal):
+    """The f32 forward's arithmetic (csrc/flash_attention_fwd.cu), both
+    products as 3xTF32 with P unnormalised, holds the plain f32 version
+    to the card tests' 1e-4 (out, atol=rtol) and 1e-5 (lse); one TF32
+    product alone does not hold 1e-4."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 200, 2, D, D))
+    scale = 1.0 / math.sqrt(D)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    for terms in (3, 1):
+        s = _tf32_products("bqhd,bkhd->bhqk", q, k, terms) * scale
+        if causal:
+            s = s.masked_fill(~torch.ones(200, 200, dtype=torch.bool).tril(),
+                              -1e30)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        out = (_tf32_products("bhqk,bkhd->bhqd", p, v, terms) / l).transpose(
+            1, 2)
+        lse = (m + torch.log(l)).squeeze(-1)
+        err = (out - ref).abs().max().item()
+        if terms == 3:
+            torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+        else:
+            assert err > 1e-4
+
+
 def test_plain_takes_strided_inputs_and_mixed_dtypes():
     """The plain version reads any strides (the cache path hands it
     buffer views) and computes f32 scores from a bf16 key."""
@@ -374,7 +424,8 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
 def test_cuda_every_head_dim_and_f32_match_plain(cuda, D, dtype, causal):
     """Forward and backward at head_dims off {64, 128, 256} and in f32
     against the plain versions (16-bit: the bf16 tolerances; f32: 1e-4,
-    f32 FMAs in another order), one launch each, the same bits twice."""
+    3xTF32 and f32 FMAs in another order), one launch each, the same
+    bits twice."""
     g = torch.Generator(device=cuda).manual_seed(D)
     q, k, v, do = (torch.randn(2, 150, 3, D, device=cuda, generator=g)
                    .to(dtype) for _ in range(4))
@@ -505,7 +556,10 @@ def test_cuda_llama_backward_has_attention_gradients(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16),
-                                     (64, torch.float16)])
+                                     (64, torch.float16),
+                                     (36, torch.float32),
+                                     (128, torch.float32),
+                                     (256, torch.float32)])
 def test_cuda_padded_prefix_is_bitwise(cuda, D, dtype):
     """A causal row depends only on its own prefix: rows 0..299 of an
     S=512 call whose positions past 300 are padding equal the S=300
@@ -653,3 +707,30 @@ def test_cuda_unaligned_views_launch_the_kernel(cuda):
     for a, p in zip(leaf.grad[..., 1:], plain):
         torch.testing.assert_close(a.float(), p.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 37, 300, 512])
+@pytest.mark.parametrize("D", [4, 36, 64, 128, 256])
+def test_cuda_f32_forward_on_packed_views_matches_plain(cuda, D, S, causal):
+    """The f32 forward (3xTF32 products on mma.sync) against the plain
+    version (f32 einsums, TF32 off) at each tile width's edges (4 and 36
+    run at widths 32 and 64 with zero columns), a one-row, a ragged and
+    whole tiles' S, causal and not, with q, k, v strided views of one
+    packed [B, S, 3 H D] projection: one launch and no copy, out within
+    1e-4 (atol=rtol), lse within 1e-5."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, H = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(1000 * D + S)
+    qkv = torch.randn(B, S, 3 * H * D, device=cuda, generator=g)
+    q, k, v = qkv.view(B, S, 3, H, D).unbind(2)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    assert all(fa._aligned(t) is t for t in (q, k, v))
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)

@@ -415,3 +415,59 @@ def test_cuda_row10_row_alone_equals_row_in_a_batch(cuda, K):
         alone = qm.ln_quantize_rowwise(tx[i:i + 1], tg, tb)
         for a, w in zip(alone, batch):
             assert torch.equal(a, w[i:i + 1])
+
+
+def _row11_cuda(R, C, dtype, seed, device):
+    """Row 11's inputs on the card: x [R, C] of the trainer's kind with
+    row 3 constant (variance 0), its rows' mean and rstd, g near 1 and b
+    near 0 with column 5 at g = b = 0 (an all-zero column of LN(x))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(R, C, device=device, generator=gen)
+         * (0.5 + 2 * torch.rand(R, 1, device=device, generator=gen))
+         + torch.randn(R, 1, device=device, generator=gen)).to(dtype)
+    x[3] = 0.75
+    xf = x.float()
+    mean = xf.mean(1, keepdim=True)
+    rstd = torch.ones_like(mean) / torch.sqrt(
+        xf.var(1, unbiased=False, keepdim=True) + 1e-5)
+    g = 1 + 0.1 * torch.randn(C, device=device, generator=gen)
+    b = 0.1 * torch.randn(C, device=device, generator=gen)
+    g[5] = b[5] = 0
+    return x, mean, rstd, g, b
+
+
+# row 11's routes, by shape: the one-read cluster kernel up to
+# qm.sr_cols_one_read_max_rows(dtype, ln=True) rows, the two-pass pair past
+# it; at a small R, the trainer's 6144, the limit and 16 rows past it
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [32, 200, 2048])
+@pytest.mark.parametrize("rows", ["16", "6144", "limit", "limit+16"])
+def test_cuda_row11_routes_bit_for_bit(cuda, dtype, C, rows, monkeypatch):
+    """Row 11 on the route its R picks equals the plain version and the
+    two-pass pair at the same seed bit for bit (codes and scales), a
+    constant row and a g = b = 0 column (codes 0) included; one wrapper
+    launch, and R past the one-read limit takes the pair."""
+    dt = getattr(torch, dtype)
+    limit = qm.sr_cols_one_read_max_rows(dt, ln=True)
+    R = {"16": 16, "6144": 6144, "limit": limit,
+         "limit+16": limit + 16}[rows]
+    x, mean, rstd, g, b = _row11_cuda(R, C, dt, C + R, cuda)
+    pair = qm._cols_two_pass(x, None, 91, (mean, rstd, g, b))
+    routes = []
+    for name in ("_cols_one_read", "_cols_two_pass"):
+        def counted(*args, _fn=getattr(qm, name), _name=name):
+            routes.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(qm, name, counted)
+    before = qm.sr_quantize_colwise_ln.launches
+    got = qm.sr_quantize_colwise_ln(x, mean, rstd, g, b, 91)
+    want = qm.sr_quantize_colwise_ln_plain(x, mean, rstd, g, b, 91)
+    torch.cuda.synchronize()
+    assert qm.sr_quantize_colwise_ln.launches == before + 1
+    assert routes == ["_cols_one_read" if R <= limit else "_cols_two_pass"]
+    for a, p, w in zip(got, pair, want):
+        assert torch.equal(a, w) and torch.equal(p, w)
+    assert got[0].stride() == (1, R)       # column-major codes
+    assert not got[0][:, 5].any()
+    assert torch.equal(got[1][0, 5], torch.tensor(1 / 127, device=cuda))
