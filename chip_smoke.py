@@ -13,7 +13,8 @@ no result):
    ptxas   — the flash kernels' and row 7's register and spill lines
              as ptxas reported them (-Xptxas -v, kept beside each
              library), by library; rows 8's and 13's kernels' registers,
-             spills and blocks an SM by registers, by kernel.
+             spills and blocks an SM by registers, by kernel, and so the
+             f32 flash forward's and backward's kernels by tile width.
    sass    — the SASS instructions a value of rows 8, 12 and 13 on their
              common paths (cuobjdump), and the card's top SM clock: the
              instruction floors of the kernel phases.
@@ -76,14 +77,21 @@ no result):
    kernels-attn — the flash kernels at head_dims off {64, 128, 256}
              (32, 80, 96, 64 and 160 in bf16 and 192 in f16, run at the
              next tile width) and
-             in f32 (64, 128 and 256; the forward 3xTF32 on wgmma, the
-             backward f32 FMAs on the CUDA cores), causal and
+             in f32 (64, 128 and 256; forward and backward 3xTF32 on
+             wgmma), causal and
              not, forward and backward against the plain versions (the
              backward the same bits twice); ms and TFLOP/s beside the
-             bound (f32 forward: three TF32 products a product, with the
+             bound (f32: three TF32 products a product, with the
              scalar-rate bound beside it), the plain version and
-             PyTorch's SDPA (a yardstick); the f32 forward on packed
-             views.
+             PyTorch's SDPA (a yardstick); the f32 forward and backward
+             on packed views (the backward through flash_qkv_packed_bwd,
+             the same bits twice, beside SDPA's backward on the views).
+   sdpa-f32 — the port's scaled_dot_product_attention on f32 tensors
+             that require grad (D=128), then backward: the launch
+             counts, set to 0 just before and read just after, show one
+             forward and one f32 backward launch, torch.profiler's trace
+             of the backward each f32 backward kernel once, and the
+             gradients are within 1e-4 of the plain backward's.
    kernels, row 7 — int4_matmul against its plain version at Llama-1B's
              four linear shapes (down_proj at group 64), M in {1, 8, 16,
              512} and a ragged 300, within one bf16 step of the output's
@@ -211,9 +219,10 @@ without device time, or short of events, and were taken again, and how
 many kernel timings fell back to CUDA events), the
 line {"kernels": [...]}
 (launches from the train-flagship phase, int4_matmul's from
-serve-int4, the BN kernels' from train-resnet50, every path's beside
-them; ms and bounds at the trainer's
-shapes, int4_matmul's at lm_head's decode shape), the
+serve-int4, the BN kernels' from train-resnet50, the f32 flash
+backward's from sdpa-f32, every path's beside them; ms and bounds at
+the trainer's shapes, int4_matmul's at lm_head's decode shape, the f32
+flash backward's at D=128), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device":
 {...}}. Needs a CUDA device and the repository checkout beside this
 file; imports nothing of JAX.
@@ -554,7 +563,8 @@ def phase_ptxas(sos):
     compiled the kernels, by library; and the register kernels of rows
     8 and 10, the one-read column kernel of rows 9, 11 and 12 and row
     13's kernel by name: registers, spills, blocks an SM (returned), and
-    so the f32 flash forward at each tile width."""
+    so the f32 flash forward and the f32 flash backward's two kernels
+    (384 threads) at each tile width."""
     out = {}
     for so in sos:
         name = so.name.split("-")[0][3:]
@@ -563,7 +573,7 @@ def phase_ptxas(sos):
                 ln.replace("ptxas info    :", "").strip()
                 for ln in so.with_suffix(".log").read_text().splitlines()
                 if "registers" in ln or "spill" in ln or "C75" in ln)
-    kernels, f32 = {}, {}
+    kernels, f32, bwd32 = {}, {}, {}
     for so in sos:
         if so.name.startswith(("libfused_adamw8-", "libquantize-")):
             kernels.update(ptxas_kernels(so.with_suffix(".log"),
@@ -574,8 +584,15 @@ def phase_ptxas(sos):
         if so.name.startswith("libflash_attention_fwd-"):
             f32 = ptxas_kernels(so.with_suffix(".log"),
                                 ("flash_fwd_f32_kernel",))
+        if so.name.startswith("libflash_attention_bwd-"):
+            bwd32 = ptxas_kernels(so.with_suffix(".log"),
+                                  ("flash_bwd_dkdv_f32_kernel",
+                                   "flash_bwd_dq_f32_kernel"), threads=384)
     emit({"phase": "ptxas", "lines": out, "rows_8_to_13": kernels,
-          "flash_fwd_f32": f32})
+          "flash_fwd_f32": f32, "flash_bwd_f32": bwd32})
+    if len(bwd32) != 12:
+        raise AssertionError(f"ptxas reported {len(bwd32)} of the f32 flash "
+                             f"backward's 12 kernels (2 passes x 6 widths)")
     if not out.get("int4_matmul") or not kernels or not any(
             k.startswith("flash_attention") and v for k, v in out.items()):
         raise AssertionError("no -Xptxas -v report for the flash, int4, "
@@ -583,11 +600,12 @@ def phase_ptxas(sos):
     return kernels
 
 
-def ptxas_kernels(log, names) -> dict:
+def ptxas_kernels(log, names, threads: int = 256) -> dict:
     """From a -Xptxas -v log, each kernel whose mangled name contains one
     of ``names``: its registers, spill bytes (stores + loads) and the
-    256-thread blocks an SM holds by registers (65,536 a SM, allocated
-    8 a thread at a time)."""
+    ``threads``-thread blocks an SM holds by registers (65,536 a SM,
+    allocated 8 a thread at a time). A kernel templated on one int (the
+    flash kernels' tile width) is named ``name<width>``."""
     out, kernel = {}, None
     for ln in log.read_text().splitlines():
         if "Compiling entry function" in ln:
@@ -596,6 +614,9 @@ def ptxas_kernels(log, names) -> dict:
             # the kernel's name and template arguments, mangled
             kernel = m.group(1)[m.group(1).index(hit[0]):].split("EEEv")[0] \
                 if hit else None
+            width = kernel and re.fullmatch(r"(\w+?)ILi(\d+)", kernel)
+            if width:
+                kernel = f"{width.group(1)}<{width.group(2)}>"
         elif kernel and (m := re.search(r"(\d+) bytes spill stores, "
                                         r"(\d+) bytes spill loads", ln)):
             out.setdefault(kernel, {})["spill_bytes"] = \
@@ -604,7 +625,7 @@ def ptxas_kernels(log, names) -> dict:
             regs = int(m.group(1))
             out.setdefault(kernel, {}).update(
                 registers=regs,
-                blocks_per_sm=min(8, 65536 // (-(-regs // 8) * 8 * 256)))
+                blocks_per_sm=min(8, 65536 // (-(-regs // 8) * 8 * threads)))
     return out
 
 
@@ -1961,12 +1982,25 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["flash_attention_bwd"].f32_launches = 0
+
+
+def no_launches() -> dict:
+    """read_launches()'s names, each at 0."""
+    return dict.fromkeys([*kernel_wrappers(), "flash_attention_bwd_f32"], 0)
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Each wrapper's count, and the float32 launches of the flash
+    backward (its own kernels) apart as flash_attention_bwd_f32."""
+    wrappers = kernel_wrappers()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts["flash_attention_bwd_f32"] = \
+        wrappers["flash_attention_bwd"].f32_launches
+    return counts
 
 
 def profiled(torch, setup):
@@ -2321,7 +2355,7 @@ def phase_serve_int4(torch, np, model, prompts):
                              f"expected {decode_steps}")
     L = cfg.num_hidden_layers
     per_call = L * LINEARS_PER_LAYER + 1
-    want = dict.fromkeys(kernel_wrappers(), 0)
+    want = no_launches()
     want.update(flash_attention_fwd=L * len(reqs),
                 int4_matmul=per_call * (len(reqs) + decode_steps))
     if counts != want:
@@ -2516,7 +2550,7 @@ def phase_decode(torch, np, model):
     L = cfg.num_hidden_layers
     per_call = L * LINEARS_PER_LAYER + 1
     rng = np.random.RandomState(0)
-    total = dict.fromkeys(kernel_wrappers(), 0)
+    total = no_launches()
     out = {}
     for precision in ("bf16", "int8", "int4"):
         m = model if precision == "bf16" else \
@@ -2538,7 +2572,7 @@ def phase_decode(torch, np, model):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_launches()
-            want = dict.fromkeys(kernel_wrappers(), 0)
+            want = no_launches()
             want["flash_attention_fwd"] = L
             if precision == "int4":
                 want["int4_matmul"] = per_call * DECODE_NEW
@@ -2655,7 +2689,7 @@ def expected_launches(tr) -> dict:
               if not isinstance(m, tuple)}
     groups8 = {p.dtype for p, m in zip(tr._leaves, tr.opt_state["m"])
                if isinstance(m, tuple)}
-    n = dict.fromkeys(kernel_wrappers(), 0)
+    n = no_launches()
     n.update(flash_attention_fwd=L, flash_attention_bwd=L,
              fused_adamw=len(groups), fused_adamw8=len(groups8))
     if tr.quant8:
@@ -2680,7 +2714,7 @@ def guard_probe_launches(quant8) -> dict:
     """The drift probe's launches (``GPTTrainer._probe``): row quantizes
     of the cotangent and of wqkv; in "wgrad" mode SR column quantizes of
     LN1's output and of the cotangent."""
-    n = dict.fromkeys(kernel_wrappers(), 0)
+    n = no_launches()
     n["quantize_rows"] = 2
     n["sr_quantize_colwise"] = 2 * (quant8 == "wgrad")
     return n
@@ -2744,7 +2778,7 @@ def phase_train_guard(torch, np):
     for i in range(GUARD_STEPS):
         before = tr.quant8
         probe = guard_probe_launches(before) if before else \
-            dict.fromkeys(kernel_wrappers(), 0)
+            no_launches()
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -2940,8 +2974,7 @@ def phase_train_check(torch, np, name: str, recipe: dict):
 # kernel's {64, 128, 256} in bf16 and f16 (tile widths 32, 96, 96, 64,
 # 192 and 192: width 192 has its own 32-column panels and, in the
 # backward, output columns split across three panels a warpgroup), and
-# f32 (the forward 3xTF32 on wgmma, the backward f32 FMAs on the CUDA
-# cores) at 64, 128 and 256
+# f32 (forward and backward 3xTF32 on wgmma) at 64, 128 and 256
 ATTN_CASES = [(32, "bfloat16", True), (80, "bfloat16", True),
               (96, "bfloat16", False), (64, "bfloat16", False),
               (160, "bfloat16", True), (192, "float16", False),
@@ -2953,19 +2986,16 @@ F32_TOL = 1e-4                   # f32 kernels vs plain (atol=rtol)
 
 def attn_bound(B, S, H, D, causal, itemsize, backward: bool):
     """flash_bound / flash_bwd_bound at the rate of the design each
-    kernel uses: bf16/f16 products on the tensor cores; the f32 forward's
-    as three TF32 products each (3xTF32) at the TF32 rate; the f32
-    backward's at the scalar f32 rate (no tensor cores). With f32, also
-    ``scalar_bound_ms``: every f32 product at the scalar rate, the bound
-    of a kernel that uses no tensor cores (a 3xTF32 kernel may beat it)."""
+    kernel uses: bf16/f16 products on the tensor cores; f32 products,
+    forward and backward, as three TF32 products each (3xTF32) at the
+    TF32 rate. With f32, also ``scalar_bound_ms``: every f32 product at
+    the scalar rate, the bound of a kernel that uses no tensor cores."""
     n_bytes = (8 if backward else 4) * B * S * H * D * itemsize \
         + B * H * S * 4
     flops = (10 if backward else 4) * B * H * score_pairs(S, causal) * D
     if itemsize != 4:
         return bound(n_bytes, flops)
     scalar = bound(n_bytes, 0, scalar_ops=flops)
-    if backward:
-        return scalar + ({"scalar_bound_ms": scalar[0]},)
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = 3 * flops / TF32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -2975,11 +3005,12 @@ def attn_bound(B, S, H, D, causal, itemsize, backward: bool):
 
 def phase_kernels_attn(torch, F):
     """Part A of the flash kernels: head_dim 32, 80, 96, 64 and 160 in
-    bf16, 192 in f16 and f32 at 64 and 128, causal and not, forward and
-    backward, against
+    bf16, 192 in f16 and f32 at 64, 128 and 256, causal and not, forward
+    and backward, against
     the plain versions (bf16 at OUT_TOL / GRAD_TOL, f32 at F32_TOL); the
     backward gives the same bits twice; ms beside the bound, the plain
-    version and PyTorch's SDPA (a yardstick)."""
+    version and PyTorch's SDPA (a yardstick); then the f32 kernels on
+    packed views (attn_f32_packed). Returns (the cases, the packed row)."""
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
@@ -3048,23 +3079,29 @@ def phase_kernels_attn(torch, F):
                     "bound_ms": bb, "bound_by": bby, **(bx[0] if bx else {})},
                 flash_flops(B, S, H, D, causal, True))})
         del grads, again, plain, lib_out
+    packed = attn_f32_packed(torch, F, g)
     emit({"phase": "kernels-attn",
           "tolerance": {"bf16_out_atol_rtol": OUT_TOL,
                         "bf16_grad_atol_rtol": GRAD_TOL,
                         "f32_atol_rtol": F32_TOL, "lse_atol": LSE_TOL},
-          "cases": rows, "f32_packed": attn_f32_packed(torch, F, g)})
-    return rows
+          "cases": rows, "f32_packed": packed})
+    return rows, packed
 
 
 def attn_f32_packed(torch, F, g) -> dict:
-    """The f32 forward on the packed route: q, k, v strided views of one
-    [B, S, 3 H D] projection (ATTN_SHAPE, D=128, causal), against the
-    plain version at F32_TOL; ms beside the bound, the plain version and
-    SDPA on the same views."""
+    """The f32 kernels on the packed route: q, k, v strided views of one
+    [B, S, 3 H D] projection (ATTN_SHAPE, D=128, causal). The forward
+    against the plain version at F32_TOL; the backward through
+    ``flash_qkv_packed_bwd`` (dq, dk, dv written into the views of one
+    gradient buffer) against the plain backward at F32_TOL, the same bits
+    twice; ms of each beside the bound, the plain version and SDPA (its
+    forward, and its backward on the same views)."""
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_fwd_plain)
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain, flash_qkv_packed_bwd)
     B, S, H = ATTN_SHAPE
     D, causal = 128, True
+    scale = 1.0 / math.sqrt(D)
     qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g)
     q, k, v = qkv.view(B, S, 3, H, D).unbind(2)
     out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
@@ -3073,7 +3110,7 @@ def attn_f32_packed(torch, F, g) -> dict:
     torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fb, fby, fx = attn_bound(B, S, H, D, causal, 4, False)
-    return with_rates({
+    row = with_rates({
         "B": B, "S": S, "H": H, "D": D, "causal": causal,
         "max_abs_err": (out - ref).abs().max().item(),
         "ms": device_ms(torch, lambda: flash_attention_fwd(
@@ -3084,6 +3121,101 @@ def attn_f32_packed(torch, F, g) -> dict:
             qt, kt, vt, is_causal=causal), 10),
         "bound_ms": fb, "bound_by": fby, **fx},
         flash_flops(B, S, H, D, causal, False))
+
+    do = torch.randn(B, S, H * D, device="cuda", generator=g)
+    bwd = lambda: flash_qkv_packed_bwd(qkv, out, lse, do, H, causal, scale)
+    first, again = bwd(), bwd()
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do.view(out.shape),
+                                      causal)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("f32 packed backward: two runs gave different "
+                             "bits")
+    errs = []
+    for name, a, b in zip(("dq", "dk", "dv"),
+                          first.view(B, S, 3, H, D).unbind(2), plain):
+        errs.append((a - b).abs().max().item())
+        torch.testing.assert_close(a, b, atol=F32_TOL, rtol=F32_TOL,
+                                   msg=lambda m: f"packed f32 {name}: {m}")
+    # SDPA's backward alone on the same views: its forward once, then its
+    # autograd backward into the packed projection, timed on the same dO
+    leaf = qkv.detach().requires_grad_()
+    lt = [t.transpose(1, 2) for t in leaf.view(B, S, 3, H, D).unbind(2)]
+    lib_out = F.scaled_dot_product_attention(*lt, is_causal=causal)
+    lib_do = do.view(B, S, H, D).transpose(1, 2)
+    bb, bby, bx = attn_bound(B, S, H, D, causal, 4, True)
+    row["bwd"] = with_rates({
+        "max_abs_err": max(errs), "bitwise_repeatable": True,
+        "ms": device_ms(torch, bwd, 10),
+        "plain_ms": device_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do.view(out.shape), causal), 3),
+        "library_ms": device_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaf, lib_do, retain_graph=True), 10),
+        "bound_ms": bb, "bound_by": bby, **bx},
+        flash_flops(B, S, H, D, causal, True))
+    del first, again, plain, lib_out
+    return row
+
+
+F32_BWD_KERNELS = ("flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
+
+
+def phase_sdpa_f32(torch) -> dict:
+    """The f32 backward on the path a user takes: the port's
+    ``nn.functional.scaled_dot_product_attention`` on f32 q, k, v that
+    require grad (ATTN_SHAPE, D=128, not causal), then ``backward``. The
+    launch counts are set to 0 just before the forward and read just
+    after the backward (one forward and one f32 backward launch), and
+    torch.profiler's CUDA trace of the backward holds each f32 backward
+    kernel exactly once (a trace that lost a kernel's event is taken
+    again, PROFILE_TRIES times in all); the gradients are finite and
+    within F32_TOL of the plain backward's."""
+    from paddle_tpu_torch.nn.functional.attention import (
+        scaled_dot_product_attention)
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    B, S, H = ATTN_SHAPE
+    D = 128
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def setup():
+        for t in leaves:
+            t.grad = None
+        reset_launches()
+        out = scaled_dot_product_attention(*leaves)
+        return lambda: out.backward(do)
+    for _ in range(PROFILE_TRIES):
+        _, ev = traced(torch, setup)
+        launches = read_launches()
+        events = {n: sum(e.count for e in ev if n in e.key)
+                  for n in F32_BWD_KERNELS}
+        if all(events.values()):
+            break
+    if any(n != 1 for n in events.values()):
+        raise AssertionError(f"f32 SDPA backward: kernel events {events}, "
+                             f"one of each expected")
+    want = {"flash_attention_fwd": 1, "flash_attention_bwd": 1,
+            "flash_attention_bwd_f32": 1}
+    if any(launches[k] != n for k, n in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"f32 SDPA forward + backward launched "
+                             f"{launches}, expected {want}")
+    out, lse = flash_attention_fwd_plain(q, k, v)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do)
+    errs = []
+    for name, t, b in zip(("dq", "dk", "dv"), leaves, plain):
+        if not torch.isfinite(t.grad).all():
+            raise AssertionError(f"f32 SDPA backward: {name} not finite")
+        errs.append((t.grad - b).abs().max().item())
+        torch.testing.assert_close(t.grad, b, atol=F32_TOL, rtol=F32_TOL,
+                                   msg=lambda m: f"f32 SDPA {name}: {m}")
+    emit({"phase": "sdpa-f32", "B": B, "S": S, "H": H, "D": D,
+          "causal": False, "launches": launches, "kernel_events": events,
+          "max_abs_err": max(errs), "f32_atol_rtol": F32_TOL})
+    return launches
 
 
 # ---- row 15: the BatchNorm kernels ----
@@ -3297,7 +3429,7 @@ def phase_train_resnet(torch, np):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
-    want = dict.fromkeys(kernel_wrappers(), 0)
+    want = no_launches()
     want.update({k: BN_LAYERS * RESNET_STEPS for k in BN_KERNELS})
     if counts != want:
         raise AssertionError(f"train-resnet50 launches {counts}, expected "
@@ -3585,7 +3717,8 @@ def main() -> int:
 
     fwd_rows = phase_kernels(torch, F)
     bwd_rows = phase_kernels_bwd(torch, F)
-    phase_kernels_attn(torch, F)
+    attn_rows, attn_packed = phase_kernels_attn(torch, F)
+    launches = {"sdpa-f32": phase_sdpa_f32(torch)}
     adamw_rows, adamw_list = phase_kernels_adamw(torch)
     quant_rows = phase_kernels_quant(torch, sass)
     quant_rows.update(phase_kernels_ln(torch, sass))
@@ -3600,7 +3733,7 @@ def main() -> int:
     prompts, reqs, serve_launches = phase_serve(torch, np, model)
     phase_check(torch, np, model, prompts, reqs)
     phase_profile(torch, model, prompts)
-    launches = {"serve": serve_launches}
+    launches["serve"] = serve_launches
     qmodel, qreqs, launches["serve-int4"] = phase_serve_int4(
         torch, np, model, prompts)
     phase_check_int4(torch, np, model, qmodel, prompts, qreqs)
@@ -3657,6 +3790,15 @@ def main() -> int:
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               "paddle_tpu/ops/pallas_ops.py:277,304,585,612", bwd_rows,
               next(r for r in bwd_rows if r["packed"])),
+        # the f32 kernels of the same wrapper: no traced step runs f32,
+        # an f32 SDPA backward launches them once; timed at D=128
+        entry("flash_attention_bwd_f32", "flash_attention_bwd.cu",
+              "paddle_tpu/ops/pallas_ops.py:277,304,585,612",
+              [r["bwd"] for r in attn_rows if r["dtype"] == "float32"]
+              + [attn_packed["bwd"]],
+              next(r["bwd"] for r in attn_rows
+                   if r["dtype"] == "float32" and r["D"] == 128),
+              "sdpa-f32"),
         # the bf16 step's one launch over its 292 leaves; a flagship
         # step's launch takes its 194 small leaves
         entry("fused_adamw", "fused_adamw.cu",

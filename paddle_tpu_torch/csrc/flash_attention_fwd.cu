@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
@@ -489,130 +490,6 @@ struct F32Tiles {
   static constexpr int THREADS = 256;
 };
 
-// x as a TF32 pair: hi = x rounded to TF32's 10 stored mantissa bits
-// (to nearest, ties away), lo = x - hi, exact in f32; the tensor core
-// reads lo's top 19 bits. hi*hi + hi*lo + lo*hi leaves out lo*lo and lo's
-// cut bits: ~2^-21 of |a b| a product, against TF32's 2^-11 alone.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// The 16-byte chunk of 4 consecutive K-dim values (k0 % 4 == 0) of row r
-// in a K-major tile of `rows` rows stored as panels of PW floats, with the
-// swizzle of a PW * 4-byte row (128: chunk ^ r % 8; 64: ^ (r / 2) % 4).
-template <int PW>
-__device__ __forceinline__ uint32_t kmajor_off(int rows, int r, int k0) {
-  constexpr int RB = PW * 4;
-  const int sw = RB == 128 ? (r & 7) : ((r >> 1) & 3);
-  return (k0 / PW) * rows * RB + r * RB + ((((k0 % PW) >> 2) ^ sw) << 4);
-}
-
-// The descriptor of k8 step kk of a K-major tile (rows at `tile`, panels
-// of PW floats).
-template <int PW>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
-                                                int kk) {
-  constexpr int RB = PW * 4;
-  return ptt::wgmma_desc(tile + (8 * kk / PW) * rows * RB + (8 * kk % PW) * 4,
-                         16, 8 * RB, RB);
-}
-
-// The producer's share of ROWS rows x DP columns of one head (rows r0..,
-// columns 0..hd-1; zeros past S and hd) as 16-byte units: load them, then
-// store them split into the hi and lo K-major tiles.
-template <int DP, int ROWS>
-struct RowUnits {
-  static constexpr int CH = DP / 4;                    // chunks a row
-  static constexpr int N = (ROWS * CH + 127) / 128;    // units a thread
-  float4 val[N];
-
-  __device__ __forceinline__ void load(const float* src, long long rs, int r0,
-                                       int S, int hd, int pid) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int u = pid + 128 * i, r = u / CH, c = (u % CH) * 4;
-      val[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (u < ROWS * CH && r0 + r < S && c < hd) {
-        val[i] = *reinterpret_cast<const float4*>(src + (r0 + r) * rs + c);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo,
-                                        int pid) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int u = pid + 128 * i, r = u / CH, c = (u % CH) * 4;
-      if (u < ROWS * CH) {
-        uint4 h, l;
-        split_tf32(val[i].x, h.x, l.x);
-        split_tf32(val[i].y, h.y, l.y);
-        split_tf32(val[i].z, h.z, l.z);
-        split_tf32(val[i].w, h.w, l.w);
-        const uint32_t off = kmajor_off<32>(ROWS, r, c);
-        *reinterpret_cast<uint4*>(hi + off) = h;
-        *reinterpret_cast<uint4*>(lo + off) = l;
-      }
-    }
-  }
-};
-
-// The producer's share of a v tile (BK keys from k0, columns 0..hd-1),
-// stored transposed and split into v^T hi and lo [DP][BK]: the k8 step's
-// slot t holds key 2t, slot t + 4 key 2t + 1 (the order the score
-// accumulator leaves P's keys in, so that P is the A operand as it
-// stands). A unit is the 4 keys of one such half of a k8 step (keys
-// 8 kg + half + 2i) x 4 columns: one 16-byte chunk of each of 4 v^T
-// rows; 8 neighbouring lanes take the 8 chunks of one 128-byte row.
-template <int DP, int BK, int VW>
-struct VUnits {
-  static constexpr int HK = BK / 4;                    // halves of k8 steps
-  static constexpr int N = (HK * (DP / 4) + 127) / 128;
-  float4 val[N][4];
-
-  __device__ __forceinline__ void load(const float* src, long long rs, int k0,
-                                       int S, int hd, int pid) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int u = pid + 128 * i, hk = u % HK, c = (u / HK) * 4;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * (hk / 2) + hk % 2 + 2 * e;
-        val[i][e] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (u < HK * (DP / 4) && key < S && c < hd) {
-          val[i][e] = *reinterpret_cast<const float4*>(src + key * rs + c);
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo,
-                                        int pid) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int u = pid + 128 * i, hk = u % HK, c = (u / HK) * 4;
-      if (u >= HK * (DP / 4)) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {             // column c + e: a v^T row
-        uint4 h, l;
-        split_tf32(lane_of(val[i][0], e), h.x, l.x);
-        split_tf32(lane_of(val[i][1], e), h.y, l.y);
-        split_tf32(lane_of(val[i][2], e), h.z, l.z);
-        split_tf32(lane_of(val[i][3], e), h.w, l.w);
-        const uint32_t off = kmajor_off<VW>(DP, c + e, 4 * hk);
-        *reinterpret_cast<uint4*>(hi + off) = h;
-        *reinterpret_cast<uint4*>(lo + off) = l;
-      }
-    }
-  }
-};
-
 // One block a (64-row q tile, head, batch): a consumer warpgroup and a
 // producer warpgroup. Both products are TF32 wgmma in 3xTF32 form, small
 // products first into the same f32 accumulator:
@@ -673,15 +550,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kh = k + b * st.k_b + h * st.k_h;
     const float* vh = v + b * st.v_b + h * st.v_h;
     {
-      RowUnits<DP, BQ> qu;
+      ptt::RowUnits<DP, BQ> qu;
       qu.load(q + b * st.q_b + h * st.q_h, st.q_s, q0, S, hd, pid);
       qu.store(smem + C::q_off(0), smem + C::q_off(1), pid);
       ptt::fence_proxy_async();
       ptt::mbar_arrive(bar_q);
     }
     for (int j = 0; j < tiles; ++j) {
-      RowUnits<DP, BK> ku;
-      VUnits<DP, BK, C::VW> vu;
+      ptt::RowUnits<DP, BK> ku;
+      ptt::VUnits<DP, BK, C::VW> vu;
       ku.load(kh, st.k_s, j * BK, S, hd, pid);
       ptt::mbar_wait(k_empty, (j & 1) ^ 1);
       ku.store(smem + C::k_off(0), smem + C::k_off(1), pid);
@@ -722,6 +599,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     ptt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 8; ++kk) {
+      using ptt::kmajor_desc;
       const uint64_t qh = kmajor_desc<32>(sbase + C::q_off(0), BQ, kk);
       const uint64_t ql = kmajor_desc<32>(sbase + C::q_off(1), BQ, kk);
       const uint64_t kh = kmajor_desc<32>(sbase + C::k_off(0), BK, kk);
@@ -749,15 +627,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
-      split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
-      split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
-      split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
-      split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      ptt::split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      ptt::split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      ptt::split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      ptt::split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
     }
     ptt::mbar_wait(v_full, j & 1);
     ptt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
+      using ptt::kmajor_desc;
       const uint64_t vh = kmajor_desc<C::VW>(sbase + C::v_off(0), DP, kk);
       const uint64_t vl = kmajor_desc<C::VW>(sbase + C::v_off(1), DP, kk);
       ptt::wgmma_tf32_rs<DP>(o, pl[kk], vh);

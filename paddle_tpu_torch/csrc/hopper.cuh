@@ -601,7 +601,7 @@ __device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2],
 #undef PTT_WGMMA_RS_256
 
 
-// ---- device: TF32 products (the f32 flash forward's 3xTF32) ----
+// ---- device: TF32 products (the f32 flash kernels' 3xTF32) ----
 // d += A B over one k8 step of TF32 operands (32-bit registers or shared
 // words whose low 13 mantissa bits the tensor core ignores), f32
 // accumulation, A (64 x 8) and B (N x 8) both K-major: wgmma takes TF32
@@ -651,6 +651,19 @@ __device__ __forceinline__ void wgmma_tf32_ss_64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32_rs_16(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11},"
+      " %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 __device__ __forceinline__ void wgmma_tf32_rs_32(float (&d)[16],
                                                  const uint32_t (&a)[4],
@@ -857,10 +870,12 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 192 ||
-                    N == 256,
-                "wgmma_tf32_rs: N is 32, 64, 96, 128, 192 or 256");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128 ||
+                    N == 192 || N == 256,
+                "wgmma_tf32_rs: N is 16, 32, 64, 96, 128, 192 or 256");
+  if constexpr (N == 16) {
+    wgmma_tf32_rs_16(d, a, db);
+  } else if constexpr (N == 32) {
     wgmma_tf32_rs_32(d, a, db);
   } else if constexpr (N == 64) {
     wgmma_tf32_rs_64(d, a, db);

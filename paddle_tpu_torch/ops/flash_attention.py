@@ -26,9 +26,8 @@ The kernels take bf16 and f16 at any head_dim that is a multiple of 8
 up to 256 (run at the next instantiated tile width, 32/64/96/128/192/
 256, with zero-filled columns past the true head_dim; wgmma kernels
 with TMA rings), and f32 at any
-multiple of 4 up to 256 (the forward's products on wgmma as 3xTF32,
-three TF32 products a product, ~2^-21 of each product; the backward's
-f32 FMAs on the CUDA cores). q, k,
+multiple of 4 up to 256 (every product of both passes on wgmma as
+3xTF32, three TF32 products a product, ~2^-21 of each product). q, k,
 v, out and dO whose strides or base the kernels' TMA maps cannot take
 (a non-unit stride in head_dim, other strides or the base not 16-byte
 aligned) are copied to dense tensors first; in-place dq/dk/dv must
@@ -40,7 +39,8 @@ reference's ``_pallas_eligible`` terms, so that the callers
 route such a call to their plain branch before any launch.
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``
 count kernel launches (one backward launch runs the delta pass, the
-dk/dv pass and then the dq pass).
+dk/dv pass and then the dq pass); ``flash_attention_bwd.f32_launches``
+counts the float32 ones among them.
 """
 from __future__ import annotations
 
@@ -256,6 +256,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, scale, dq, dk, dv):
                  int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
     _raise_on(err, lib, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.f32_launches += q.dtype == torch.float32
 
 
 def _devices(*tensors) -> str:
@@ -297,6 +298,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.f32_launches = 0
 
 
 class _Flash(torch.autograd.Function):

@@ -18,10 +18,10 @@ different summation order; backward ``atol=1e-5`` on gradients of
 magnitude ~1-10 (five f32 matmuls in another order). On the card the
 kernels take bf16 and are held to their plain versions at
 ``atol=rtol=2e-2`` (bf16 rounding of out, of P and of dS) and
-``atol=1e-3`` for ``lse``; the f32 kernels at ``1e-4`` (the forward's
-3xTF32 products, ~2^-21 of each product, and the backward's f32 FMAs,
-in another order); the 3xTF32 arithmetic is also held to that bar on
-the CPU. Head_dims off the reference kernel's {64, 128, 256}
+``atol=1e-3`` for ``lse``; the f32 kernels at ``1e-4`` (every product
+of the forward and the backward 3xTF32, ~2^-21 of each product, in
+another order); the 3xTF32 arithmetic of both is also held to that bar
+on the CPU. Head_dims off the reference kernel's {64, 128, 256}
 (32, 80, 96) are held to the reference kernel in interpret mode too,
 and the wrapper's contract (every head_dim up to 256 whose row is a
 whole number of 16 bytes, bf16/f16/f32) is checked on CPU tensors.
@@ -351,6 +351,50 @@ def test_three_tf32_products_hold_the_f32_tolerance(D, causal):
             assert err > 1e-4
 
 
+@pytest.mark.parametrize("D,causal", [(64, True), (128, False)])
+def test_three_tf32_products_hold_the_f32_backward_tolerance(D, causal):
+    """The f32 backward's arithmetic (csrc/flash_attention_bwd.cu): the
+    dk/dv pass's S^T = K Q^T and dP^T = V dO^T, P^T and dS^T, dV = P^T dO
+    and dK = dS^T Q; the dq pass's S = Q K^T and dP = dO V^T again, dS
+    and dQ = dS K; every product 3xTF32 (P^T and dS^T split as the kernels
+    split them), P from the saved lse. It holds the plain f32 backward to
+    the card tests' 1e-4 (dq, dk, dv; atol=rtol); one TF32 product alone
+    does not hold 1e-4."""
+    S = 200
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, S, 2, D, 100 + D))
+    do = torch.from_numpy(_qkv(1, S, 2, D, 200 + D)[0])
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    delta = (out * do).sum(-1).transpose(1, 2)           # [B, H, S]
+    above = ~torch.ones(S, S, dtype=torch.bool).tril()  # key > query
+    err = {}
+    for terms in (3, 1):
+        # the dk/dv pass: keys as rows, queries as columns
+        st = _tf32_products("bkhd,bqhd->bhkq", k, q, terms)
+        pt = torch.exp(st * scale - lse[:, :, None, :])
+        if causal:
+            pt = pt.masked_fill(above.T, 0.0)
+        dpt = _tf32_products("bkhd,bqhd->bhkq", v, do, terms)
+        dst = pt * (dpt - delta[:, :, None, :]) * scale
+        dv = _tf32_products("bhkq,bqhd->bkhd", pt, do, terms)
+        dk = _tf32_products("bhkq,bqhd->bkhd", dst, q, terms)
+        # the dq pass: queries as rows
+        s = _tf32_products("bqhd,bkhd->bhqk", q, k, terms)
+        p = torch.exp(s * scale - lse[..., None])
+        if causal:
+            p = p.masked_fill(above, 0.0)
+        dp = _tf32_products("bqhd,bkhd->bhqk", do, v, terms)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = _tf32_products("bhqk,bkhd->bqhd", ds, k, terms)
+        err[terms] = max((a - b).abs().max().item()
+                         for a, b in zip((dq, dk, dv), ref))
+        if terms == 3:
+            for a, b in zip((dq, dk, dv), ref):
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert err[1] > 1e-4 > err[3]
+
+
 def test_plain_takes_strided_inputs_and_mixed_dtypes():
     """The plain version reads any strides (the cache path hands it
     buffer views) and computes f32 scores from a bf16 key."""
@@ -424,8 +468,8 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
 def test_cuda_every_head_dim_and_f32_match_plain(cuda, D, dtype, causal):
     """Forward and backward at head_dims off {64, 128, 256} and in f32
     against the plain versions (16-bit: the bf16 tolerances; f32: 1e-4,
-    3xTF32 and f32 FMAs in another order), one launch each, the same
-    bits twice."""
+    3xTF32 products in another order), one launch each, the same bits
+    twice."""
     g = torch.Generator(device=cuda).manual_seed(D)
     q, k, v, do = (torch.randn(2, 150, 3, D, device=cuda, generator=g)
                    .to(dtype) for _ in range(4))
@@ -714,7 +758,7 @@ def test_cuda_unaligned_views_launch_the_kernel(cuda):
 @pytest.mark.parametrize("S", [1, 37, 300, 512])
 @pytest.mark.parametrize("D", [4, 36, 64, 128, 256])
 def test_cuda_f32_forward_on_packed_views_matches_plain(cuda, D, S, causal):
-    """The f32 forward (3xTF32 products on mma.sync) against the plain
+    """The f32 forward (3xTF32 products on wgmma) against the plain
     version (f32 einsums, TF32 off) at each tile width's edges (4 and 36
     run at widths 32 and 64 with zero columns), a one-row, a ragged and
     whole tiles' S, causal and not, with q, k, v strided views of one
@@ -734,3 +778,57 @@ def test_cuda_f32_forward_on_packed_views_matches_plain(cuda, D, S, causal):
     assert flash_attention_fwd.launches == before + 1
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 37, 300, 512])
+@pytest.mark.parametrize("D", [4, 36, 64, 128, 256])
+def test_cuda_f32_backward_on_packed_views_matches_plain(cuda, D, S, causal):
+    """The f32 backward (every product 3xTF32 on wgmma) against the plain
+    version (f32 einsums, TF32 off) at each tile width's edges (4 and 36
+    run at widths 32 and 64 with zero columns), a one-row, a ragged and
+    whole tiles' S, causal and not, with q, k, v views of one packed
+    [B, S, 3 H D] projection and dq, dk, dv views of one packed gradient:
+    one f32 launch a call and no copy, within 1e-4 (atol=rtol), the same
+    bits twice."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, H = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(1000 * D + S + causal)
+    qkv = torch.randn(B, S, 3 * H * D, device=cuda, generator=g)
+    q, k, v = qkv.view(B, S, 3, H, D).unbind(2)
+    do = torch.randn(B, S, H, D, device=cuda, generator=g)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    dqkv = torch.empty_like(qkv)
+    views = dqkv.view(B, S, 3, H, D).unbind(2)
+    before = (flash_attention_bwd.launches, flash_attention_bwd.f32_launches)
+    flash_attention_bwd(q, k, v, out, lse, do, causal, None, *views)
+    first = dqkv.clone()
+    flash_attention_bwd(q, k, v, out, lse, do, causal, None, *views)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd.launches, flash_attention_bwd.f32_launches) \
+        == (before[0] + 2, before[1] + 2)
+    assert torch.equal(first, dqkv)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for a, p in zip(views, plain):
+        torch.testing.assert_close(a, p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_f32_backward_at_width_192_matches_plain(cuda, causal):
+    """The f32 backward at tile width 192 (160 and 192 run there: 16-row
+    streamed tiles, the transposed tiles in 64-byte panels) on separate
+    [B, S, H, D] tensors, a ragged S: within 1e-4 of the plain version,
+    the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(192 + causal)
+    q, k, v, do = (torch.randn(2, 300, 3, 192, device=cuda, generator=g)
+                   for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for a, b, p in zip(first, again, plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, p, atol=1e-4, rtol=1e-4)
