@@ -135,15 +135,51 @@ no result):
              over 16 slots and of one 512-bucket prefill, from
              torch.profiler (after the counted run, so it changes none
              of the numbers above).
-6a. serve-int4 — serve's 16 requests through ServingEngine(
+6a. serve-paged — serve's 16 requests and traffic through
+             ServingEngine(kv_layout="paged", page_size=128), its pool at
+             capacity parity (65 pages): every greedy token equal to the
+             serve phase's, bit for bit (the same flash prefill at the
+             same S, then the contiguous decode's einsum over the pages
+             gathered through the table); flash_attention_fwd exactly 16
+             x 16 launches and no other port kernel; no leaked page
+             (page_leak_violations) after the run; tokens/s, p50 / p99
+             TTFT, kv_bytes() and device ms a decode step (8 steps of 16
+             slots, as profile takes them), each beside the contiguous
+             engine's.
+6b. serve-paged-int8 — the same with kv_dtype="int8": greedy agreement
+             with serve-paged >= 0.9 (the reference's measured-parity
+             gate), every logit the engine sampled finite, int8 pools
+             with f32 scales, no leak; kv_bytes() beside bf16's.
+6c. serve-prefix — bench_serving_engine.py's --prefix-share recipe at its
+             full-width settings: two 384-token system prompts, 192
+             requests (system prompt i % 2 and a 16-token suffix), 32 new
+             tokens, page 128, max_len 512, under one KV byte budget (the
+             contiguous pool of 16 slots): the contiguous engine, the
+             paged engine and the paged int8 engine (pages and slots from
+             the budget), the system prompts warmed into the index first.
+             Gates: every request finishes by length; prefix_hit_tokens
+             and cow_copies equal what slot_cache.py's rules give for
+             this trace (PREFIX_HITS, 0); each paged request's first
+             token is the argmax of its own extend logits, and those are
+             within ROUTE_TOL of the same prompt's contiguous prefill
+             logits; int8's greedy agreement with the paged bf16 engine
+             >= 0.9; no leak; each paged pool within the budget. Not
+             gated: the shared path's tokens against the contiguous
+             engine's (the reference asserts them identical, but here
+             the contiguous prefill runs the flash kernel and the extend
+             the einsum, so near-ties may split; the agreement is
+             printed). Printed: peak concurrency beside the reference's
+             bars (4x and 10x the contiguous pool's), the prefix hit
+             rate, pages a live token, tokens/s.
+6d. serve-int4 — serve's 16 requests through ServingEngine(
              weight_only_int4(model, group=128)): int4_matmul exactly
              113 launches (16 layers x 7 linears + lm_head) per model
              call, one call per prefill and decode step; flash 16 x 16;
              tokens/s, TTFT, weight bytes against bf16's.
-6b. check-int4 — as check, for the int4 engine; the int4 prefill logits
+6e. check-int4 — as check, for the int4 engine; the int4 prefill logits
              through the kernel against the plain route within
              INT4_ROUTE_TOL; last-logit parity against bf16 (printed).
-6c. decode — bench_llama_decode.py's phases: generate() at a 64-token
+6f. decode — bench_llama_decode.py's phases: generate() at a 64-token
              prompt and 128 new tokens, batch 1 and 8, in bf16,
              weight_only_int8 and weight_only_int4, launches asserted
              (113 int4_matmul or 113 quantize_rows a model call), the
@@ -1952,9 +1988,10 @@ def phase_serve(torch, np, model):
           "ttft_p99_s": m["ttft_p99_s"],
           "tok_latency_p50_s": m["tok_latency_p50_s"],
           "decode_steps": m["steps"], "prefills": prefills,
-          "flash_launches": launches,
+          "flash_launches": launches, "kv_bytes": engine.cache.kv_bytes(),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return prompts, reqs, {"flash_attention_fwd": launches}
+    return prompts, reqs, {"flash_attention_fwd": launches}, dict(
+        m, kv_bytes=engine.cache.kv_bytes())
 
 
 def kernel_wrappers() -> dict:
@@ -2013,40 +2050,46 @@ def profiled(torch, setup):
                        for e in ev[:6]]
 
 
+def decode_profile(torch, model, prompts, steps: int = 8, **engine_kw):
+    """8 decode steps over 16 busy slots under the profiler (the
+    admissions run first, outside the window): wall and device ms a
+    step, the busy share, the top kernels a step."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    def decode():
+        engine = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                               min_bucket=MIN_BUCKET, **engine_kw)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=16)
+        engine.step()                   # admissions, outside the window
+        return lambda: [engine.step() for _ in range(steps)]
+    wall, dev, top = profiled(torch, decode)
+    return {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "device_ms_per_step": dev / steps * 1e3,
+            "device_busy_share": dev / wall,
+            "top_kernels_ms_per_step": [(n, ms / steps) for n, ms in top]}
+
+
 def phase_profile(torch, model, prompts):
     """Where a step's time goes: 8 decode steps over 16 busy slots, and
     one admission of the 300-token prompt (bucket 512), each under the
     profiler (so wall times here include its overhead)."""
     from paddle_tpu_torch.serving import ServingEngine
-    steps = 8
-
-    def decode():
-        engine = ServingEngine(model, kv_layout="contiguous",
-                               max_slots=SLOTS, max_len=MAX_LEN,
-                               min_bucket=MIN_BUCKET)
-        for p in prompts:
-            engine.submit(p, max_new_tokens=16)
-        engine.step()                   # admissions, outside the window
-        return lambda: [engine.step() for _ in range(steps)]
 
     def prefill():
         one = ServingEngine(model, kv_layout="contiguous", max_slots=1,
                             max_len=MAX_LEN, min_bucket=MIN_BUCKET)
         one.submit(prompts[PROMPT_LENS.index(300)], max_new_tokens=1)
         return one.step
-    wall, dev, top = profiled(torch, decode)
+    decode = decode_profile(torch, model, prompts, kv_layout="contiguous")
     pwall, pdev, ptop = profiled(torch, prefill)
     flash = sum(ms for name, ms in ptop if "flash_fwd_wgmma" in name)
-    emit({"phase": "profile",
-          "decode": {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
-                     "device_ms_per_step": dev / steps * 1e3,
-                     "device_busy_share": dev / wall,
-                     "top_kernels_ms_per_step": [
-                         (n, ms / steps) for n, ms in top]},
+    emit({"phase": "profile", "decode": decode,
           "prefill_512": {"wall_ms": pwall * 1e3, "device_ms": pdev * 1e3,
                           "device_busy_share": pdev / pwall,
                           "flash_kernel_ms": flash,
                           "top_kernels_ms": ptop}})
+    return decode
 
 
 def prefill_logits(torch, model, ids, per_row: bool, n=None):
@@ -2116,6 +2159,384 @@ def phase_check(torch, np, model, prompts, reqs):
           "pad_logits_max_abs_diff": pad_diff,
           "route_logits_max_abs_diff": diff, "route_tol": ROUTE_TOL,
           "route_argmax_equal": int(kern.argmax()) == int(plain.argmax())})
+
+
+# -- the paged KV layout (serving's default) ---------------------------------
+PAGE = 128                       # the engine's default page at max_len 512
+AGREE_MIN = 0.9                  # int8 KV's measured-parity gate
+# bench_serving_engine.py --prefix-share at full width (:1994-1999)
+PREFIX_SYS_LENS, PREFIX_REQS, PREFIX_SUFFIX, PREFIX_NEW = (384, 384), 192, \
+    16, 32
+# what slot_cache.py's rules give for that trace: each of the 192
+# prompts (400 tokens, 399 matchable) matches its system prompt's 3 full
+# pages (384 tokens), which the warm-up registered; the 15 matchable
+# suffix tokens find no indexed 4th page (no prompt has a full one), so
+# no partial match and no COW. The two system prompts share no first
+# token (seed 0), so the second warm-up matches nothing either; decode
+# writes land in each request's own fresh 4th page.
+PREFIX_HITS = PREFIX_REQS * 384
+PREFIX_COW = 0
+# peak concurrency bars of the reference's PAGED_KV line
+# (tests/test_benchmarks_smoke.py:257-258)
+PREFIX_BARS = {"paged": 4.0, "paged_int8": 10.0}
+
+
+def serve_run(torch, engine, prompts, news, finite=None):
+    """Submit every request, drain the engine with the launch counts set
+    to 0 just before and read just after; the requests, the wall s and
+    the counts. ``finite`` (a list) collects whether every logit the
+    engine sampled from was finite (host arrays: no device work)."""
+    import numpy as np
+    from paddle_tpu_torch.serving import engine as engine_mod
+    reqs = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    sample = engine_mod.sample_token
+
+    def checked(logits, params, rng):
+        finite.append(bool(np.isfinite(logits).all()))
+        return sample(logits, params, rng)
+    if finite is not None:
+        engine_mod.sample_token = checked
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        engine_mod.sample_token = sample
+    for r, n in zip(reqs, news):
+        if not (r.finished and r.finish_reason == "length"
+                and len(r.output_ids) == n):
+            raise AssertionError(
+                f"request {r.rid}: {r.finish_reason}, "
+                f"{len(r.output_ids)} of {n} tokens")
+    return reqs, wall, launches
+
+
+def forced_agreement(engine, prompts, ref_reqs) -> float:
+    """Greedy agreement per step of ``engine`` with ``ref_reqs``: the
+    engine serves the same prompts, but each step is fed the reference
+    run's tokens (teacher forcing), and the share of steps whose argmax
+    is the reference's token is returned. Free-running agreement counts
+    every token after a first split as a disagreement too; this one
+    counts what the KV storage changes at each step."""
+    import numpy as np
+    from paddle_tpu_torch.serving import engine as engine_mod
+    reqs = [engine.submit(p, max_new_tokens=len(r.output_ids))
+            for p, r in zip(prompts, ref_reqs)]
+    # every request has its own SamplingParams: it names the request
+    want = {id(r.sampling): (r, ref.output_ids)
+            for r, ref in zip(reqs, ref_reqs)}
+    hits = []
+    sample = engine_mod.sample_token
+
+    def forced(logits, params, rng):
+        req, toks = want[id(params)]
+        tok = toks[len(req.out_tokens)]
+        hits.append(int(np.argmax(logits)) == tok)
+        return tok
+    engine_mod.sample_token = forced
+    try:
+        engine.run()
+    finally:
+        engine_mod.sample_token = sample
+    return sum(hits) / len(hits)
+
+
+def agreement(a_reqs, b_reqs) -> float:
+    """The share of greedy tokens two runs of one trace agree on."""
+    pairs = [(x, y) for a, b in zip(a_reqs, b_reqs)
+             for x, y in zip(a.output_ids, b.output_ids)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def no_leaks(engine, name: str) -> None:
+    from paddle_tpu_torch.resilience import page_leak_violations
+    leaks = page_leak_violations(engine)
+    if leaks:
+        raise AssertionError(f"{name}: leaked pages: {leaks}")
+
+
+def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
+                      contig_decode, kv_dtype=None, bf16_run=None):
+    """serve's trace through the paged engine (capacity parity, page
+    128), in the model dtype or with int8 KV (see the module
+    docstring, 6a-6b). Returns (requests, launches, kv bytes)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    name = "serve-paged-int8" if kv_dtype else "serve-paged"
+    cfg = model.config
+    news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
+
+    def engine(slots):
+        return ServingEngine(model, kv_layout="paged", max_slots=slots,
+                             max_len=MAX_LEN, min_bucket=MIN_BUCKET,
+                             page_size=PAGE, kv_dtype=kv_dtype)
+    warm = engine(2)                    # the paged code paths, uncounted
+    for p in prompts[:2]:
+        warm.submit(p, max_new_tokens=2)
+    warm.run()
+    del warm
+    eng = engine(SLOTS)
+    finite = []
+    reqs, wall, launches = serve_run(torch, eng, prompts, news, finite)
+    flash = launches["flash_attention_fwd"]
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention_fwd" and v}
+    if others:
+        raise AssertionError(f"{name} launched other kernels: {others}")
+    want = cfg.num_hidden_layers * len(reqs)
+    if flash != want:
+        raise AssertionError(
+            f"{name}: flash_attention_fwd launched {flash} times; expected "
+            f"{cfg.num_hidden_layers} layers x {len(reqs)} prefills = {want}")
+    no_leaks(eng, name)
+    stats = eng.paged_stats()
+    row = {"phase": name, "requests": len(reqs), "page_size": PAGE,
+           "num_pages": eng.cache.num_pages,
+           "flash_launches": flash, "prefix_hit_tokens":
+           stats["prefix_hit_tokens"], "leaks": 0}
+    if kv_dtype is None:
+        for r, c in zip(reqs, contig_reqs):
+            if r.output_ids != c.output_ids:
+                raise AssertionError(
+                    f"{name}: request {r.rid} tokens {r.output_ids} differ "
+                    f"from the contiguous engine's {c.output_ids}")
+        row["tokens_equal_contiguous"] = len(reqs)
+    else:
+        agree = agreement(reqs, bf16_run[0])
+        forced = forced_agreement(engine(SLOTS), prompts, bf16_run[0])
+        if forced < AGREE_MIN:
+            raise AssertionError(
+                f"{name}: greedy agreement a step with serve-paged "
+                f"{forced} < {AGREE_MIN}")
+        if not all(finite):
+            raise AssertionError(f"{name}: non-finite logits sampled")
+        c = eng.cache
+        if any(p.dtype != torch.int8 for p in c.ks + c.vs) or any(
+                p.dtype != torch.float32 for p in c.kss + c.vss):
+            raise AssertionError(f"{name}: pools of {c.ks[0].dtype}, "
+                                 f"scales of {c.kss[0].dtype}")
+        row.update(greedy_agreement_vs_bf16=agree,
+                   step_agreement_vs_bf16=forced, agree_min=AGREE_MIN,
+                   logits_finite=len(finite),
+                   pool_dtype=str(eng.cache.ks[0].dtype),
+                   scale_dtype=str(eng.cache.kss[0].dtype),
+                   kv_bytes_bf16_paged=bf16_run[2],
+                   kv_bytes_over_bf16=eng.cache.kv_bytes() / bf16_run[2])
+    m = eng.metrics.summary()
+    kv = eng.cache.kv_bytes()
+    del eng
+    dec = decode_profile(torch, model, prompts, kv_layout="paged",
+                         page_size=PAGE, kv_dtype=kv_dtype)
+    row.update({
+        "wall_s": wall, "tokens": m["total_tokens"],
+        "tokens_per_s": m["tokens_per_s"],
+        "tokens_per_s_contiguous": contig["tokens_per_s"],
+        "ttft_p50_s": m["ttft_p50_s"],
+        "ttft_p50_s_contiguous": contig["ttft_p50_s"],
+        "ttft_p99_s": m["ttft_p99_s"],
+        "ttft_p99_s_contiguous": contig["ttft_p99_s"],
+        "kv_bytes": kv, "kv_bytes_contiguous": contig["kv_bytes"],
+        "decode_device_ms_per_step": dec["device_ms_per_step"],
+        "decode_device_ms_per_step_contiguous":
+            contig_decode["device_ms_per_step"],
+        "decode_wall_ms_per_step": dec["wall_ms_per_step"],
+        "decode_wall_ms_per_step_contiguous":
+            contig_decode["wall_ms_per_step"],
+        "decode_busy_share": dec["device_busy_share"],
+        "decode_top_kernels_ms_per_step": dec["top_kernels_ms_per_step"]})
+    emit(row)
+    return reqs, {"flash_attention_fwd": flash}, kv
+
+
+def prefix_trace(np):
+    """bench_serving_engine.py:run_prefix_share's prompts (seed 0)."""
+    rng = np.random.RandomState(0)
+    systems = [rng.randint(1, 100, (n,)).astype(np.int64)
+               for n in PREFIX_SYS_LENS]
+    prompts = [np.concatenate([systems[i % len(systems)],
+                               rng.randint(1, 100, (PREFIX_SUFFIX,))])
+               .astype(np.int64) for i in range(PREFIX_REQS)]
+    return systems, prompts
+
+
+def prefix_burst(torch, np, engine, prompts, warm=()):
+    """run_prefix_share's _run_burst: warm prompts to completion first,
+    then the whole trace at once, drained; the requests, the peak of
+    requests in flight, tokens/s, the mean pages a live token and the
+    flash launches of the burst."""
+    for p in warm:
+        engine.submit(p, max_new_tokens=1)
+    engine.run()
+    reqs = [engine.submit(p, max_new_tokens=PREFIX_NEW) for p in prompts]
+    peak, ratios = 0, []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    while engine.has_work():
+        engine.step()
+        active = engine.cache.active_slots()
+        peak = max(peak, len(active))
+        if engine.paged and active:
+            live = sum(engine.cache.slots[s].next_pos for s in active)
+            ratios.append(engine.cache.active_page_count() / max(1, live))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash = read_launches()["flash_attention_fwd"]
+    for r in reqs:
+        if r.finish_reason != "length":
+            raise AssertionError(
+                f"prefix request {r.rid} finished by {r.finish_reason}")
+    toks = sum(len(r.output_ids) for r in reqs)
+    return {"reqs": reqs, "peak": peak, "tokens_per_s": toks / wall,
+            "wall_s": wall, "flash_launches": flash,
+            "pages_per_token": float(np.mean(ratios)) if ratios else 0.0}
+
+
+def phase_serve_prefix(torch, np, model):
+    """bench_serving_engine.py --prefix-share at full width under one KV
+    byte budget (module docstring, 6c). The shared path's tokens are not
+    gated on the contiguous engine's: there the prefill runs the flash
+    kernel and the extend the masked einsum, so a near-tie may split."""
+    from paddle_tpu_torch.serving import ServingEngine
+    systems, prompts = prefix_trace(np)
+    prefill_logits = {}
+
+    contig = ServingEngine(model, kv_layout="contiguous", max_slots=SLOTS,
+                           max_len=MAX_LEN, min_bucket=MIN_BUCKET)
+    raw = contig._prefill_raw
+
+    def keep_raw(slot, ids):
+        out = raw(slot, ids)
+        prefill_logits[ids.tobytes()] = out
+        return out
+    contig._prefill_raw = keep_raw
+    res = {"contiguous": prefix_burst(torch, np, contig, prompts)}
+    budget = contig.cache.kv_bytes()
+    del contig
+    ad_layers = model.config.num_hidden_layers
+    kvh, hd = model.config.kv_heads, model.config.head_dim
+    itemsize = model.llama.embed_tokens.weight.element_size()
+    rows = {}
+    for name, quant in (("paged", None), ("paged_int8", "int8")):
+        per_page = ad_layers * 2 * PAGE * kvh * hd * (1 if quant
+                                                      else itemsize)
+        if quant:
+            per_page += ad_layers * 2 * PAGE * kvh * 4
+        n_pages = max(budget // per_page, MAX_LEN // PAGE + 1)
+        eng = ServingEngine(model, kv_layout="paged",
+                            max_slots=min(PREFIX_REQS, n_pages),
+                            max_len=MAX_LEN, min_bucket=MIN_BUCKET,
+                            page_size=PAGE, num_pages=n_pages,
+                            kv_dtype=quant, prefix_sharing=True)
+        extend_logits, extends = {}, [0]
+        prefill, extend = eng._prefill_paged, eng._extend
+
+        def keep_paged(slot, req, prefill=prefill, store=extend_logits):
+            out = prefill(slot, req)
+            store[req.rid] = out
+            return out
+
+        def count_extend(*a, extend=extend, n=extends):
+            n[0] += 1
+            return extend(*a)
+        eng._prefill_paged, eng._extend = keep_paged, count_extend
+        run = prefix_burst(torch, np, eng, prompts,
+                           warm=[np.concatenate([s, s[:1]])
+                                 for s in systems])
+        stats = eng.paged_stats()
+        if eng.cache.kv_bytes() > budget:
+            raise AssertionError(f"{name}: {eng.cache.kv_bytes()} KV bytes "
+                                 f"over the budget {budget}")
+        if (stats["prefix_hit_tokens"], stats["cow_copies"]) != (
+                PREFIX_HITS, PREFIX_COW):
+            raise AssertionError(
+                f"{name}: prefix_hit_tokens {stats['prefix_hit_tokens']}, "
+                f"cow_copies {stats['cow_copies']}; slot_cache.py's rules "
+                f"give {PREFIX_HITS}, {PREFIX_COW}")
+        if extends[0] != PREFIX_REQS:
+            raise AssertionError(f"{name}: {extends[0]} extends for "
+                                 f"{PREFIX_REQS} shared prompts")
+        no_leaks(eng, name)
+        diff = 0.0
+        for r in run["reqs"]:
+            got = extend_logits[r.rid]
+            if int(np.argmax(got)) != r.output_ids[0]:
+                raise AssertionError(
+                    f"{name}: request {r.rid}'s first token "
+                    f"{r.output_ids[0]} is not the argmax of its extend "
+                    f"logits ({int(np.argmax(got))})")
+            if quant is None:
+                want = prefill_logits[np.asarray(r.prompt).tobytes()]
+                diff = max(diff, float(np.abs(got - want).max()))
+        if diff > ROUTE_TOL:
+            raise AssertionError(
+                f"{name}: extend logits differ from the contiguous "
+                f"prefill's by {diff} > {ROUTE_TOL}")
+        run.update(stats=stats, num_pages=n_pages,
+                   max_slots=min(PREFIX_REQS, n_pages),
+                   kv_bytes=eng.cache.kv_bytes(), extend_logits_diff=diff)
+        res[name] = run
+        del eng
+    agree8 = agreement(res["paged_int8"]["reqs"], res["paged"]["reqs"])
+    eng8 = ServingEngine(model, kv_layout="paged",
+                         max_slots=res["paged_int8"]["max_slots"],
+                         max_len=MAX_LEN, min_bucket=MIN_BUCKET,
+                         page_size=PAGE,
+                         num_pages=res["paged_int8"]["num_pages"],
+                         kv_dtype="int8")
+    for s in systems:
+        eng8.submit(np.concatenate([s, s[:1]]), max_new_tokens=1)
+    eng8.run()
+    forced8 = forced_agreement(eng8, prompts, res["paged"]["reqs"])
+    no_leaks(eng8, "serve-prefix int8, fed paged's tokens")
+    del eng8
+    if forced8 < AGREE_MIN:
+        raise AssertionError(
+            f"serve-prefix: int8 greedy agreement a step with the paged "
+            f"engine {forced8} < {AGREE_MIN}")
+    base = res["contiguous"]["peak"]
+    for name, bar in PREFIX_BARS.items():
+        rows[name] = {"peak_concurrency": res[name]["peak"],
+                      "gain": res[name]["peak"] / base, "bar": bar,
+                      "meets_bar": res[name]["peak"] / base >= bar,
+                      "num_pages": res[name]["num_pages"],
+                      "max_slots": res[name]["max_slots"],
+                      "kv_bytes": res[name]["kv_bytes"],
+                      "tokens_per_s": res[name]["tokens_per_s"],
+                      "wall_s": res[name]["wall_s"],
+                      "pages_per_token": res[name]["pages_per_token"],
+                      "flash_launches": res[name]["flash_launches"],
+                      "prefix_hit_rate":
+                          res[name]["stats"]["prefix_hit_rate"],
+                      "prefix_hit_tokens":
+                          res[name]["stats"]["prefix_hit_tokens"],
+                      "prefix_lookup_tokens":
+                          res[name]["stats"]["prefix_lookup_tokens"],
+                      "cow_copies": res[name]["stats"]["cow_copies"],
+                      "pages_reclaimed":
+                          res[name]["stats"]["pages_reclaimed"]}
+    emit({"phase": "serve-prefix", "requests": PREFIX_REQS,
+          "system_prompts": list(PREFIX_SYS_LENS), "suffix": PREFIX_SUFFIX,
+          "new": PREFIX_NEW, "page_size": PAGE, "budget_bytes": budget,
+          "contiguous": {"peak_concurrency": base, "max_slots": SLOTS,
+                         "tokens_per_s": res["contiguous"]["tokens_per_s"],
+                         "wall_s": res["contiguous"]["wall_s"],
+                         "flash_launches":
+                             res["contiguous"]["flash_launches"]},
+          **rows, "prefix_hits_derived": PREFIX_HITS,
+          "cow_copies_derived": PREFIX_COW,
+          "extend_logits_max_abs_diff": res["paged"]["extend_logits_diff"],
+          "route_tol": ROUTE_TOL,
+          "int8_greedy_agreement_vs_paged": agree8,
+          "int8_step_agreement_vs_paged": forced8, "agree_min": AGREE_MIN,
+          "paged_greedy_agreement_vs_contiguous": agreement(
+              res["paged"]["reqs"], res["contiguous"]["reqs"]),
+          "leaks": 0})
+    return {name: {"flash_attention_fwd": res[name]["flash_launches"]}
+            for name in res}
 
 
 # -- weight-only int4 and int8 serving (Llama-1B, kernel row 7) -------------
@@ -3730,10 +4151,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlamaForCausalLM(llama_1b_config(), dtype="bfloat16",
                              generator=gen)
-    prompts, reqs, serve_launches = phase_serve(torch, np, model)
+    prompts, reqs, serve_launches, served = phase_serve(torch, np, model)
     phase_check(torch, np, model, prompts, reqs)
-    phase_profile(torch, model, prompts)
+    contig_decode = phase_profile(torch, model, prompts)
     launches["serve"] = serve_launches
+    paged = phase_serve_paged(torch, np, model, prompts, reqs, served,
+                              contig_decode)
+    launches["serve-paged"] = paged[1]
+    launches["serve-paged-int8"] = phase_serve_paged(
+        torch, np, model, prompts, reqs, served, contig_decode,
+        kv_dtype="int8", bf16_run=paged)[1]
+    for name, counts in phase_serve_prefix(torch, np, model).items():
+        launches["serve-prefix-" + name] = counts
+    del paged
+    torch.cuda.empty_cache()
     qmodel, qreqs, launches["serve-int4"] = phase_serve_int4(
         torch, np, model, prompts)
     phase_check_int4(torch, np, model, qmodel, prompts, qreqs)

@@ -1,7 +1,7 @@
-"""Fixed-buffer KV-cache attention for serving decode (contiguous layout).
+"""Fixed-buffer and paged KV-cache attention for serving decode.
 
-Counterpart of ``paddle_tpu/models/_decode_cache.py`` ``check_cache_pos``
-and ``cache_attend`` (:73-161): write the new k/v block into the fixed
+Counterpart of ``paddle_tpu/models/_decode_cache.py``. ``check_cache_pos``
+and ``cache_attend`` (:73-161) write the new k/v block into the fixed
 ``[B, Tmax, KV, D]`` buffers at the write position and attend over the
 causally masked full buffer. The position ``p`` is a scalar (the whole
 batch at one position: ``generate()``) or a per-row ``[B]`` tensor
@@ -29,8 +29,18 @@ both take the same branch, so the two stay consistent. The kernel takes
 one dtype, so on the card q (f32 after RoPE's f32 tables) is cast to
 the cache dtype first; the plain path keeps the reference's f32 q.
 
-``paged_cache_attend`` and ``quantize_kv_page`` come with the paged-KV
-slice.
+``paged_cache_attend`` is the page-table flavour (reference :164-252):
+k/v live in a shared pool of fixed-size pages ``[num_pages, page, KV,
+D]`` and each row carries a ``[B, pages_per_seq]`` page table. Writes
+scatter through the table, in place (flat position ``f`` lands in page
+``table[b, f // page]`` at offset ``f % page``; writes past the table,
+the extend's bucket padding, land in the reserved trash page 0; a
+``PageTable`` computes those indices once for all layers); reads
+gather the row's pages into a ``[B, pages_per_seq * page, KV, D]`` view
+and run ``_masked_attend``, the very code of ``cache_attend``'s einsum
+branch, so the non-quantized paged decode gives the contiguous pool's
+bits. Optional int8 storage keeps int8 pools with f32 scales per (page
+slot, position, kv-head) and dequantizes inside the attend.
 """
 from __future__ import annotations
 
@@ -39,8 +49,10 @@ import torch
 
 from ..ops.flash_attention import (NEG_INF, flash_attention_fwd,
                                    kernel_takes_head_dim)
+from ..ops.fused_adamw import INV127
 
-__all__ = ["cache_attend", "check_cache_pos"]
+__all__ = ["PageTable", "cache_attend", "check_cache_pos",
+           "paged_cache_attend", "quantize_kv_page"]
 
 
 def check_cache_pos(pos, t: int, Tmax: int) -> bool:
@@ -84,8 +96,6 @@ def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
     Returns (out [B, t, H*D] in the cache dtype, kc, vc).
     """
     b, t, h, D = qr.shape
-    kv = kr.shape[2]
-    rep = h // kv
     Tmax = kc.shape[1]
     dev = kc.device
     if _flash_prefill(qr, kr, kc, p, wlen, per_row):
@@ -124,7 +134,17 @@ def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
         mask = torch.arange(Tmax, device=dev)[None, :] \
             <= (p + steps)[:, None]                           # [t, Tmax]
         maskx = mask[None, None, None]                  # [1,1,1,t,Tmax]
-    qg = qr.reshape(b, t, kv, rep, D)
+    return _masked_attend(qr, kc, vc, maskx), kc, vc
+
+
+def _masked_attend(qr, kc, vc, maskx):
+    """The masked einsum attention both cache flavours share: qr [B, t,
+    H, D] against kc/vc [B, Tmax, KV, D] under ``maskx`` (broadcast to
+    [B, KV, rep, t, Tmax]); scores in f32, probs cast to ``vc``'s dtype
+    before the value einsum. Returns [B, t, H*D] in ``vc``'s dtype."""
+    b, t, h, D = qr.shape
+    kv = kc.shape[2]
+    qg = qr.reshape(b, t, kv, h // kv, D)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
                           kc.float()) / (D ** 0.5)
     scores = scores.masked_fill(~maskx, NEG_INF)
@@ -132,4 +152,116 @@ def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
     # f32 tables promote a bf16 q to f32
     probs = torch.softmax(scores, dim=-1).to(vc.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, vc)
-    return out.reshape(b, t, h * D), kc, vc
+    return out.reshape(b, t, h * D)
+
+
+def quantize_kv_page(x):
+    """Symmetric int8 quantization of a k/v block ``[..., KV, D]``: per
+    (position, kv-head) absmax over head_dim. Returns (int8 values, f32
+    scales ``[..., KV]``). The scale is ``amax * f32(1/127)``, the
+    product XLA compiles the reference's ``amax / 127.0`` into; the floor
+    keeps all-zero rows (never-written page tails) from dividing by
+    zero."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax * torch.full_like(amax, INV127), 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant(pool_rows, scale_rows):
+    return pool_rows.float() * scale_rows[..., None]
+
+
+class PageTable:
+    """A ``[B, pages_per_seq]`` page table on the device and the indices
+    every layer's attend derives from it for one write position ``p``
+    and block length ``t``: the flat write slot of each new token and
+    the causal mask. The engine builds one per model call; the first
+    layer computes the indices and the others reuse them, so their host
+    cost is paid once a call, not once a layer."""
+
+    def __init__(self, table: torch.Tensor):
+        self.table = table.long()
+        self.flat = self.table.reshape(-1)
+        self.shape = self.table.shape
+        self._memo = None
+
+    def indices(self, p, t: int, page: int):
+        """(flat write slots [B*t], mask [B, 1, 1, t, Tmax]) for tokens
+        at ``p .. p + t - 1`` (``p`` an int or a [B] tensor). A write past
+        the table (the extend's bucket padding) goes to trash page 0 at
+        offset 0, never to a real page at a clamped offset."""
+        memo = self._memo
+        if memo is not None and memo[1] == t and (memo[0] is p or (
+                isinstance(p, int) and isinstance(memo[0], int)
+                and memo[0] == p)):
+            return memo[2]
+        b, npg = self.shape
+        Tmax = npg * page
+        dev = self.table.device
+        steps = torch.arange(t, device=dev)
+        if isinstance(p, torch.Tensor) and p.dim() >= 1:
+            qpos = p.to(dev).long()[:, None] + steps[None, :]     # [B, t]
+        else:
+            qpos = (steps + int(p))[None, :].expand(b, t)
+        pidx = torch.clamp(qpos // page, max=npg - 1)
+        slot = torch.gather(self.table, 1, pidx) * page + qpos % page
+        slot = torch.where(qpos < Tmax, slot, torch.zeros_like(slot))
+        mask = torch.arange(Tmax, device=dev)[None, None, :] \
+            <= qpos[:, :, None]                                 # [B, t, Tmax]
+        out = (slot.reshape(-1), mask[:, None, None])
+        self._memo = (p, t, out)
+        return out
+
+
+def paged_cache_attend(qr, kr, v, kp, vp, ks, vs, table, p, out_dtype,
+                       wlen=None):
+    """Masked paged-pool cache attention (see module docstring).
+
+    qr: [B, t, H, D] position-encoded queries; kr/v: [B, t, KV, D] new
+    keys/values; kp/vp: [num_pages, page, KV, D] pools, written in place
+    (int8 when the scales ks/vs [num_pages, page, KV] f32 are given, else
+    the model dtype); table: a [B, pages_per_seq] integer page table on
+    the pools' device, or a ``PageTable`` shared by the layers of one
+    model call (rows of inactive lanes point at trash page 0); p: write
+    position, an int or a [B] tensor. ``wlen`` (the speculative verify's
+    write lengths) comes with the speculative slice.
+
+    Returns (out [B, t, H*D] in ``out_dtype``, kp, vp, ks, vs).
+    """
+    if wlen is not None:
+        raise NotImplementedError(
+            "paged_cache_attend(wlen=...) comes with the speculative-"
+            "decoding slice of the port")
+    b, t, h, D = qr.shape
+    page = kp.shape[1]
+    if not isinstance(table, PageTable):
+        table = PageTable(table)
+    Tmax = table.shape[1] * page
+    slot, maskx = table.indices(p, t, page)
+
+    def write(pool, x):
+        pool.view(-1, *pool.shape[2:]).index_copy_(
+            0, slot, x.reshape(b * t, *x.shape[2:]).to(pool.dtype))
+
+    # the row's pages as one contiguous view: with npg * page == Tmax of
+    # the contiguous pool, the same values at the same positions
+    def gather(pool):
+        return pool.index_select(0, table.flat).view(b, Tmax,
+                                                     *pool.shape[2:])
+    if ks is not None:
+        kq, ksc = quantize_kv_page(kr)
+        vq, vsc = quantize_kv_page(v)
+        for pool, x in ((kp, kq), (vp, vq), (ks, ksc), (vs, vsc)):
+            write(pool, x)
+        kc = _dequant(gather(kp), gather(ks))
+        vc = _dequant(gather(vp), gather(vs)).to(out_dtype)
+    else:
+        write(kp, kr)
+        write(vp, v)
+        # the non-shared token-identity contract: cache_attend's own
+        # probs dtype and value einsum
+        kc, vc = gather(kp), gather(vp)
+    out = _masked_attend(qr, kc, vc, maskx)
+    return out.to(out_dtype), kp, vp, ks, vs

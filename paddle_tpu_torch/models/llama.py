@@ -13,10 +13,16 @@ tables) and the same attention flavours:
 - static cache (``(k_cache, v_cache, pos)`` or ``(..., pos, wlen)``):
   fixed ``[B, Tmax, KV, D]`` buffers written in place at a scalar or
   per-row position through ``_decode_cache.cache_attend`` — the
-  serving engine's path.
+  serving engine's contiguous path;
+- paged cache (``(k_pool, v_pool, k_scale, v_scale, page_table,
+  pos)``): ``[num_pages, page, KV, D]`` pools written in place through
+  a ``[B, pages_per_seq]`` page table by
+  ``_decode_cache.paged_cache_attend`` (scales None: model-dtype pages;
+  set: int8 pages with f32 scales) — the serving engine's paged path.
 
-Not in this slice: ``use_tp`` (multi-GPU slice) and the paged 6/7-tuple
-cache flavours (paged-KV slice); both raise ``NotImplementedError``.
+Not in this slice: ``use_tp`` (multi-GPU slice) and the speculative
+verify's paged 7-tuple (speculative-decoding slice); both raise
+``NotImplementedError``.
 
 Numerics: ``Linear`` weights are ``[out, in]`` (PyTorch's layout; the
 reference's are ``[in, out]``). As in the reference, RoPE's f32 tables
@@ -39,7 +45,7 @@ from torch.nn import functional as TF
 from .._device import resolve_device, resolve_dtype
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.layer.norm import RMSNorm
-from ._decode_cache import cache_attend, check_cache_pos
+from ._decode_cache import cache_attend, check_cache_pos, paged_cache_attend
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "llama_tiny_config"]
@@ -151,11 +157,11 @@ class LlamaAttention(nn.Module):
         static-cache tuples."""
         cfg = self.cfg
         b, t, _ = x.shape
-        if cache is not None and len(cache) in (6, 7):
+        if cache is not None and len(cache) == 7:
             raise NotImplementedError(
-                "the paged KV cache (6/7-tuple) comes with the paged-KV "
-                "slice of the port")
-        static_cache = cache is not None and len(cache) in (3, 4)
+                "the paged verify cache (7-tuple, per-row write lengths) "
+                "comes with the speculative-decoding slice of the port")
+        static_cache = cache is not None and len(cache) in (3, 4, 6)
         past = cache[0].shape[1] if cache is not None \
             and not static_cache and cache[0] is not None else 0
         if past + t > cfg.max_position_embeddings:
@@ -213,7 +219,10 @@ class LlamaAttention(nn.Module):
         ``pos`` and attend over the masked full buffer. ``pos`` is an
         int (whole batch at one position — generate()) or a [b] vector
         of per-row positions (the continuous-batching slot pool). The
-        4-tuple (k, v, pos, wlen) is the speculative-verify form."""
+        4-tuple (k, v, pos, wlen) is the speculative-verify form; the
+        6-tuple is the paged flavour (``_forward_paged``)."""
+        if len(cache) == 6:
+            return self._forward_paged(x, q, k, v, cache)
         t = q.shape[1]
         wlen = None
         if len(cache) == 4:
@@ -243,6 +252,36 @@ class LlamaAttention(nn.Module):
         out, kc2, vc2 = cache_attend(qr, kr, v, k_cache, v_cache, p,
                                      per_row, wlen=wlen)
         return self.o_proj(out.to(x.dtype)), (kc2, vc2, pos + t)
+
+    def _forward_paged(self, x, q, k, v, cache):
+        """Paged-pool cache attention (reference
+        ``_forward_static_cache``'s 6-tuple flavour): cache = (k_pool,
+        v_pool, k_scale, v_scale, page_table, pos) with
+        [num_pages, page, KV, D] pools, None scales for model-dtype
+        pages, and a [b, pages_per_seq] table (or a ``PageTable``, which
+        the layers of one call share). ``pos`` is a [b] vector
+        (the engine's decode) or an int (the shared-prefix extend)."""
+        kp, vp, ksc, vsc, table, pos = cache
+        t = q.shape[1]
+        # only the START position must be in range: the extend's bucket
+        # padding may overshoot the table and is sent to the trash page
+        per_row = check_cache_pos(pos, 1, table.shape[1] * kp.shape[1])
+        dev = x.device
+        steps = torch.arange(t, device=dev)
+        if per_row:
+            p = torch.as_tensor(pos, device=dev).long()
+            idx = p[:, None] + steps[None]                  # [b, t]
+        else:
+            # gather RoPE per POSITION with a clip: the extend's padding
+            # may run past the table, and a clamped slice start would
+            # rotate the real tail at the wrong positions
+            p = int(pos)
+            idx = (steps + p).clamp(max=self._cos.shape[0] - 1)
+        cos, sin = self._cos[idx], self._sin[idx]
+        qr, kr = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+        out, kp2, vp2, ks2, vs2 = paged_cache_attend(
+            qr, kr, v, kp, vp, ksc, vsc, table, p, x.dtype)
+        return self.o_proj(out), (kp2, vp2, ks2, vs2, table, pos + t)
 
 
 class LlamaMLP(nn.Module):

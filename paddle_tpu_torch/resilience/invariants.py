@@ -1,0 +1,60 @@
+"""The paged KV cache's no-leaked-pages law.
+
+Counterpart of ``paddle_tpu/resilience/invariants.py``
+``page_leak_violations`` (:329), without its host-tier half (the
+KV-tiering slice). A copy, not an import: the port never imports the
+reference package.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+__all__ = ["page_leak_violations"]
+
+
+def page_leak_violations(engine) -> List[str]:
+    """Once an engine quiesces (drained, no active slots), every page
+    refcount is back to zero: each page is on the free list or parked
+    refcount-0 in the prefix index (cached), the reservation budget is
+    fully returned, and no freed slot's page-table row still points at
+    a page. A violation means some failure path (an aborted prefill,
+    eviction, a deadline, cancel) dropped a refcount on the floor.
+
+    Empty for a contiguous-pool engine."""
+    if not getattr(engine, "paged", False):
+        return []
+    cache = engine.cache
+    out = []
+    referenced = np.nonzero(cache.refcnt[1:] > 0)[0] + 1
+    if len(referenced):
+        out.append(
+            f"leaked page refcounts: pages {referenced.tolist()} held "
+            f"{cache.refcnt[referenced].tolist()} refs after quiesce")
+    if cache.committed_pages != 0:
+        out.append(
+            f"leaked page reservations: committed budget "
+            f"{cache.committed_pages} != 0 after quiesce")
+    if cache._plans:
+        out.append(f"leaked admission plans for rids "
+                   f"{sorted(cache._plans)}")
+    exact_cached = sum(1 for n in cache._node_of_page.values()
+                       if cache.refcnt[n.page] == 0)
+    if exact_cached != cache.cached_page_count():
+        out.append(
+            f"cached-page counter drifted: maintained "
+            f"{cache.cached_page_count()} != scanned {exact_cached}")
+    accounted = cache.free_page_count() + exact_cached
+    if accounted != cache.num_pages - 1:
+        out.append(
+            f"page accounting hole: free ({cache.free_page_count()}) + "
+            f"cached ({exact_cached}) != {cache.num_pages - 1} usable "
+            f"pages")
+    rows = np.nonzero(cache.page_table.any(axis=1))[0]
+    stale = [int(s) for s in rows if cache.slots[s] is None]
+    if stale:
+        out.append(
+            f"freed slots {stale} still hold page-table entries "
+            f"{[cache.page_table[s].tolist() for s in stale]}")
+    return out

@@ -1,14 +1,15 @@
 """paddle_tpu_torch.serving — the continuous-batching serving engine.
 
-Counterpart of ``paddle_tpu/serving`` for the contiguous slot pool:
-iteration-level FCFS admission, power-of-2 prefill buckets, one decode
-forward per step over every slot, host-side sampling, typed errors.
+Counterpart of ``paddle_tpu/serving`` for the paged KV pool (the
+default: copy-on-write prefix sharing, page-gated admission, optional
+int8 KV) and the contiguous slot pool: iteration-level FCFS admission,
+power-of-2 prefill buckets, one decode forward per step over every
+slot, host-side sampling, typed errors.
 
-    engine = ServingEngine(model, max_slots=8, max_len=512,
-                           kv_layout="contiguous")
+    engine = ServingEngine(model, max_slots=8, max_len=512)
     req = engine.submit(prompt_ids, max_new_tokens=64)
     done = engine.run()
-    print(req.output_ids, engine.metrics.summary())
+    print(req.output_ids, engine.metrics.summary(), engine.paged_stats())
 """
 from .engine import ServingEngine
 from .errors import (DeadlineExceeded, EngineBroken, EngineClosed,
@@ -16,11 +17,11 @@ from .errors import (DeadlineExceeded, EngineBroken, EngineClosed,
 from .metrics import EngineMetrics
 from .sampling import SamplingParams, sample_token, sampling_dist
 from .scheduler import FIFOScheduler, Request, bucket_for, prefill_buckets
-from .slot_cache import SlotKVCache
+from .slot_cache import PagedKVCache, SlotKVCache
 
 __all__ = ["ServingEngine", "SamplingParams", "sample_token",
            "sampling_dist", "Request", "FIFOScheduler", "bucket_for",
-           "prefill_buckets", "SlotKVCache", "EngineMetrics",
-           "ServingError", "QueueFull", "DeadlineExceeded",
+           "prefill_buckets", "SlotKVCache", "PagedKVCache",
+           "EngineMetrics", "ServingError", "QueueFull", "DeadlineExceeded",
            "EngineBroken", "EngineIdle", "EngineClosed",
            "RequestCancelled"]

@@ -1,34 +1,45 @@
 """Continuous-batching serving engine over the static KV-cache decode
-path (contiguous slot pool).
+path: the paged pool (the default) or the contiguous slot pool.
 
 Counterpart of ``paddle_tpu/serving/engine.py`` ``_ModelAdapter`` and
-``ServingEngine`` for ``kv_layout="contiguous"``. Each ``step()``:
+``ServingEngine``. Each ``step()``:
 
 1. cancels requests past their deadline;
-2. admits queued requests into free slots, FCFS; each admission runs
-   its prompt, padded to its power-of-2 bucket, through the model over
-   the slot's rows of the pool at position 0 — the flash-attention
-   prefill (``models/_decode_cache.py``) — and samples its first token;
+2. admits queued requests into free slots, FCFS; on the paged layout an
+   admission also needs its worst-case page span to fit the pool (the
+   page reservation, ``PagedKVCache.try_reserve``), so decode never runs
+   out of pages. Each admission runs its prompt, padded to its power-of-2
+   bucket, through the model at position 0 (the flash-attention
+   prefill, ``models/_decode_cache.py``) and samples its first token.
+   Paged: the prompt is first matched against the prefix index; matched
+   pages are referenced, a partially shared page is copied (COW), and
+   only the tail runs, through the paged EXTEND at the match's end,
+   which attends over the shared pages; an unmatched prompt runs the
+   full prefill in a local ``[1, bucket]`` cache whose k/v are then
+   written into the claimed pages (quantized on the int8 path);
 3. runs ONE decode forward over ``[max_slots, 1]`` tokens with per-row
-   positions (inactive rows pinned to position 0, their logits
-   ignored), samples every active row on the host, and evicts rows that
-   hit EOS or their length.
+   positions (inactive rows pinned to position 0, and on the paged
+   layout to trash page 0; their logits are ignored), samples every
+   active row on the host, and evicts rows that hit EOS or their length.
+   Paged: pages a write crosses into are allocated (or COW'd) before
+   the step.
 
 Synchronous API, as in the reference:
 
-    engine = ServingEngine(model, max_slots=8, max_len=256, eos_id=2,
-                           kv_layout="contiguous")
+    engine = ServingEngine(model, max_slots=8, max_len=256, eos_id=2)
     r1 = engine.submit(prompt, max_new_tokens=32)
     while engine.has_work():
         finished = engine.step()
-    print(r1.output_ids, engine.metrics.summary())
+    print(r1.output_ids, engine.metrics.summary(), engine.paged_stats())
 
 The reference compiles one program per step shape; PyTorch runs
 eagerly, so the same shapes are simply launched each step (CUDA graphs
-are later work). The KV pools are written in place. A step that fails
+are later work). The KV pools are written in place; page tables,
+refcounts and the prefix index stay on the host, and the page table
+goes to the device as a copy once per model call. A step that fails
 may leave a half-written pool, so it marks the engine broken
-(``EngineBroken`` from then on); ``recover()`` comes with the
-resilience slice.
+(``EngineBroken`` from then on); a failed paged prefill first returns
+every page it claimed. ``recover()`` comes with the resilience slice.
 
 Arguments of the reference engine that this slice does not cover are
 accepted at their reference defaults and raise ``NotImplementedError``
@@ -41,17 +52,18 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+from torch.nn import functional as TF
 
 from .errors import (DeadlineExceeded, EngineBroken, EngineClosed,
                      EngineIdle, QueueFull, RequestCancelled)
 from .metrics import EngineMetrics
 from .sampling import SamplingParams, sample_token
 from .scheduler import FIFOScheduler, Request, bucket_for
-from .slot_cache import SlotKVCache
+from .slot_cache import PagedKVCache, SlotKVCache
+from ..models._decode_cache import PageTable, quantize_kv_page
 
 __all__ = ["ServingEngine"]
 
-_PAGED = "paged-KV slice"
 _SPEC = "speculative-decoding slice"
 _MESH = "multi-GPU serving slice"
 _CHUNK = "chunked-prefill slice"
@@ -60,8 +72,6 @@ _HOOKS = "observability and fault-hook slice"
 # reference-engine argument -> (its reference default, the slice of the
 # port that brings it)
 _LATER = {
-    "page_size": (None, _PAGED), "num_pages": (None, _PAGED),
-    "kv_dtype": (None, _PAGED), "prefix_sharing": (None, _PAGED),
     "speculative": (False, _SPEC), "spec_k": (4, _SPEC),
     "spec_ngram": (2, _SPEC), "spec_gate": (True, _SPEC),
     "spec_proposer": ("ngram", _SPEC), "draft_model": (None, _SPEC),
@@ -114,7 +124,11 @@ class ServingEngine:
                  min_bucket: int = 16,
                  max_queue: Optional[int] = None,
                  time_fn: Callable[[], float] = time.perf_counter,
-                 kv_layout: str = "contiguous",
+                 kv_layout: str = "paged",
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
+                 prefix_sharing: Optional[bool] = None,
                  **reference_only):
         for name, value in reference_only.items():
             if name not in _LATER:
@@ -126,14 +140,20 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) comes with the {later} "
                     f"of the port")
-        if kv_layout == "paged":
-            raise NotImplementedError(
-                f"kv_layout='paged' comes with the {_PAGED} of the port; "
-                f"pass kv_layout='contiguous'")
-        if kv_layout != "contiguous":
+        if kv_layout not in ("paged", "contiguous"):
             raise ValueError(
                 f"kv_layout must be 'paged' or 'contiguous', got "
                 f"{kv_layout!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (model dtype) or 'int8', got "
+                f"{kv_dtype!r}")
+        if kv_layout == "contiguous" and (
+                page_size is not None or num_pages is not None
+                or kv_dtype is not None or prefix_sharing is not None):
+            raise ValueError(
+                "page_size/num_pages/kv_dtype/prefix_sharing only apply "
+                "to the paged kv_layout")
         self.adapter = _ModelAdapter(model)
         model.eval()
         self.max_slots = int(max_slots)
@@ -148,10 +168,30 @@ class ServingEngine:
                 f"max_queue must be >= 1 or None, got {max_queue}")
         self.max_queue = max_queue
         self.min_bucket = min(int(min_bucket), self.max_len)
+        self.paged = kv_layout == "paged"
         ad = self.adapter
-        self.cache = SlotKVCache(ad.num_layers, self.max_slots,
-                                 self.max_len, ad.kv_heads, ad.head_dim,
-                                 ad.dtype, ad.device)
+        if self.paged:
+            if page_size is None:
+                # the largest power-of-2 divisor of max_len up to 128
+                page_size = 128
+                while self.max_len % page_size:
+                    page_size //= 2
+            self.page_size = int(page_size)
+            self.num_pages = num_pages        # None = capacity parity
+            self.kv_quant = kv_dtype == "int8"
+            self.prefix_sharing = True if prefix_sharing is None \
+                else bool(prefix_sharing)
+            self.cache = PagedKVCache(
+                ad.num_layers, self.max_slots, self.max_len, ad.kv_heads,
+                ad.head_dim, ad.dtype, ad.device, page_size=self.page_size,
+                num_pages=self.num_pages, quant=self.kv_quant,
+                prefix_sharing=self.prefix_sharing)
+            # the most requests in flight at once (benchmarks read it)
+            self.peak_active_slots = 0
+        else:
+            self.cache = SlotKVCache(ad.num_layers, self.max_slots,
+                                     self.max_len, ad.kv_heads,
+                                     ad.head_dim, ad.dtype, ad.device)
         self.scheduler = FIFOScheduler()
         self.metrics = EngineMetrics(self.max_slots, time_fn)
         self._next_rid = 0
@@ -259,6 +299,35 @@ class ServingEngine:
             break
         return done
 
+    def cancel(self, req: Request, reason: str = "cancelled") -> bool:
+        """Cancel one request (queued or in flight; its pages return to
+        the pool); False if it already finished. Delivered tokens stay on
+        the handle."""
+        if req.finished:
+            return False
+        if not self.scheduler.remove(req):
+            if req.slot is None or self.cache.slots[req.slot] is not req:
+                return False
+            self.cache.release(req.slot)
+            req.slot = None
+        req.finished, req.finish_reason = True, reason
+        req.error = RequestCancelled(req.rid, reason)
+        self.metrics.on_finished(req.rid)
+        return True
+
+    def paged_stats(self) -> dict:
+        """Paged-pool snapshot (raises on a contiguous engine): the
+        cache's page, prefix and COW counters, the most requests in
+        flight at once, and the prefix hit rate."""
+        if not self.paged:
+            raise RuntimeError("paged_stats() on a contiguous engine")
+        s = self.cache.stats()
+        s["peak_active_slots"] = self.peak_active_slots
+        s["prefix_hit_rate"] = (
+            s["prefix_hit_tokens"] / s["prefix_lookup_tokens"]
+            if s["prefix_lookup_tokens"] else 0.0)
+        return s
+
     def recover(self):
         raise NotImplementedError(
             "ServingEngine.recover() comes with the resilience slice of "
@@ -316,16 +385,30 @@ class ServingEngine:
     # -- one iteration -------------------------------------------------
     def _step_inner(self, finished: List[Request]) -> None:
         self._expire_deadlines(finished)
-        pairs = self.scheduler.admissions(self.cache.free_slots())
+        claim = unclaim = None
+        if self.paged:
+            # admission is gated by FREE PAGES as well as free slots: the
+            # claim reserves the request's worst-case page span
+            def claim(req):
+                return self.cache.try_reserve(
+                    req, req.prompt, req.prompt_len + req.max_new_tokens)
+            unclaim = self.cache.cancel_reservation
+        pairs = self.scheduler.admissions(self.cache.free_slots(),
+                                          claim=claim, unclaim=unclaim)
         for i, (slot, req) in enumerate(pairs):
             try:
                 self._prefill(slot, req)
             except Exception:
                 # admissions() popped the whole batch: what was not yet
-                # admitted goes back to the queue head in FCFS order
+                # admitted goes back to the queue head in FCFS order,
+                # its page reservation returned
                 for _, later in reversed(pairs[i + 1:]):
+                    if self.paged:
+                        self.cache.cancel_reservation(later)
                     self.scheduler.requeue(later)
                 if req.slot is None:
+                    if self.paged:
+                        self.cache.cancel_reservation(req)
                     self.scheduler.requeue(req)
                 raise
             if req.finished:
@@ -334,12 +417,18 @@ class ServingEngine:
         if active:
             self._decode(active, finished)
         self.metrics.on_step(len(active))
+        if self.paged:
+            self.peak_active_slots = max(self.peak_active_slots,
+                                         len(active))
 
     def _prefill(self, slot: int, req: Request) -> None:
-        """Run the request's bucketed prefill into its slot row and
-        sample its first token (TTFT)."""
+        """Run the request's bucketed prefill into its slot and sample
+        its first token (TTFT)."""
         self.metrics.on_first_prefill(req.rid)
-        logits = self._prefill_raw(slot, req.prompt)
+        if self.paged:
+            logits = self._prefill_paged(slot, req)
+        else:
+            logits = self._prefill_raw(slot, req.prompt)
         self.cache.assign(slot, req)
         req.slot = slot
         tok = sample_token(logits, req.sampling, req._rng)
@@ -352,17 +441,117 @@ class ServingEngine:
         row (the padded tail is garbage the causal mask hides and each
         decode step overwrites before attending) and return the host
         logits at the last real token."""
-        ad = self.adapter
         n = int(ids.shape[0])
         bucket = bucket_for(n, self.min_bucket, self.max_len)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = ids
         # views of the slot's rows: the prefill writes the pool in place
         caches = [(k[slot:slot + 1, :bucket], v[slot:slot + 1, :bucket], 0)
                   for k, v in zip(self.cache.ks, self.cache.vs)]
-        h, _ = ad.call(torch.from_numpy(padded).to(ad.device), caches)
+        return self._logits(self._padded(ids, 0, bucket), n, caches)[0]
+
+    def _padded(self, ids: np.ndarray, start: int, bucket: int):
+        """``ids[start:]`` zero-padded to ``[1, bucket]`` on the device."""
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :len(ids) - start] = ids[start:]
+        return torch.from_numpy(padded).to(self.adapter.device)
+
+    def _logits(self, ids, n: int, caches):
+        """One model call over ``ids`` [1, bucket] with ``caches``: the
+        host logits at token ``n - 1`` and the new caches."""
+        ad = self.adapter
+        h, new_caches = ad.call(ids, caches)
         logits = ad.head(h[:, n - 1:n])[0, -1]
-        return logits.float().cpu().numpy()
+        return logits.float().cpu().numpy(), new_caches
+
+    def _prefill_paged(self, slot: int, req: Request) -> np.ndarray:
+        """The paged admission (reference ``_prefill_raw``'s paged
+        branch): consume the reservation into the slot's page table, run
+        the COW copies, then the full prefill (nothing matched) or the
+        extend over the shared pages, and index the prompt's full pages.
+        Any failure after the claim returns every page
+        (``abort_sequence``)."""
+        cache = self.cache
+        ids = req.prompt
+        n = int(ids.shape[0])
+        try:
+            # same-wave sharing: earlier admissions of this batch have
+            # registered their pages since the claim
+            cache.refresh_reservation(req, ids)
+            start, copies = cache.begin_sequence(slot, req, ids)
+            self._run_copies(copies)
+            bucket = bucket_for(n - start, self.min_bucket, self.max_len)
+            padded = self._padded(ids, start, bucket)
+            row = cache.page_table[slot]
+            if start == 0:
+                npg = -(-bucket // cache.page_size)
+                logits = self._paginated_prefill(padded, n,
+                                                 row[:npg].copy())
+            else:
+                logits = self._extend(padded, start, n - start,
+                                      row[None].copy())
+            cache.register_prefix(slot, ids)
+            return logits
+        except Exception:
+            cache.abort_sequence(slot, req)
+            raise
+
+    def _paginated_prefill(self, padded, n: int, page_ids: np.ndarray):
+        """Full-prompt paged prefill: run the prompt through a local
+        ``[1, bucket]`` static cache (the contiguous prefill's flash
+        route at the same S), then write its k/v into ``page_ids``
+        (quantized on the int8 path); a page id past the allocated span
+        is trash page 0."""
+        ad, cache = self.adapter, self.cache
+        bucket = padded.shape[1]
+        shape = (1, bucket, ad.kv_heads, ad.head_dim)
+        local = [(torch.zeros(shape, dtype=ad.dtype, device=ad.device),
+                  torch.zeros(shape, dtype=ad.dtype, device=ad.device), 0)
+                 for _ in range(ad.num_layers)]
+        logits, new_caches = self._logits(padded, n, local)
+        P = cache.page_size
+        npg = len(page_ids)
+        pid = torch.from_numpy(page_ids).to(ad.device)
+
+        def paginate(c):
+            c = TF.pad(c, (0, 0, 0, 0, 0, npg * P - bucket))
+            return c.reshape(npg, P, *c.shape[2:])
+        for i, (kc, vc, _) in enumerate(new_caches):
+            kpg, vpg = paginate(kc), paginate(vc)
+            if self.kv_quant:
+                kq, ksc = quantize_kv_page(kpg)
+                vq, vsc = quantize_kv_page(vpg)
+                cache.ks[i][pid], cache.kss[i][pid] = kq, ksc
+                cache.vs[i][pid], cache.vss[i][pid] = vq, vsc
+            else:
+                cache.ks[i][pid] = kpg
+                cache.vs[i][pid] = vpg
+        return logits
+
+    def _paged_caches(self, table, pos):
+        """Per-layer paged cache tuples over one device copy of
+        ``table`` (a ``PageTable``: the layers share its indices);
+        scales None on the model-dtype path."""
+        c = self.cache
+        tab = PageTable(torch.from_numpy(table).to(self.adapter.device))
+        return [(k, v, c.kss[i] if c.kss else None,
+                 c.vss[i] if c.vss else None, tab, pos)
+                for i, (k, v) in enumerate(zip(c.ks, c.vs))]
+
+    def _extend(self, padded, start: int, tail: int, table: np.ndarray):
+        """Shared-prefix tail prefill: the tail runs through the paged
+        cache path at position ``start``, attending over the shared
+        pages through the slot's table and writing its own k/v through
+        it (bucket padding past the table goes to the trash page)."""
+        return self._logits(padded, tail,
+                            self._paged_caches(table, start))[0]
+
+    def _run_copies(self, copies) -> None:
+        """COW page copies on the device, before any program reads the
+        pages: ``pool[dst] = pool[src]`` for every layer's k/v (and
+        scale) pool."""
+        c = self.cache
+        for src, dst in copies:
+            for pool in (*c.ks, *c.vs, *c.kss, *c.vss):
+                pool[dst] = pool[src]
 
     def _decode(self, active, finished: List[Request]) -> None:
         """The k=1 decode step over every slot (reference
@@ -370,13 +559,27 @@ class ServingEngine:
         ad = self.adapter
         toks = np.zeros((self.max_slots, 1), np.int64)
         pos = np.zeros((self.max_slots,), np.int64)
+        copies = []
         for s in active:
             req = self.cache.slots[s]
             toks[s, 0] = req.out_tokens[-1]
             pos[s] = req.next_pos
+            if self.paged:
+                # the write may cross into a new page (allocate) or a
+                # shared one (COW): resolve it BEFORE the step
+                c = self.cache.ensure_decode_page(s, req.next_pos)
+                if c is not None:
+                    copies.append(c)
         pos_dev = torch.from_numpy(pos).to(ad.device)
-        caches = [(k, v, pos_dev)
-                  for k, v in zip(self.cache.ks, self.cache.vs)]
+        if self.paged:
+            self._run_copies(copies)
+            # inactive rows read and write trash page 0 at position 0
+            table = np.zeros_like(self.cache.page_table)
+            table[active] = self.cache.page_table[active]
+            caches = self._paged_caches(table, pos_dev)
+        else:
+            caches = [(k, v, pos_dev)
+                      for k, v in zip(self.cache.ks, self.cache.vs)]
         h, _ = ad.call(torch.from_numpy(toks).to(ad.device), caches)
         logits = ad.head(h[:, -1:])[:, -1].float().cpu().numpy()
         for s in active:

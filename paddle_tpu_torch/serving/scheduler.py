@@ -4,8 +4,8 @@ Counterpart of ``paddle_tpu/serving/scheduler.py``: the waiting queue,
 FCFS admission into freed slots, and the power-of-2 prefill buckets.
 In the reference the buckets bound the number of compiled prefill
 programs; here they keep the kernel and matmul shapes to O(log max_len)
-sizes. The paged claim and the admission lookahead come with the
-paged-KV and chunked-prefill slices.
+sizes. Admission takes the paged engine's page claim (strict FCFS);
+the admission lookahead comes with the chunked-prefill slice.
 """
 from __future__ import annotations
 
@@ -95,12 +95,34 @@ class FIFOScheduler:
     def depth(self) -> int:
         return len(self._queue)
 
-    def admissions(self, free_slots: List[int]
-                   ) -> List[Tuple[int, Request]]:
-        """Pair queued requests with free slots, FCFS, one per slot."""
+    def admissions(self, free_slots: List[int], claim=None,
+                   unclaim=None) -> List[Tuple[int, Request]]:
+        """Pair queued requests with free slots, FCFS, one per slot.
+
+        ``claim`` (optional) gates each admission on a resource besides
+        the slot: the paged engine passes its page reservation, so
+        admission is bounded by FREE PAGES, not just free slots.
+        ``claim(head)`` returning False stops the batch with the head
+        still queued (no skipping ahead of a request that does not fit
+        yet). A truthy claim is a committed reservation: the caller
+        unwinds it if the admission later fails. A claim that RAISES
+        mid-batch unwinds the claims already made (``unclaim``) and puts
+        their requests back at the queue head in FCFS order before the
+        exception propagates."""
         picked = []
         for slot in free_slots:
             if not self._queue:
+                break
+            req = self._queue[0]
+            try:
+                ok = claim is None or claim(req)
+            except BaseException:
+                for _, r in reversed(picked):
+                    if unclaim is not None:
+                        unclaim(r)
+                    self.requeue(r)
+                raise
+            if not ok:
                 break
             picked.append((slot, self._queue.popleft()))
         return picked
@@ -109,6 +131,14 @@ class FIFOScheduler:
         """Put a request back at the HEAD (a failed admission keeps its
         FCFS position)."""
         self._queue.appendleft(req)
+
+    def remove(self, req: Request) -> bool:
+        """Drop one queued request (cancellation); False if absent."""
+        try:
+            self._queue.remove(req)
+            return True
+        except ValueError:
+            return False
 
     def expire(self, now: float) -> List[Request]:
         """Pop every queued request whose deadline has passed."""

@@ -201,4 +201,4 @@ def test_later_slice_flavours_raise():
     attn = model.llama.layers[0].self_attn
     x = torch.zeros(1, 1, cfg.hidden_size)
     with pytest.raises(NotImplementedError):
-        attn(x, cache=(None,) * 6)
+        attn(x, cache=(None,) * 7)
