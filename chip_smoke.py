@@ -171,15 +171,47 @@ no result):
              printed). Printed: peak concurrency beside the reference's
              bars (4x and 10x the contiguous pool's), the prefix hit
              rate, pages a live token, tokens/s.
-6d. serve-int4 — serve's 16 requests through ServingEngine(
+6d. serve-spec — serve's 16 requests and traffic through
+             ServingEngine(speculative=True, spec_k=4) with the n-gram
+             proposer, on the contiguous, paged and paged int8 layouts,
+             each held to the k=1 engine of its layout (serve, 6a, 6b)
+             by the identity rule: the same tokens, or else, with the
+             k=1 tokens fed to the verify as its drafts (teacher
+             forcing), its argmax agrees at >= SPEC_AGREE_MIN of the
+             positions and the k=1 token's logit lies within one bf16
+             step of the maximum at every split, with the products whose
+             bits differ between the verify's M = 64 and the decode's
+             M = 16 named (verify_products, printed always);
+             flash_attention_fwd exactly 16 x 16 and no other kernel;
+             no draft fault, no leaked page, slot or proposer state;
+             tokens/s, TTFT p50 / p99 and spec_stats() beside k=1's.
+6e. serve-spec-ngram — bench_serving_engine.py --speculative at its
+             full-width settings (:2031-2034): 64 periodic prompts of
+             8-24 tokens (RandomState(0)), 64 new tokens, 16 slots, page
+             128, k = 4, the k=1 and the speculative paged engine, each
+             warmed on every prompt first; SPEC_DECODE's fields (without
+             verify_compiles) and the reference's bars, printed, not
+             gated; the identity rule; device and wall ms of 8 verify
+             steps (spec_gate off) under the profiler beside 8 k=1 decode
+             steps, with the host ms of reading the [16, 4, 32000] f32
+             logits and its share of the step.
+6f. serve-spec-draft — --spec-v2 at its full-width shape (:2042-2045)
+             with the cuts SPEC_CUTS lists: 16 prompts of {6, 9, 14, 22}
+             tokens, 48 new, through the k=1, n-gram, self-draft and
+             tuned engines (the identity rule for each); SPEC_V2's
+             fields (without the compile counts); a sampled band
+             (temperature 0.8, top_k 8) through the self-draft
+             spec_sampled engine against k=1, its TV beside that of two
+             k=1 bands with disjoint seeds.
+6g. serve-int4 — serve's 16 requests through ServingEngine(
              weight_only_int4(model, group=128)): int4_matmul exactly
              113 launches (16 layers x 7 linears + lm_head) per model
              call, one call per prefill and decode step; flash 16 x 16;
              tokens/s, TTFT, weight bytes against bf16's.
-6e. check-int4 — as check, for the int4 engine; the int4 prefill logits
+6h. check-int4 — as check, for the int4 engine; the int4 prefill logits
              through the kernel against the plain route within
              INT4_ROUTE_TOL; last-logit parity against bf16 (printed).
-6f. decode — bench_llama_decode.py's phases: generate() at a 64-token
+6i. decode — bench_llama_decode.py's phases: generate() at a 64-token
              prompt and 128 new tokens, batch 1 and 8, in bf16,
              weight_only_int8 and weight_only_int4, launches asserted
              (113 int4_matmul or 113 quantize_rows a model call), the
@@ -2050,7 +2082,8 @@ def profiled(torch, setup):
                        for e in ev[:6]]
 
 
-def decode_profile(torch, model, prompts, steps: int = 8, **engine_kw):
+def decode_profile(torch, model, prompts, steps: int = 8, new: int = 16,
+                   **engine_kw):
     """8 decode steps over 16 busy slots under the profiler (the
     admissions run first, outside the window): wall and device ms a
     step, the busy share, the top kernels a step."""
@@ -2060,7 +2093,7 @@ def decode_profile(torch, model, prompts, steps: int = 8, **engine_kw):
         engine = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
                                min_bucket=MIN_BUCKET, **engine_kw)
         for p in prompts:
-            engine.submit(p, max_new_tokens=16)
+            engine.submit(p, max_new_tokens=new)
         engine.step()                   # admissions, outside the window
         return lambda: [engine.step() for _ in range(steps)]
     wall, dev, top = profiled(torch, decode)
@@ -2259,6 +2292,22 @@ def no_leaks(engine, name: str) -> None:
         raise AssertionError(f"{name}: leaked pages: {leaks}")
 
 
+def flash_only(name, launches, want) -> int:
+    """A serving run's launch counts: flash_attention_fwd exactly
+    ``want`` times (layers x prefills) and no other kernel; returns the
+    flash count."""
+    flash = launches["flash_attention_fwd"]
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention_fwd" and v}
+    if others:
+        raise AssertionError(f"{name} launched other kernels: {others}")
+    if flash != want:
+        raise AssertionError(
+            f"{name}: flash_attention_fwd launched {flash} times; expected "
+            f"layers x prefills = {want}")
+    return flash
+
+
 def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
                       contig_decode, kv_dtype=None, bf16_run=None):
     """serve's trace through the paged engine (capacity parity, page
@@ -2281,16 +2330,7 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
     eng = engine(SLOTS)
     finite = []
     reqs, wall, launches = serve_run(torch, eng, prompts, news, finite)
-    flash = launches["flash_attention_fwd"]
-    others = {k: v for k, v in launches.items()
-              if k != "flash_attention_fwd" and v}
-    if others:
-        raise AssertionError(f"{name} launched other kernels: {others}")
-    want = cfg.num_hidden_layers * len(reqs)
-    if flash != want:
-        raise AssertionError(
-            f"{name}: flash_attention_fwd launched {flash} times; expected "
-            f"{cfg.num_hidden_layers} layers x {len(reqs)} prefills = {want}")
+    flash = flash_only(name, launches, cfg.num_hidden_layers * len(reqs))
     no_leaks(eng, name)
     stats = eng.paged_stats()
     row = {"phase": name, "requests": len(reqs), "page_size": PAGE,
@@ -2348,7 +2388,7 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
         "decode_busy_share": dec["device_busy_share"],
         "decode_top_kernels_ms_per_step": dec["top_kernels_ms_per_step"]})
     emit(row)
-    return reqs, {"flash_attention_fwd": flash}, kv
+    return reqs, {"flash_attention_fwd": flash}, kv, m
 
 
 def prefix_trace(np):
@@ -2537,6 +2577,424 @@ def phase_serve_prefix(torch, np, model):
           "leaks": 0})
     return {name: {"flash_attention_fwd": res[name]["flash_launches"]}
             for name in res}
+
+
+# -- speculative decoding (ServingEngine(speculative=True)) ------------------
+SPEC_K = 4
+# the identity rule where the verify's tokens are not the k=1 decode's:
+# the verify fed the k=1 tokens as drafts (teacher forcing) must pick
+# the k=1 token at this share of positions or more, and at every split
+# the k=1 token's logit must lie within one bf16 step of the maximum
+SPEC_AGREE_MIN = 0.99
+# bench_serving_engine.py --speculative at full width (:2031-2034)
+NGRAM_REQS, NGRAM_NEW = 64, 64
+# --spec-v2 at full width (:2042-2045): 48 requests cut to 16 and the
+# sampled band of 64 x 16 tokens to 16 x 16 (every drafted token is one
+# eager model call, so a self-draft engine is host-bound)
+DRAFT_LENS, DRAFT_REQS, DRAFT_NEW = (6, 9, 14, 22), 16, 48
+SAMPLED_REQS, SAMPLED_NEW = 16, 16
+SPEC_CUTS = ["serve-spec-draft: requests 48 -> 16",
+             "serve-spec-draft: sampled band 64 x 16 -> 16 x 16 tokens"]
+
+
+def verify_products(torch, model) -> dict:
+    """Which products of a k=1 decode step ([16, 1] tokens) would give
+    other bits in a [16, 4] block run whole: each linear of layer 0 and
+    the LM head on 64 random rows in the model dtype against the same
+    function of every fourth row alone (M = 64 vs M = 16), RMSNorm on
+    [16, 4] against [16, 1], and the cache attention at 4 queries a row
+    against 1. True = the same bits. The verify runs the norms, linears
+    and head one position at a time (``per_position``), the attention
+    whole."""
+    from paddle_tpu_torch.models._decode_cache import _masked_attend
+    dev, dt = model.device, model.llama.embed_tokens.weight.dtype
+    g = torch.Generator(device=dev).manual_seed(1)
+    layer = model.llama.layers[0]
+    out = {}
+    lin = {"q_proj": layer.self_attn.q_proj, "k_proj": layer.self_attn.k_proj,
+           "v_proj": layer.self_attn.v_proj, "o_proj": layer.self_attn.o_proj,
+           "gate_proj": layer.mlp.gate_proj, "up_proj": layer.mlp.up_proj,
+           "down_proj": layer.mlp.down_proj, "lm_head": model.lm_head}
+    with torch.inference_mode():
+        for name, m in lin.items():
+            x = torch.randn(SLOTS * SPEC_K, m.in_features, device=dev,
+                            generator=g).to(dt)
+            out[name] = torch.equal(m(x)[::SPEC_K], m(x[::SPEC_K]))
+        x = torch.randn(SLOTS, SPEC_K, model.config.hidden_size, device=dev,
+                        generator=g).to(dt)
+        norm = layer.input_layernorm
+        out["rms_norm"] = torch.equal(norm(x)[:, :1],
+                                      norm(x[:, :1].contiguous()))
+        cfg = model.config
+        H, KV, D = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        q = torch.randn(SLOTS, SPEC_K, H, D, device=dev, generator=g)
+        kc = torch.randn(SLOTS, MAX_LEN, KV, D, device=dev,
+                         generator=g).to(dt)
+        vc = torch.randn(SLOTS, MAX_LEN, KV, D, device=dev,
+                         generator=g).to(dt)
+        pos = torch.arange(SLOTS, device=dev) * 17 + 40
+        qpos = pos[:, None] + torch.arange(SPEC_K, device=dev)[None]
+        mask = torch.arange(MAX_LEN, device=dev)[None, None] \
+            <= qpos[:, :, None]
+        wide = _masked_attend(q, kc, vc, mask[:, None, None])
+        one = _masked_attend(q[:, :1], kc, vc, mask[:, None, None, :1])
+        out["cache_attention"] = torch.equal(
+            wide.view(SLOTS, SPEC_K, -1)[:, :1], one)
+    return out
+
+
+def spec_forced(torch, np, model, prompts, base_reqs, **engine_kw):
+    """Teacher forcing: an n-gram engine whose proposer drafts the k=1
+    run's continuation and which emits the k=1 tokens whatever its
+    argmax, so every verify position sees the k=1 run's tokens. Returns
+    (agreement of the verify's argmax with the k=1 token, [(gap, bf16
+    step)] at each split: the verify's max logit less the k=1 token's)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                        min_bucket=MIN_BUCKET, speculative=True,
+                        spec_k=SPEC_K, spec_gate=False, **engine_kw)
+    reqs = [eng.submit(p, max_new_tokens=len(b.output_ids))
+            for p, b in zip(prompts, base_reqs)]
+    want = {r.rid: b.output_ids for r, b in zip(reqs, base_reqs)}
+    plen = {r.rid: r.prompt_len for r in reqs}
+    drafted = {}
+
+    def oracle(rid, ids, k):
+        n = len(ids) - plen[rid]
+        drafted[rid] = np.asarray(want[rid][n:n + k], np.int64)
+        return drafted[rid]
+    hits, gaps = [], []
+
+    def forced(slot, req, greedy_row, acc, logits_row, draft=None,
+               qs=None):
+        ref = want[req.rid]
+        n = len(req.out_tokens)
+        for j in range(1 + len(drafted.pop(req.rid, ()))):
+            tok = ref[n + j]
+            hits.append(int(greedy_row[j]) == tok)
+            if not hits[-1]:
+                row = logits_row[j]
+                step = 2.0 ** (math.floor(math.log2(np.abs(row).max())) - 7)
+                gaps.append((float(row.max() - row[tok]), step))
+            req.out_tokens.append(tok)
+            eng.metrics.on_token(req.rid)
+            if eng._is_finished(req, tok):
+                break
+        return len(req.out_tokens) - n
+    eng.proposer.propose = oracle
+    eng._emit_verified = forced
+    eng.run()
+    no_leaks(eng, "teacher-forced verify")
+    return sum(hits) / len(hits), gaps
+
+
+def spec_identity(torch, np, model, name, prompts, base_reqs, reqs,
+                  products, **engine_kw) -> dict:
+    """The identity rule (SPEC_AGREE_MIN): the speculative run's tokens
+    equal the k=1 run's of the same layout, or else the teacher-forced
+    agreement and the gaps at its splits pass; raises otherwise."""
+    same = sum(a.output_ids == b.output_ids for a, b in zip(reqs, base_reqs))
+    row = {"token_identical": same == len(reqs), "requests_identical": same,
+           "greedy_agreement_vs_k1": agreement(reqs, base_reqs)}
+    if same == len(reqs):
+        return row
+    agree, gaps = spec_forced(torch, np, model, prompts, base_reqs,
+                              **engine_kw)
+    differ = [k for k, v in products.items() if not v]
+    row.update(forced_agreement_vs_k1=agree, agree_min=SPEC_AGREE_MIN,
+               split_gaps=gaps[:8], splits=len(gaps),
+               products_with_other_bits=differ)
+    if agree < SPEC_AGREE_MIN or any(g > s for g, s in gaps):
+        raise AssertionError(
+            f"{name}: {len(reqs) - same} requests' tokens differ from the "
+            f"k=1 engine's; teacher-forced agreement {agree} (min "
+            f"{SPEC_AGREE_MIN}), split gaps {gaps[:8]}; products whose "
+            f"bits differ at M=64 vs 16: {differ}")
+    return row
+
+
+def spec_checked(name, engine) -> dict:
+    """Gates every speculative phase shares: no draft fault (a broken
+    draft path would pass as k=1 decoding), no leaked page, slot or
+    proposer state. Returns spec_stats()."""
+    from paddle_tpu_torch.resilience import engine_leak_violations
+    st = engine.spec_stats()
+    if st["draft_faults"]:
+        raise AssertionError(f"{name}: {st['draft_faults']} draft faults")
+    no_leaks(engine, name)
+    leaks = engine_leak_violations(engine)
+    if leaks:
+        raise AssertionError(f"{name}: leaked engine state: {leaks}")
+    return st
+
+
+def spec_fields(st: dict) -> dict:
+    return {k: st[k] for k in (
+        "steps", "gated_steps", "rows", "emitted", "draft_tokens",
+        "accepted_draft_tokens", "resamples", "draft_s", "acc_len_hist",
+        "accepted_per_step", "draft_hit_rate")}
+
+
+SPEC_LAYOUTS = {"contiguous": dict(kv_layout="contiguous"),
+                "paged": dict(page_size=PAGE),
+                "paged-int8": dict(page_size=PAGE, kv_dtype="int8")}
+
+
+def phase_serve_spec(torch, np, model, prompts, k1_runs, products):
+    """serve's trace through speculative=True, spec_k=4 n-gram engines on
+    each layout, held to the k=1 engine of that layout (``k1_runs``:
+    layout -> (requests, metrics summary)) by the identity rule."""
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = model.config
+    news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
+    launches, rows = {}, {}
+    for layout, kw in SPEC_LAYOUTS.items():
+        name = f"serve-spec-{layout}"
+        warm = ServingEngine(model, max_slots=2, max_len=MAX_LEN,
+                             min_bucket=MIN_BUCKET, speculative=True,
+                             spec_k=SPEC_K, **kw)
+        for p in prompts[:2]:
+            warm.submit(p, max_new_tokens=2)
+        warm.run()
+        del warm
+        eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                            min_bucket=MIN_BUCKET, speculative=True,
+                            spec_k=SPEC_K, **kw)
+        reqs, wall, counts = serve_run(torch, eng, prompts, news)
+        flash = flash_only(name, counts, cfg.num_hidden_layers * len(reqs))
+        launches[layout] = {"flash_attention_fwd": flash}
+        st = spec_checked(name, eng)
+        m = eng.metrics.summary()
+        base_reqs, base_m = k1_runs[layout]
+        del eng
+        ident = spec_identity(torch, np, model, name, prompts, base_reqs,
+                              reqs, products, **kw)
+        rows[layout] = {
+            "wall_s": wall, "tokens": m["total_tokens"],
+            "tokens_per_s": m["tokens_per_s"],
+            "tokens_per_s_k1": base_m["tokens_per_s"],
+            "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+            "ttft_p50_s_k1": base_m["ttft_p50_s"],
+            "ttft_p99_s_k1": base_m["ttft_p99_s"],
+            "engine_steps": m["steps"], "engine_steps_k1": base_m["steps"],
+            "flash_launches": flash, "spec_stats": spec_fields(st),
+            "spec_draft_s": m["spec_draft_s"], **ident}
+    emit({"phase": "serve-spec", "requests": len(prompts), "k": SPEC_K,
+          "proposer": "ngram", "verify_products_same_bits": products,
+          **rows, "draft_faults": 0, "leaks": 0})
+    return launches
+
+
+def spec_drive(torch, np, model, prompts, news, **engine_kw):
+    """bench_serving_engine.py's drive(): every prompt to 2 tokens first
+    (every path warm), then the metrics and spec counters reset and the
+    trace served by serve_run; steps from the fresh metrics."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.metrics import EngineMetrics
+    eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                        min_bucket=MIN_BUCKET, **engine_kw)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=2)
+    eng.run()
+    eng.metrics = EngineMetrics(SLOTS, time.perf_counter)
+    if eng.speculative:
+        eng._spec = {k: ([0] * len(v) if isinstance(v, list) else type(v)())
+                     for k, v in eng._spec.items()}
+    reqs, wall, counts = serve_run(torch, eng, prompts, news)
+    m = eng.metrics.summary()
+    return {"engine": eng, "reqs": reqs, "steps": m["steps"],
+            "wall_s": wall, "tokens": m["total_tokens"],
+            "tokens_per_s": m["total_tokens"] / wall, "metrics": m,
+            "launches": counts}
+
+
+def logits_read_ms(torch, np, model) -> float:
+    """Host ms of one read of the verify's [16, 4, vocab] f32 logits to
+    numpy (the median of 5 after one warm read)."""
+    logits = torch.randn(SLOTS, SPEC_K, model.config.vocab_size,
+                         device=model.device)
+    reads = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits.cpu().numpy()
+        reads.append(time.perf_counter() - t0)
+    return float(np.median(reads[1:])) * 1e3
+
+
+def ngram_trace(np):
+    """run_speculative's periodic prompts (seed 0)."""
+    rng = np.random.RandomState(0)
+    prompts = []
+    for _ in range(NGRAM_REQS):
+        pat = rng.randint(1, 100, (int(rng.randint(1, 4)),)).astype(np.int64)
+        L = int(rng.randint(8, 24))
+        prompts.append(np.tile(pat, L // len(pat) + 1)[:L])
+    return prompts
+
+
+def phase_serve_spec_ngram(torch, np, model, products):
+    """bench_serving_engine.py --speculative at its full-width settings:
+    the k=1 and the speculative paged engine on the same 64 periodic
+    prompts; SPEC_DECODE's fields (its bars printed, not gated: with
+    random weights, whether greedy decode falls into the prompt's cycle
+    is a finding), and 8 verify steps under the profiler beside 8 k=1
+    decode steps."""
+    cfg = model.config
+    t0 = time.perf_counter()
+    prompts = ngram_trace(np)
+    news = [NGRAM_NEW] * len(prompts)
+    base = spec_drive(torch, np, model, prompts, news, page_size=PAGE)
+    spec = spec_drive(torch, np, model, prompts, news, page_size=PAGE,
+                      speculative=True, spec_k=SPEC_K)
+    want = cfg.num_hidden_layers * len(prompts)
+    for run, name in ((base, "k1"), (spec, "speculative")):
+        flash_only(f"serve-spec-ngram {name}", run["launches"], want)
+    st = spec_checked("serve-spec-ngram", spec["engine"])
+    no_leaks(base["engine"], "serve-spec-ngram k1")
+    del base["engine"], spec["engine"]
+    ident = spec_identity(torch, np, model, "serve-spec-ngram", prompts,
+                          base["reqs"], spec["reqs"], products,
+                          page_size=PAGE)
+    reduction = 1.0 - spec["steps"] / max(1, base["steps"])
+    summary = {
+        "k": SPEC_K, "requests": len(prompts), "tokens": spec["tokens"],
+        "steps_speculative": spec["steps"], "steps_k1": base["steps"],
+        "step_reduction": reduction,
+        "accepted_per_step": st["accepted_per_step"],
+        "draft_hit_rate": st["draft_hit_rate"],
+        "draft_tokens": st["draft_tokens"],
+        "accepted_draft_tokens": st["accepted_draft_tokens"],
+        "acc_len_hist": st["acc_len_hist"],
+        "tok_latency_p50_s": spec["metrics"]["tok_latency_p50_s"],
+        "tok_latency_p99_s": spec["metrics"]["tok_latency_p99_s"],
+        "tok_latency_p50_s_k1": base["metrics"]["tok_latency_p50_s"],
+        "tok_latency_p99_s_k1": base["metrics"]["tok_latency_p99_s"],
+        "tokens_per_s_speculative": spec["tokens_per_s"],
+        "tokens_per_s_k1": base["tokens_per_s"],
+        "token_identical": ident["token_identical"]}
+    bars = {"accepted_per_step > 1.5": st["accepted_per_step"] > 1.5,
+            "step_reduction >= 0.25": reduction >= 0.25,
+            "draft_hit_rate > 0.2": st["draft_hit_rate"] > 0.2}
+    # 8 steps of 16 busy slots each; the verify with spec_gate off, so
+    # every step is a verify step
+    prof = {"verify": decode_profile(
+                torch, model, prompts[:SLOTS], page_size=PAGE, new=NGRAM_NEW,
+                speculative=True, spec_k=SPEC_K, spec_gate=False),
+            "decode": decode_profile(torch, model, prompts[:SLOTS],
+                                     page_size=PAGE, new=NGRAM_NEW)}
+    read = logits_read_ms(torch, np, model)
+    prof["verify"].update(
+        logits_bytes=SLOTS * SPEC_K * cfg.vocab_size * 4,
+        logits_read_host_ms=read,
+        logits_read_share_of_step=read / prof["verify"]["wall_ms_per_step"])
+    emit({"phase": "serve-spec-ngram", "page_size": PAGE, "slots": SLOTS,
+          "max_len": MAX_LEN, "min_bucket": MIN_BUCKET,
+          "spec_decode": summary, "reference_bars_cpu": bars, **ident,
+          "wall_s_k1": base["wall_s"], "wall_s_speculative": spec["wall_s"],
+          "gated_steps": st["gated_steps"],
+          "flash_launches": spec["launches"]["flash_attention_fwd"],
+          "profile": prof, "draft_faults": 0, "leaks": 0,
+          "phase_s": time.perf_counter() - t0})
+    return {"flash_attention_fwd": spec["launches"]["flash_attention_fwd"]}
+
+
+def phase_serve_spec_draft(torch, np, model, products):
+    """bench_serving_engine.py --spec-v2 at its full-width shape (cut as
+    SPEC_CUTS lists): k=1, n-gram, self-draft and tuned engines on 16
+    low-self-similarity prompts, SPEC_V2's fields, then the sampled band
+    through the self-draft spec_sampled engine against k=1, beside the
+    TV of two k=1 bands with disjoint seeds (the noise floor at a
+    32000-token vocabulary; the reference's 0.2 bar is for 128 tokens,
+    and is gated in the CPU test)."""
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    cfg = model.config
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 100, (int(rng.choice(DRAFT_LENS)),))
+               .astype(np.int64) for _ in range(DRAFT_REQS)]
+    news = [DRAFT_NEW] * len(prompts)
+    spec = dict(speculative=True, spec_k=SPEC_K)
+    runs = {"k1": spec_drive(torch, np, model, prompts, news)}
+    runs["ngram"] = spec_drive(torch, np, model, prompts, news, **spec)
+    runs["draft"] = spec_drive(torch, np, model, prompts, news, **spec,
+                               spec_proposer="draft", draft_model=model)
+    runs["tuned"] = spec_drive(torch, np, model, prompts, news, **spec,
+                               spec_proposer="draft", draft_model=model,
+                               spec_tune=True)
+    want = cfg.num_hidden_layers * len(prompts)
+    stats, ident, seconds = {}, {}, {}
+    for name, run in runs.items():
+        flash_only(f"serve-spec-draft {name}", run["launches"], want)
+        seconds[name] = run["wall_s"]
+        if name != "k1":
+            stats[name] = spec_checked(f"serve-spec-draft {name}",
+                                       run["engine"])
+        else:
+            no_leaks(run["engine"], "serve-spec-draft k1")
+    draft_s = runs["draft"]["metrics"]["spec_draft_s"]
+    for run in runs.values():
+        del run["engine"]
+    for name in ("ngram", "draft", "tuned"):
+        ident[name] = spec_identity(torch, np, model,
+                                    f"serve-spec-draft {name}", prompts,
+                                    runs["k1"]["reqs"], runs[name]["reqs"],
+                                    products)
+    vocab = cfg.vocab_size
+
+    def band(seed0, **kw):
+        eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                            min_bucket=MIN_BUCKET, **kw)
+        reqs = [eng.submit(prompts[i % len(prompts)], SAMPLED_NEW,
+                           sampling=SamplingParams(temperature=0.8, top_k=8,
+                                                   seed=seed0 + i))
+                for i in range(SAMPLED_REQS)]
+        eng.run()
+        if kw:
+            stats["sampled"] = spec_checked("serve-spec-draft sampled", eng)
+        toks = [t for r in reqs for t in r.output_ids]
+        return np.bincount(toks, minlength=vocab).astype(np.float64)
+
+    def tv(a, b):
+        return 0.5 * float(np.abs(a / a.sum() - b / b.sum()).sum())
+    h_base, h_floor = band(1000), band(2000)
+    h_spec = band(1000, **spec, spec_proposer="draft", draft_model=model,
+                  spec_sampled=True)
+    st_n, st_d, st_t = stats["ngram"], stats["draft"], stats["tuned"]
+    summary = {
+        "k": SPEC_K, "requests": len(prompts),
+        "accepted_per_step_ngram": st_n["accepted_per_step"],
+        "accepted_per_step_draft": st_d["accepted_per_step"],
+        "accepted_per_step_tuned": st_t["accepted_per_step"],
+        "draft_vs_ngram": st_d["accepted_per_step"]
+        / max(1e-9, st_n["accepted_per_step"]),
+        "draft_overhead_frac": draft_s / runs["draft"]["wall_s"],
+        "draft_hit_rate_ngram": st_n["draft_hit_rate"],
+        "draft_hit_rate_draft": st_d["draft_hit_rate"],
+        "tuner_k": st_t["tuner"]["classes"]["greedy"]["k"],
+        "tuner_kind": st_t["tuner"]["classes"]["greedy"]["kind"],
+        "tuner_flips": st_t["tuner"]["flips"],
+        "token_identical": all(i["token_identical"] for i in ident.values()),
+        "sampled_requests": SAMPLED_REQS,
+        "sampled_tokens": int(h_spec.sum()),
+        "sampled_parity_tv": tv(h_base, h_spec),
+        "sampled_parity_ok": tv(h_base, h_spec) < 0.2,
+        "steps_k1": runs["k1"]["steps"], "steps_ngram": runs["ngram"]["steps"],
+        "steps_draft": runs["draft"]["steps"]}
+    emit({"phase": "serve-spec-draft", "spec_v2": summary,
+          "sampled_parity_tv_k1_vs_k1": tv(h_base, h_floor),
+          "sampled_resamples": stats["sampled"]["resamples"],
+          "sampled_accepted_draft_tokens":
+              stats["sampled"]["accepted_draft_tokens"],
+          "identity": ident, "wall_s": seconds,
+          "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+          "spec_draft_s": draft_s,
+          "flash_launches": {k: r["launches"]["flash_attention_fwd"]
+                             for k, r in runs.items()},
+          "cuts": SPEC_CUTS, "draft_faults": 0, "leaks": 0,
+          "phase_s": time.perf_counter() - t0})
+    return {k: {"flash_attention_fwd": r["launches"]["flash_attention_fwd"]}
+            for k, r in runs.items()}
 
 
 # -- weight-only int4 and int8 serving (Llama-1B, kernel row 7) -------------
@@ -4158,12 +4616,24 @@ def main() -> int:
     paged = phase_serve_paged(torch, np, model, prompts, reqs, served,
                               contig_decode)
     launches["serve-paged"] = paged[1]
-    launches["serve-paged-int8"] = phase_serve_paged(
+    paged8 = phase_serve_paged(
         torch, np, model, prompts, reqs, served, contig_decode,
-        kv_dtype="int8", bf16_run=paged)[1]
+        kv_dtype="int8", bf16_run=paged)
+    launches["serve-paged-int8"] = paged8[1]
     for name, counts in phase_serve_prefix(torch, np, model).items():
         launches["serve-prefix-" + name] = counts
-    del paged
+    products = verify_products(torch, model)
+    for name, counts in phase_serve_spec(
+            torch, np, model, prompts,
+            {"contiguous": (reqs, served), "paged": (paged[0], paged[3]),
+             "paged-int8": (paged8[0], paged8[3])}, products).items():
+        launches["serve-spec-" + name] = counts
+    launches["serve-spec-ngram"] = phase_serve_spec_ngram(
+        torch, np, model, products)
+    for name, counts in phase_serve_spec_draft(
+            torch, np, model, products).items():
+        launches["serve-spec-draft-" + name] = counts
+    del paged, paged8
     torch.cuda.empty_cache()
     qmodel, qreqs, launches["serve-int4"] = phase_serve_int4(
         torch, np, model, prompts)

@@ -7,7 +7,8 @@ causally masked full buffer. The position ``p`` is a scalar (the whole
 batch at one position: ``generate()``) or a per-row ``[B]`` tensor
 (every row at its own position: the serving slot pool). ``wlen``
 (``[B]``) gates which incoming tokens write (the speculative-verify
-contract, see the reference module's docstring).
+contract, see the reference module's docstring); the gated write reads
+nothing back to the host (``_write_gated``).
 
 Unlike the reference, whose arrays are immutable, the buffers are
 updated IN PLACE and returned: copying a whole ``[slots, Tmax]`` pool
@@ -34,8 +35,9 @@ k/v live in a shared pool of fixed-size pages ``[num_pages, page, KV,
 D]`` and each row carries a ``[B, pages_per_seq]`` page table. Writes
 scatter through the table, in place (flat position ``f`` lands in page
 ``table[b, f // page]`` at offset ``f % page``; writes past the table,
-the extend's bucket padding, land in the reserved trash page 0; a
-``PageTable`` computes those indices once for all layers); reads
+the extend's bucket padding, and the verify's writes past ``wlen`` land
+in the reserved trash page 0; a ``PageTable`` computes those indices
+once for all layers); reads
 gather the row's pages into a ``[B, pages_per_seq * page, KV, D]`` view
 and run ``_masked_attend``, the very code of ``cache_attend``'s einsum
 branch, so the non-quantized paged decode gives the contiguous pool's
@@ -52,7 +54,7 @@ from ..ops.flash_attention import (NEG_INF, flash_attention_fwd,
 from ..ops.fused_adamw import INV127
 
 __all__ = ["PageTable", "cache_attend", "check_cache_pos",
-           "paged_cache_attend", "quantize_kv_page"]
+           "paged_cache_attend", "per_position", "quantize_kv_page"]
 
 
 def check_cache_pos(pos, t: int, Tmax: int) -> bool:
@@ -73,6 +75,22 @@ def check_cache_pos(pos, t: int, Tmax: int) -> bool:
             f"static cache overflow: pos {concrete} + {t} new "
             f"tokens exceeds cache length {Tmax}")
     return per_row
+
+
+def per_position(fn, x, on: bool = True):
+    """``fn`` over each position's ``[B, 1, ...]`` slice of ``x``, made
+    contiguous as the k=1 decode hands it over, the results concatenated
+    along dim 1 (``fn(x)`` when not ``on``). The speculative verify runs
+    its norms, linears and LM head this way: a GEMM library may pick
+    another kernel for the verify's M = B * t rows than for the decode's
+    M = B, and sum in another order (on the H100, Llama-1B's down_proj
+    at M = 64 against 16), so a [B, t] verify would not give the k=1
+    decode's bits at each position. Elementwise ops and the cache
+    attention keep their bits across t and run on the whole block."""
+    if not on or x.shape[1] == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, j:j + 1].contiguous())
+                      for j in range(x.shape[1])], dim=1)
 
 
 def _flash_prefill(qr, kr, kc, p, wlen, per_row: bool) -> bool:
@@ -118,12 +136,7 @@ def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
             kc[bidx, idx] = kr.to(kc.dtype)
             vc[bidx, idx] = v.to(vc.dtype)
         else:
-            # token j of row b lands at p[b]+j only when j < wlen[b] and
-            # in range; the rest is dropped (the reference's mode="drop")
-            wl = torch.as_tensor(wlen, device=dev).long()
-            ok = (steps[None, :] < wl[:, None]) & (idx < Tmax)
-            kc[bidx[ok], idx[ok]] = kr[ok].to(kc.dtype)
-            vc[bidx[ok], idx[ok]] = v[ok].to(vc.dtype)
+            _write_gated(kc, vc, kr, v, p, idx, bidx, wlen)
         mask = torch.arange(Tmax, device=dev)[None, None, :] \
             <= idx[:, :, None]                                # [B, t, Tmax]
         maskx = mask[:, None, None]                     # [B,1,1,t,Tmax]
@@ -135,6 +148,29 @@ def cache_attend(qr, kr, v, kc, vc, p, per_row: bool, wlen=None):
             <= (p + steps)[:, None]                           # [t, Tmax]
         maskx = mask[None, None, None]                  # [1,1,1,t,Tmax]
     return _masked_attend(qr, kc, vc, maskx), kc, vc
+
+
+def _write_gated(kc, vc, kr, v, p, idx, bidx, wlen) -> None:
+    """The verify's gated write without a host sync: token ``j`` of row
+    ``b`` lands at ``p[b] + j`` only when ``j < wlen[b]`` and the
+    position is in the buffer; every other position keeps what it
+    holds, as the reference's ``mode="drop"`` scatter leaves it. Lane
+    ``j`` writes position ``w = min(p[b] + j, Tmax - 1)`` with token
+    ``w - p[b]`` when that token is below ``wlen[b]``, else with the
+    buffer's own value, so lanes clamped onto one position all write
+    the same value and the scatter's order cannot matter. (Indexing
+    with a boolean mask would read the mask back to the host, once a
+    layer.)"""
+    Tmax = kc.shape[1]
+    wl = torch.as_tensor(wlen, device=kc.device).long()
+    widx = idx.clamp(max=Tmax - 1)
+    src = (widx - p[:, None]).clamp(min=0)                    # [B, t]
+    ok = (src < wl[:, None])[..., None, None]
+    for buf, x in ((kc, kr), (vc, v)):
+        took = x.gather(1, src[..., None, None].expand(-1, -1,
+                                                       *x.shape[2:]))
+        buf[bidx, widx] = torch.where(ok, took.to(buf.dtype),
+                                      buf[bidx, widx])
 
 
 def _masked_attend(qr, kc, vc, maskx):
@@ -187,15 +223,18 @@ class PageTable:
         self.shape = self.table.shape
         self._memo = None
 
-    def indices(self, p, t: int, page: int):
+    def indices(self, p, t: int, page: int, wlen=None):
         """(flat write slots [B*t], mask [B, 1, 1, t, Tmax]) for tokens
         at ``p .. p + t - 1`` (``p`` an int or a [B] tensor). A write past
         the table (the extend's bucket padding) goes to trash page 0 at
-        offset 0, never to a real page at a clamped offset."""
+        offset 0, never to a real page at a clamped offset; so does the
+        write of token ``j >= wlen[b]`` of row ``b`` when ``wlen`` (the
+        verify's [B] write lengths) is given."""
         memo = self._memo
-        if memo is not None and memo[1] == t and (memo[0] is p or (
-                isinstance(p, int) and isinstance(memo[0], int)
-                and memo[0] == p)):
+        if memo is not None and memo[1] == t and memo[3] is wlen and (
+                memo[0] is p or (
+                    isinstance(p, int) and isinstance(memo[0], int)
+                    and memo[0] == p)):
             return memo[2]
         b, npg = self.shape
         Tmax = npg * page
@@ -207,11 +246,15 @@ class PageTable:
             qpos = (steps + int(p))[None, :].expand(b, t)
         pidx = torch.clamp(qpos // page, max=npg - 1)
         slot = torch.gather(self.table, 1, pidx) * page + qpos % page
-        slot = torch.where(qpos < Tmax, slot, torch.zeros_like(slot))
+        ok = qpos < Tmax
+        if wlen is not None:
+            wl = torch.as_tensor(wlen, device=dev).long()
+            ok = ok & (steps[None, :] < wl[:, None])
+        slot = torch.where(ok, slot, torch.zeros_like(slot))
         mask = torch.arange(Tmax, device=dev)[None, None, :] \
             <= qpos[:, :, None]                                 # [B, t, Tmax]
         out = (slot.reshape(-1), mask[:, None, None])
-        self._memo = (p, t, out)
+        self._memo = (p, t, out, wlen)
         return out
 
 
@@ -225,21 +268,19 @@ def paged_cache_attend(qr, kr, v, kp, vp, ks, vs, table, p, out_dtype,
     the model dtype); table: a [B, pages_per_seq] integer page table on
     the pools' device, or a ``PageTable`` shared by the layers of one
     model call (rows of inactive lanes point at trash page 0); p: write
-    position, an int or a [B] tensor. ``wlen`` (the speculative verify's
-    write lengths) comes with the speculative slice.
+    position, an int or a [B] tensor. ``wlen`` ([B], the speculative
+    verify's write lengths): only the first ``wlen[b]`` incoming tokens
+    of row ``b`` write; the rest land in trash page 0, as in the
+    reference; None = every token writes.
 
     Returns (out [B, t, H*D] in ``out_dtype``, kp, vp, ks, vs).
     """
-    if wlen is not None:
-        raise NotImplementedError(
-            "paged_cache_attend(wlen=...) comes with the speculative-"
-            "decoding slice of the port")
     b, t, h, D = qr.shape
     page = kp.shape[1]
     if not isinstance(table, PageTable):
         table = PageTable(table)
     Tmax = table.shape[1] * page
-    slot, maskx = table.indices(p, t, page)
+    slot, maskx = table.indices(p, t, page, wlen)
 
     def write(pool, x):
         pool.view(-1, *pool.shape[2:]).index_copy_(

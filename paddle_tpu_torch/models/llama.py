@@ -15,13 +15,18 @@ tables) and the same attention flavours:
   per-row position through ``_decode_cache.cache_attend`` — the
   serving engine's contiguous path;
 - paged cache (``(k_pool, v_pool, k_scale, v_scale, page_table,
-  pos)``): ``[num_pages, page, KV, D]`` pools written in place through
-  a ``[B, pages_per_seq]`` page table by
+  pos)``, or ``(..., pos, wlen)``, the speculative verify's form):
+  ``[num_pages, page, KV, D]`` pools written in place through a
+  ``[B, pages_per_seq]`` page table by
   ``_decode_cache.paged_cache_attend`` (scales None: model-dtype pages;
   set: int8 pages with f32 scales) — the serving engine's paged path.
 
-Not in this slice: ``use_tp`` (multi-GPU slice) and the speculative
-verify's paged 7-tuple (speculative-decoding slice); both raise
+``positionwise=True`` (the serving engine's speculative verify) runs
+the norms and linears of a ``[B, t]`` block one position at a time
+(``_decode_cache.per_position``), so each position gets the bits of a
+``[B, 1]`` decode step.
+
+Not in this slice: ``use_tp`` (multi-GPU slice), which raises
 ``NotImplementedError``.
 
 Numerics: ``Linear`` weights are ``[out, in]`` (PyTorch's layout; the
@@ -45,7 +50,8 @@ from torch.nn import functional as TF
 from .._device import resolve_device, resolve_dtype
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.layer.norm import RMSNorm
-from ._decode_cache import cache_attend, check_cache_pos, paged_cache_attend
+from ._decode_cache import (cache_attend, check_cache_pos,
+                            paged_cache_attend, per_position)
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "llama_tiny_config"]
@@ -150,18 +156,15 @@ class LlamaAttention(nn.Module):
         self.register_buffer("_cos", rope_cache[0], persistent=False)
         self.register_buffer("_sin", rope_cache[1], persistent=False)
 
-    def forward(self, x, attn_mask=None, cache=None):
+    def forward(self, x, attn_mask=None, cache=None,
+                positionwise: bool = False):
         """cache: optional (k_cache, v_cache) [B, T_past, KV, D]; when
         given, ``x`` holds only the NEW tokens and the return is
         (out, (k_cache', v_cache')) — see the module docstring for the
-        static-cache tuples."""
+        static-cache tuples and ``positionwise``."""
         cfg = self.cfg
         b, t, _ = x.shape
-        if cache is not None and len(cache) == 7:
-            raise NotImplementedError(
-                "the paged verify cache (7-tuple, per-row write lengths) "
-                "comes with the speculative-decoding slice of the port")
-        static_cache = cache is not None and len(cache) in (3, 4, 6)
+        static_cache = cache is not None and len(cache) in (3, 4, 6, 7)
         past = cache[0].shape[1] if cache is not None \
             and not static_cache and cache[0] is not None else 0
         if past + t > cfg.max_position_embeddings:
@@ -169,16 +172,18 @@ class LlamaAttention(nn.Module):
                 f"sequence length {past + t} exceeds "
                 f"max_position_embeddings={cfg.max_position_embeddings}")
         D = cfg.head_dim
-        q = self.q_proj(x).reshape(b, t, -1, D)
-        k = self.k_proj(x).reshape(b, t, -1, D)
-        v = self.v_proj(x).reshape(b, t, -1, D)
+        pw = positionwise and static_cache
+        q = per_position(self.q_proj, x, pw).reshape(b, t, -1, D)
+        k = per_position(self.k_proj, x, pw).reshape(b, t, -1, D)
+        v = per_position(self.v_proj, x, pw).reshape(b, t, -1, D)
         h_local, kv_local = q.shape[2], k.shape[2]
         if static_cache:
             if attn_mask is not None:
                 raise NotImplementedError(
                     "attn_mask with KV cache is not supported; pad-free "
                     "batches only in cached decoding")
-            return self._forward_static_cache(x, q, k, v, cache)
+            out, new_cache = self._forward_static_cache(x, q, k, v, cache)
+            return per_position(self.o_proj, out, pw), new_cache
         cos, sin = self._cos[past:past + t], self._sin[past:past + t]
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
@@ -220,8 +225,10 @@ class LlamaAttention(nn.Module):
         int (whole batch at one position — generate()) or a [b] vector
         of per-row positions (the continuous-batching slot pool). The
         4-tuple (k, v, pos, wlen) is the speculative-verify form; the
-        6-tuple is the paged flavour (``_forward_paged``)."""
-        if len(cache) == 6:
+        6- and 7-tuples are the paged flavour (``_forward_paged``).
+        Returns the attention output before ``o_proj`` and the new
+        cache."""
+        if len(cache) in (6, 7):
             return self._forward_paged(x, q, k, v, cache)
         t = q.shape[1]
         wlen = None
@@ -251,17 +258,19 @@ class LlamaAttention(nn.Module):
         qr, kr = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
         out, kc2, vc2 = cache_attend(qr, kr, v, k_cache, v_cache, p,
                                      per_row, wlen=wlen)
-        return self.o_proj(out.to(x.dtype)), (kc2, vc2, pos + t)
+        return out.to(x.dtype), (kc2, vc2, pos + t)
 
     def _forward_paged(self, x, q, k, v, cache):
         """Paged-pool cache attention (reference
-        ``_forward_static_cache``'s 6-tuple flavour): cache = (k_pool,
-        v_pool, k_scale, v_scale, page_table, pos) with
+        ``_forward_static_cache``'s 6- and 7-tuple flavours): cache =
+        (k_pool, v_pool, k_scale, v_scale, page_table, pos[, wlen]) with
         [num_pages, page, KV, D] pools, None scales for model-dtype
         pages, and a [b, pages_per_seq] table (or a ``PageTable``, which
         the layers of one call share). ``pos`` is a [b] vector
-        (the engine's decode) or an int (the shared-prefix extend)."""
-        kp, vp, ksc, vsc, table, pos = cache
+        (the engine's decode and verify) or an int (the shared-prefix
+        extend); ``wlen`` ([b], the verify) gates which tokens write."""
+        kp, vp, ksc, vsc, table, pos = cache[:6]
+        wlen = cache[6] if len(cache) == 7 else None
         t = q.shape[1]
         # only the START position must be in range: the extend's bucket
         # padding may overshoot the table and is sent to the trash page
@@ -270,7 +279,10 @@ class LlamaAttention(nn.Module):
         steps = torch.arange(t, device=dev)
         if per_row:
             p = torch.as_tensor(pos, device=dev).long()
-            idx = p[:, None] + steps[None]                  # [b, t]
+            # the verify's p + t may run past the rope table for rows
+            # near their cap: the clip touches only the gated tail
+            idx = (p[:, None] + steps[None]).clamp(
+                max=self._cos.shape[0] - 1)                 # [b, t]
         else:
             # gather RoPE per POSITION with a clip: the extend's padding
             # may run past the table, and a clamped slice start would
@@ -280,8 +292,8 @@ class LlamaAttention(nn.Module):
         cos, sin = self._cos[idx], self._sin[idx]
         qr, kr = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
         out, kp2, vp2, ks2, vs2 = paged_cache_attend(
-            qr, kr, v, kp, vp, ksc, vsc, table, p, x.dtype)
-        return self.o_proj(out), (kp2, vp2, ks2, vs2, table, pos + t)
+            qr, kr, v, kp, vp, ksc, vsc, table, p, x.dtype, wlen=wlen)
+        return out, (kp2, vp2, ks2, vs2, table, pos + t)
 
 
 class LlamaMLP(nn.Module):
@@ -312,13 +324,16 @@ class LlamaDecoderLayer(nn.Module):
             cfg.hidden_size, cfg.rms_norm_eps, device=device, dtype=dtype)
         self.mlp = LlamaMLP(cfg, use_tp, device=device, dtype=dtype)
 
-    def forward(self, x, attn_mask=None, cache=None):
+    def forward(self, x, attn_mask=None, cache=None,
+                positionwise: bool = False):
         if cache is not None:
-            a, new_cache = self.self_attn(self.input_layernorm(x),
-                                          attn_mask, cache)
+            a, new_cache = self.self_attn(
+                per_position(self.input_layernorm, x, positionwise),
+                attn_mask, cache, positionwise)
             x = x + a
-            return x + self.mlp(self.post_attention_layernorm(x)), \
-                new_cache
+            return x + per_position(
+                lambda y: self.mlp(self.post_attention_layernorm(y)), x,
+                positionwise), new_cache
         x = x + self.self_attn(self.input_layernorm(x), attn_mask)
         return x + self.mlp(self.post_attention_layernorm(x))
 
@@ -341,14 +356,15 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                             device=device, dtype=dtype)
 
-    def forward(self, input_ids, attn_mask=None, caches=None):
+    def forward(self, input_ids, attn_mask=None, caches=None,
+                positionwise: bool = False):
         x = self.embed_tokens(input_ids)
         if caches is not None:
             new_caches = []
             for layer, c in zip(self.layers, caches):
-                x, nc = layer(x, attn_mask, c)
+                x, nc = layer(x, attn_mask, c, positionwise)
                 new_caches.append(nc)
-            return self.norm(x), new_caches
+            return per_position(self.norm, x, positionwise), new_caches
         for layer in self.layers:
             x = layer(x, attn_mask)
         return self.norm(x)

@@ -1,9 +1,11 @@
-"""The paged KV cache's no-leaked-pages law.
+"""The serving engine's no-leak laws: the engine's own state and the
+paged KV cache's pages.
 
 Counterpart of ``paddle_tpu/resilience/invariants.py``
-``page_leak_violations`` (:329), without its host-tier half (the
-KV-tiering slice). A copy, not an import: the port never imports the
-reference package.
+``engine_leak_violations`` (:255) and ``page_leak_violations`` (:329),
+without the chunked-prefill, disaggregated-mesh and host-tier halves
+(their slices bring them). A copy, not an import: the port never
+imports the reference package.
 """
 from __future__ import annotations
 
@@ -11,7 +13,44 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["page_leak_violations"]
+__all__ = ["engine_leak_violations", "page_leak_violations"]
+
+
+def engine_leak_violations(engine) -> List[str]:
+    """A quiesced engine holds nothing: no leased slots, no queued
+    requests and, on a speculative engine, no draft-proposer state for
+    a request no longer in a slot, in EVERY configured proposer (the
+    tuner may have routed a request through either); the draft model's
+    pool must not lease a slot to a gone request, and its free list
+    and leases must add up to the pool (a leaked lease degrades
+    drafting to k=1 silently, invisible to token identity)."""
+    out = []
+    active = engine.cache.active_slots()
+    if active:
+        out.append(
+            f"leaked slots {active}: "
+            f"{[engine.cache.slots[s].rid for s in active]}")
+    queued = engine.scheduler.pending()
+    if queued:
+        out.append(f"leaked queue entries {[r.rid for r in queued]}")
+    if engine.speculative:
+        live = {engine.cache.slots[s].rid for s in active}
+        for kind, prop in sorted(engine._proposers.items()):
+            stale = [rid for rid in prop.tracked() if rid not in live]
+            if stale:
+                out.append(
+                    f"leaked {kind} draft-proposer state for rids "
+                    f"{stale} (request gone, proposer state still held)")
+            if hasattr(prop, "leased_slots"):
+                leased = prop.leased_slots()
+                if len(set(leased)) != len(leased) \
+                        or prop.free_slots() + len(leased) \
+                        != prop.max_slots:
+                    out.append(
+                        f"draft pool accounting hole: {prop.free_slots()} "
+                        f"free + leases {leased} != {prop.max_slots} "
+                        f"slots")
+    return out
 
 
 def page_leak_violations(engine) -> List[str]:

@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/serving`` for the paged KV pool (the
 default: copy-on-write prefix sharing, page-gated admission, optional
 int8 KV) and the contiguous slot pool: iteration-level FCFS admission,
 power-of-2 prefill buckets, one decode forward per step over every
-slot, host-side sampling, typed errors.
+slot (or, with ``speculative=True``, one k-wide verify of n-gram or
+draft-model drafts), host-side sampling, typed errors.
 
     engine = ServingEngine(model, max_slots=8, max_len=512)
     req = engine.submit(prompt_ids, max_new_tokens=64)
@@ -18,10 +19,13 @@ from .metrics import EngineMetrics
 from .sampling import SamplingParams, sample_token, sampling_dist
 from .scheduler import FIFOScheduler, Request, bucket_for, prefill_buckets
 from .slot_cache import PagedKVCache, SlotKVCache
+from .spec_decode import DraftModelProposer, NgramProposer
+from .spec_tune import SpecTuner
 
 __all__ = ["ServingEngine", "SamplingParams", "sample_token",
            "sampling_dist", "Request", "FIFOScheduler", "bucket_for",
            "prefill_buckets", "SlotKVCache", "PagedKVCache",
            "EngineMetrics", "ServingError", "QueueFull", "DeadlineExceeded",
            "EngineBroken", "EngineIdle", "EngineClosed",
-           "RequestCancelled"]
+           "RequestCancelled", "NgramProposer", "DraftModelProposer",
+           "SpecTuner"]

@@ -24,6 +24,17 @@ Counterpart of ``paddle_tpu/serving/engine.py`` ``_ModelAdapter`` and
    Paged: pages a write crosses into are allocated (or COW'd) before
    the step.
 
+``speculative=True`` swaps step 3 for ONE k-wide verify forward over
+``[max_slots, spec_k]`` tokens (``_decode_verify``): each row's block is
+its last token and up to ``spec_k - 1`` draft tokens from the n-gram
+proposer or a draft model (``spec_decode.py``), written only up to its
+per-row length ``wlen``; a greedy row emits the leading run of drafts
+that equal the verify's own argmax one position earlier, plus one, so
+its tokens are the k=1 decode's; a sampled row (``spec_sampled=True``)
+takes drafts by rejection sampling, which keeps the k=1 distribution.
+With ``spec_gate`` (the default) a step where no row drafted runs the
+k=1 decode instead. ``spec_tune=True`` adds the ``SpecTuner``.
+
 Synchronous API, as in the reference:
 
     engine = ServingEngine(model, max_slots=8, max_len=256, eos_id=2)
@@ -57,14 +68,15 @@ from torch.nn import functional as TF
 from .errors import (DeadlineExceeded, EngineBroken, EngineClosed,
                      EngineIdle, QueueFull, RequestCancelled)
 from .metrics import EngineMetrics
-from .sampling import SamplingParams, sample_token
+from .sampling import SamplingParams, sample_token, sampling_dist
 from .scheduler import FIFOScheduler, Request, bucket_for
 from .slot_cache import PagedKVCache, SlotKVCache
-from ..models._decode_cache import PageTable, quantize_kv_page
+from .spec_decode import DraftModelProposer, NgramProposer
+from .spec_tune import SpecTuner
+from ..models._decode_cache import PageTable, per_position, quantize_kv_page
 
 __all__ = ["ServingEngine"]
 
-_SPEC = "speculative-decoding slice"
 _MESH = "multi-GPU serving slice"
 _CHUNK = "chunked-prefill slice"
 _TIER = "KV-tiering slice"
@@ -72,10 +84,6 @@ _HOOKS = "observability and fault-hook slice"
 # reference-engine argument -> (its reference default, the slice of the
 # port that brings it)
 _LATER = {
-    "speculative": (False, _SPEC), "spec_k": (4, _SPEC),
-    "spec_ngram": (2, _SPEC), "spec_gate": (True, _SPEC),
-    "spec_proposer": ("ngram", _SPEC), "draft_model": (None, _SPEC),
-    "spec_sampled": (False, _SPEC), "spec_tune": (False, _SPEC),
     "mesh": (None, _MESH), "prefill_devices": (0, _MESH),
     "kv_transport": (None, _MESH),
     "prefill_chunk": (None, _CHUNK), "chunk_control": (None, _CHUNK),
@@ -102,7 +110,8 @@ class _ModelAdapter:
         self.model = model
         cfg = model.config
         backbone = model.llama
-        self.call = lambda ids, caches: backbone(ids, None, caches)
+        self.call = lambda ids, caches, positionwise=False: backbone(
+            ids, None, caches, positionwise)
         self.head = model._head
         self.num_layers = len(backbone.layers)
         self.head_dim = cfg.head_dim
@@ -129,6 +138,14 @@ class ServingEngine:
                  num_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  prefix_sharing: Optional[bool] = None,
+                 speculative: bool = False,
+                 spec_k: int = 4,
+                 spec_ngram: int = 2,
+                 spec_gate: bool = True,
+                 spec_proposer: str = "ngram",
+                 draft_model=None,
+                 spec_sampled: bool = False,
+                 spec_tune: bool = False,
                  **reference_only):
         for name, value in reference_only.items():
             if name not in _LATER:
@@ -192,12 +209,68 @@ class ServingEngine:
             self.cache = SlotKVCache(ad.num_layers, self.max_slots,
                                      self.max_len, ad.kv_heads,
                                      ad.head_dim, ad.dtype, ad.device)
+        self._init_speculation(speculative, spec_k, spec_ngram, spec_gate,
+                               spec_proposer, draft_model, spec_sampled,
+                               spec_tune)
         self.scheduler = FIFOScheduler()
         self.metrics = EngineMetrics(self.max_slots, time_fn)
         self._next_rid = 0
         self._step_idx = 0
         self._broken: Optional[str] = None
         self._closed = False
+
+    def _init_speculation(self, speculative, spec_k, spec_ngram, spec_gate,
+                          spec_proposer, draft_model, spec_sampled,
+                          spec_tune) -> None:
+        """The speculative arguments and their validation (reference
+        :274-330). Every configured proposer lives as long as the
+        engine (the tuner switches between them) and is released in
+        step with the slots (``_proposer_release``)."""
+        self.speculative = bool(speculative)
+        self._tuner = None
+        if not self.speculative:
+            if spec_k != 4 or spec_ngram != 2 or spec_gate is not True \
+                    or spec_proposer != "ngram" or draft_model is not None \
+                    or spec_sampled or spec_tune:
+                raise ValueError(
+                    "spec_k/spec_ngram/spec_gate/spec_proposer/"
+                    "draft_model/spec_sampled/spec_tune only apply with "
+                    "speculative=True")
+            return
+        if spec_k < 2:
+            raise ValueError(
+                f"spec_k must be >= 2 (k includes the k=1 base token), "
+                f"got {spec_k}")
+        if spec_proposer not in ("ngram", "draft"):
+            raise ValueError(
+                f"spec_proposer must be 'ngram' or 'draft', got "
+                f"{spec_proposer!r}")
+        if spec_proposer == "draft" and draft_model is None:
+            raise ValueError("spec_proposer='draft' requires draft_model=")
+        self.spec_k = int(spec_k)
+        self._proposers = {"ngram": NgramProposer(
+            ngram=spec_ngram, max_draft=self.spec_k - 1)}
+        if draft_model is not None:
+            self._proposers["draft"] = DraftModelProposer(
+                draft_model, max_slots=self.max_slots,
+                max_len=self.max_len, max_draft=self.spec_k - 1)
+        self.spec_proposer = spec_proposer
+        self.proposer = self._proposers[spec_proposer]
+        self.spec_sampled = bool(spec_sampled)
+        # a step where no row drafted runs the k=1 decode, which emits
+        # the same tokens at 1/k of the verify's work
+        self.spec_gate = bool(spec_gate)
+        if spec_tune:
+            # starts on the configured proposer, probes the others
+            self._tuner = SpecTuner(
+                k_max=self.spec_k,
+                proposers=tuple([spec_proposer] + [
+                    k for k in self._proposers if k != spec_proposer]))
+        self._spec = {"steps": 0, "gated_steps": 0, "rows": 0,
+                      "emitted": 0, "draft_tokens": 0,
+                      "accepted_draft_tokens": 0, "draft_faults": 0,
+                      "resamples": 0, "draft_s": 0.0,
+                      "acc_len_hist": [0] * (self.spec_k + 1)}
 
     # -- public API ----------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int = 16,
@@ -297,6 +370,7 @@ class ServingEngine:
                 self._cancel(req, cutoff, last_err)
                 self._evict(s, req, done)
             break
+        self._proposer_retain(())          # a drained engine holds none
         return done
 
     def cancel(self, req: Request, reason: str = "cancelled") -> bool:
@@ -313,7 +387,41 @@ class ServingEngine:
         req.finished, req.finish_reason = True, reason
         req.error = RequestCancelled(req.rid, reason)
         self.metrics.on_finished(req.rid)
+        self._proposer_release(req.rid)
         return True
+
+    def spec_stats(self) -> dict:
+        """Speculative-decoding snapshot (raises on a non-speculative
+        engine): verify steps, per-row emission totals, draft proposal
+        and acceptance counts, the accepted-length histogram."""
+        if not self.speculative:
+            raise RuntimeError("spec_stats() on a non-speculative engine")
+        s = dict(self._spec)
+        s["acc_len_hist"] = list(s["acc_len_hist"])
+        s["k"] = self.spec_k
+        s["proposer"] = self.spec_proposer
+        s["sampled"] = self.spec_sampled
+        s["draft_hit_rate"] = (
+            s["accepted_draft_tokens"] / s["draft_tokens"]
+            if s["draft_tokens"] else 0.0)
+        s["accepted_per_step"] = (
+            s["emitted"] / s["rows"] if s["rows"] else 0.0)
+        if self._tuner is not None:
+            s["tuner"] = self._tuner.snapshot()
+        return s
+
+    def _proposer_release(self, rid: int) -> None:
+        """Release one rid's draft state from every configured proposer
+        (the tuner may have moved a request between kinds)."""
+        if self.speculative:
+            for p in self._proposers.values():
+                p.release(rid)
+
+    def _proposer_retain(self, rids) -> None:
+        if self.speculative:
+            keep = list(rids)
+            for p in self._proposers.values():
+                p.retain(keep)
 
     def paged_stats(self) -> dict:
         """Paged-pool snapshot (raises on a contiguous engine): the
@@ -415,7 +523,10 @@ class ServingEngine:
                 self._evict(slot, req, finished)
         active = self.cache.active_slots()
         if active:
-            self._decode(active, finished)
+            if self.speculative:
+                self._decode_verify(active, finished)
+            else:
+                self._decode(active, finished)
         self.metrics.on_step(len(active))
         if self.paged:
             self.peak_active_slots = max(self.peak_active_slots,
@@ -590,6 +701,279 @@ class ServingEngine:
             if self._is_finished(req, tok):
                 self._evict(s, req, finished)
 
+    # -- speculative decoding ------------------------------------------
+    def _decode_verify(self, active, finished: List[Request]) -> None:
+        """One speculative step (reference ``_decode_verify``): draft up
+        to k-1 tokens per eligible row, score all k positions in ONE
+        k-wide forward (``_verify``), and emit each row's accepted
+        tokens (``_emit_verified``).
+
+        A row without a draft (no n-gram hit, a sampled row without
+        ``spec_sampled``, the tuner says off, one token of budget left)
+        runs at write length 1 inside the same forward. Draft tokens
+        the verify rejects have written k/v past the row's next write
+        position: the causal mask hides them until a later step
+        overwrites them, so the only rollback is the pages claimed past
+        the accepted tokens (paged). A failed draft proposal is
+        contained to its row (``_on_draft_fault``)."""
+        K = self.spec_k
+        toks = np.zeros((self.max_slots, K), np.int64)
+        pos = np.zeros((self.max_slots,), np.int64)
+        wlen = np.zeros((self.max_slots,), np.int64)
+        row_kind = {}          # slot -> proposer kind that drafted
+        row_draft = {}         # slot -> draft tokens (sampled rows)
+        row_qs = {}            # slot -> per-draft q ([] = point mass)
+        attempted = {}         # slot -> (klass, kind) fed to the tuner
+        for s in active:
+            req = self.cache.slots[s]
+            toks[s, 0] = req.out_tokens[-1]
+            pos[s] = req.next_pos
+            n = 1
+            sampled = req.sampling.temperature > 0
+            klass = "sampled" if sampled else "greedy"
+            kind = self.spec_proposer
+            k_cap = K
+            if self._tuner is not None:
+                k_cap, kind = self._tuner.decide(klass)
+            # a draft longer than the remaining budget is wasted work
+            # and would write past the admission reservation
+            budget = req.max_new_tokens - len(req.out_tokens)
+            want = min(K - 1, budget - 1, k_cap - 1)
+            if want > 0 and kind is not None \
+                    and (not sampled or self.spec_sampled):
+                prop = self._proposers[kind]
+                attempted[s] = (klass, kind)
+                draft, qs = (), []
+                t0 = self.metrics.now()
+                try:
+                    if sampled and isinstance(prop, DraftModelProposer):
+                        draft, qs = prop.propose_sampled(
+                            req.rid, req.full_ids, want, req.sampling,
+                            req._rng)
+                    else:
+                        # a point-mass proposal (qs=[] says so)
+                        draft = prop.propose(req.rid, req.full_ids, want)
+                except Exception as exc:
+                    draft, qs = (), []
+                    self._on_draft_fault(s, req, prop, exc)
+                finally:
+                    dt = self.metrics.now() - t0
+                    self._spec["draft_s"] += dt
+                    self.metrics.on_draft(dt)
+                if len(draft):
+                    toks[s, 1:1 + len(draft)] = draft
+                    n = 1 + len(draft)
+                    row_kind[s] = kind
+                    if sampled:
+                        row_draft[s], row_qs[s] = draft, qs
+                    self._spec["draft_tokens"] += len(draft)
+            wlen[s] = n
+        if self.spec_gate and all(int(wlen[s]) == 1 for s in active):
+            # no row drafted: the k=1 decode emits the same tokens (the
+            # same logits row, the same per-request RNG stream) at 1/k
+            # of the verify's work; no page state was touched yet
+            n_rows = len(active)
+            self._decode(active, finished)
+            self._spec["gated_steps"] += 1
+            self._spec["rows"] += n_rows
+            self._spec["emitted"] += n_rows
+            self._spec["acc_len_hist"][1] += n_rows
+            # rows that tried to draft and came back empty read as
+            # accepted length 1 to the tuner
+            self._tuner_step(attempted, {s: 1 for s in attempted})
+            return
+        copies = []
+        try:
+            if self.paged:
+                for s in active:
+                    copies += self.cache.ensure_decode_range(
+                        s, self.cache.slots[s].next_pos, int(wlen[s]))
+                self._run_copies(copies)
+            logits, greedy, acc = self._verify(active, toks, pos, wlen)
+        except Exception:
+            # nothing was emitted, but ensure_decode_range claimed every
+            # page the k-wide window touches: return those past each
+            # row's next write position before re-raising
+            if self.paged:
+                for s in active:
+                    req = self.cache.slots[s]
+                    if req is not None:
+                        self.cache.rollback_speculation(s, req.next_pos)
+            raise
+        emitted_by_slot = {}
+        try:
+            for s in active:
+                req = self.cache.slots[s]
+                emitted = self._emit_verified(
+                    s, req, greedy[s], int(acc[s]), logits[s],
+                    draft=row_draft.get(s), qs=row_qs.get(s))
+                emitted_by_slot[s] = emitted
+                self._spec["rows"] += 1
+                self._spec["emitted"] += emitted
+                self._spec["accepted_draft_tokens"] += emitted - 1
+                self._spec["acc_len_hist"][min(emitted, K)] += 1
+                if self.paged and not req.finished:
+                    # pages past the next write position hold only
+                    # rejected drafts (a finished row releases all)
+                    self.cache.rollback_speculation(s, req.next_pos)
+                if req.finished:
+                    self._evict(s, req, finished)
+        except Exception:
+            # rows not yet emitted hold over-claimed pages: the same
+            # debt as above (tokens already appended stay appended)
+            if self.paged:
+                for s in active:
+                    req = self.cache.slots[s]
+                    if req is not None and not req.finished:
+                        self.cache.rollback_speculation(s, req.next_pos)
+            raise
+        self._spec["steps"] += 1
+        # every attempted row's accepted length (an empty draft is 1)
+        self._tuner_step(attempted, {s: emitted_by_slot.get(s, 1)
+                                     for s in attempted})
+
+    def _verify(self, active, toks: np.ndarray, pos: np.ndarray,
+                wlen: np.ndarray):
+        """The k-wide verify forward (reference ``_verify_fn``, run
+        eagerly): every row advances up to k tokens at its own position,
+        token ``j`` writing only when ``j < wlen``; the norms, linears
+        and LM head run one position at a time (``per_position``), the
+        attention over the whole block. Inactive rows are
+        pinned to position 0, write length 0 and (paged) trash page 0,
+        and their logits are zeroed. On the device: the argmax at every
+        position, and the accepted length, 1 plus the leading run of
+        drafts equal to the argmax one position earlier (a cumprod).
+        Returns host (logits [S, k, vocab] f32, greedy [S, k],
+        accepted [S]); one copy of the logits and one of greedy and
+        accepted a step."""
+        ad = self.adapter
+        dev = ad.device
+        K = toks.shape[1]
+        act = np.zeros((self.max_slots,), bool)
+        act[active] = True
+        pos_dev = torch.from_numpy(np.where(act, pos, 0)).to(dev)
+        wl_dev = torch.from_numpy(np.where(act, wlen, 0)).to(dev)
+        toks_dev = torch.from_numpy(toks).to(dev)
+        if self.paged:
+            table = np.zeros_like(self.cache.page_table)
+            table[active] = self.cache.page_table[active]
+            caches = [c + (wl_dev,)
+                      for c in self._paged_caches(table, pos_dev)]
+        else:
+            caches = [(k, v, pos_dev, wl_dev)
+                      for k, v in zip(self.cache.ks, self.cache.vs)]
+        # one position at a time through the norms, linears and the LM
+        # head: each position then has the bits of the k=1 decode's
+        # [S, 1] step, so greedy acceptance gives its tokens
+        h, _ = ad.call(toks_dev, caches, positionwise=True)
+        act_dev = torch.from_numpy(act).to(dev)
+        logits = torch.where(act_dev[:, None, None],
+                             per_position(ad.head, h).float(),
+                             0.0)                         # [S, k, vocab]
+        g = logits.argmax(dim=-1)                         # [S, k]
+        ok = (toks_dev[:, 1:] == g[:, :-1]) & (
+            torch.arange(1, K, device=dev)[None, :] < wl_dev[:, None])
+        acc = 1 + torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        acc = torch.where(act_dev, acc, 0)
+        ga = torch.cat([g, acc[:, None]], dim=1).cpu().numpy()
+        return logits.cpu().numpy(), ga[:, :K], ga[:, K]
+
+    def _emit_verified(self, slot: int, req: Request,
+                       greedy_row: np.ndarray, acc: int,
+                       logits_row: np.ndarray, draft=None,
+                       qs=None) -> int:
+        """Apply one row's verify result; returns the tokens emitted.
+        Greedy rows: the first ``acc`` argmax tokens, stopping AT an EOS
+        as sequential decode does. Undrafted sampled rows: one token
+        sampled from position 0, on the request's RNG stream, as the k=1
+        decode samples it. Drafted sampled rows (``spec_sampled``):
+        rejection sampling: draft j is accepted with probability
+        min(1, p_j(t) / q_j(t)), p_j the target's ``sampling_dist`` at
+        that position and q_j the draft's (a point mass for n-gram
+        drafts); the first rejection emits one token from the
+        normalized residual max(p - q, 0) and drops the rest; if every
+        draft survives, a bonus token is sampled from the position
+        after the draft. Each emitted token is then distributed as
+        sequential sampling from p (Leviathan et al.)."""
+        if req.sampling.temperature > 0:
+            sp, rng = req.sampling, req._rng
+            if draft is None or len(draft) == 0:
+                tok = sample_token(logits_row[0], sp, rng)
+                req.out_tokens.append(tok)
+                self.metrics.on_token(req.rid)
+                self._is_finished(req, tok)
+                return 1
+            emitted = 0
+            for j in range(len(draft)):
+                t = int(draft[j])
+                p = sampling_dist(logits_row[j], sp)
+                pt = float(p[t])
+                qt = float(qs[j][t]) if qs else 1.0
+                if qt > 0.0 and pt > 0.0 \
+                        and float(rng.uniform()) < min(1.0, pt / qt):
+                    req.out_tokens.append(t)
+                    self.metrics.on_token(req.rid)
+                    emitted += 1
+                    if self._is_finished(req, t):
+                        return emitted
+                    continue
+                # first rejection: one corrective token from the residual
+                if qs:
+                    res = np.maximum(p - qs[j], 0.0)
+                else:
+                    res = p.copy()
+                    res[t] = 0.0
+                tot = res.sum()
+                # q >= p everywhere: the rejection had measure zero
+                res = p if tot <= 0.0 else res / tot
+                tok = int(rng.choice(res.size, p=res))
+                req.out_tokens.append(tok)
+                self.metrics.on_token(req.rid)
+                emitted += 1
+                self._spec["resamples"] += 1
+                self._is_finished(req, tok)
+                return emitted
+            # every draft accepted: the verify computed the next
+            # position's logits too, the bonus token
+            tok = sample_token(logits_row[len(draft)], sp, rng)
+            req.out_tokens.append(tok)
+            self.metrics.on_token(req.rid)
+            emitted += 1
+            self._is_finished(req, tok)
+            return emitted
+        emitted = 0
+        for j in range(acc):
+            tok = int(greedy_row[j])
+            req.out_tokens.append(tok)
+            self.metrics.on_token(req.rid)
+            emitted += 1
+            if self._is_finished(req, tok):
+                break              # accepted tokens past an EOS never show
+        return emitted
+
+    def _on_draft_fault(self, slot: int, req: Request, proposer,
+                        exc: Exception) -> None:
+        """Contain a failed draft proposal to its row for this step: the
+        row falls back to k=1. A draft model's failure may have come
+        part-way through its in-place pool writes, so that proposer is
+        reset whole (its pools are allocated again); the n-gram
+        proposer's index is derived from confirmed history, so the rid
+        is unwound. ``draft_faults`` counts it."""
+        if isinstance(proposer, DraftModelProposer):
+            proposer.reset()
+        else:
+            proposer.unwind(req.rid)
+        self._spec["draft_faults"] += 1
+
+    def _tuner_step(self, attempted: dict, accepted: dict) -> None:
+        """Feed one step's accepted lengths to the tuner and advance its
+        clock (no-op without ``spec_tune``)."""
+        if self._tuner is None:
+            return
+        for s, (klass, kind) in attempted.items():
+            self._tuner.observe(klass, kind, accepted.get(s, 1))
+        self._tuner.on_step()
+
     # -- bookkeeping ---------------------------------------------------
     def _is_finished(self, req: Request, tok: int) -> bool:
         if self.eos_id is not None and tok == self.eos_id:
@@ -604,6 +988,7 @@ class ServingEngine:
         req.slot = None
         finished.append(req)
         self.metrics.on_finished(req.rid)
+        self._proposer_release(req.rid)
 
     @staticmethod
     def _cancel(req: Request, reason: str,

@@ -1,5 +1,6 @@
 """Per-engine serving metrics: tokens/s, TTFT, queue wait, per-token
-latency percentiles, slot occupancy, steps.
+latency percentiles, slot occupancy, steps, and the draft
+proposals' seconds of a speculative engine.
 
 Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``
 without the bridge to the observability registry (that comes with the
@@ -43,6 +44,7 @@ class EngineMetrics:
         self._ttft: deque = deque(maxlen=window)
         self._qwait: deque = deque(maxlen=window)
         self._gaps: deque = deque(maxlen=window)
+        self._draft: deque = deque(maxlen=window)
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
 
@@ -74,6 +76,11 @@ class EngineMetrics:
         self._n_tokens += 1
         self._t_last = t
 
+    def on_draft(self, wait_s: float) -> None:
+        """One row's draft proposal completed (or failed): its wall
+        time, the cost side of speculation (``spec_draft_s``)."""
+        self._draft.append(wait_s)
+
     def on_step(self, active_slots: int) -> None:
         self._n_steps += 1
         self._occ_sum += active_slots
@@ -100,6 +107,7 @@ class EngineMetrics:
             "queue_wait_p99_s": pct(self._qwait, 99),
             "tok_latency_p50_s": pct(self._gaps, 50),
             "tok_latency_p99_s": pct(self._gaps, 99),
+            "spec_draft_s": float(sum(self._draft)),
             "occupancy_mean": (self._occ_sum / self._n_steps
                                / self.max_slots
                                if self._n_steps else 0.0),

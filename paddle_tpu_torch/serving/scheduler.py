@@ -71,6 +71,12 @@ class Request:
     def output_ids(self) -> List[int]:
         return list(self.out_tokens)
 
+    @property
+    def full_ids(self) -> np.ndarray:
+        """Prompt and generated tokens (what a draft proposer reads)."""
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out_tokens, np.int64)])
+
     # position the NEXT decode step writes at: the last generated
     # token's k/v goes in right after the prompt + earlier outputs
     @property
@@ -94,6 +100,11 @@ class FIFOScheduler:
     @property
     def depth(self) -> int:
         return len(self._queue)
+
+    def pending(self) -> List[Request]:
+        """The waiting queue in FCFS order (what the no-leak audit
+        reads)."""
+        return list(self._queue)
 
     def admissions(self, free_slots: List[int], claim=None,
                    unclaim=None) -> List[Tuple[int, Request]]:

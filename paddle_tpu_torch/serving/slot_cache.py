@@ -33,10 +33,12 @@ zero probability, and uninitialised memory may hold NaN bit patterns,
 which would turn ``0 * NaN`` into NaN outputs.
 
 The pools are ``torch.Tensor``s that the engine's programs update in
-place; page tables, refcounts and the index stay on the host. The host
-KV tier (``tier``, demotion and promotion) comes with the KV-tiering
-slice and the speculative page rollback with the speculative-decoding
-slice; neither is here.
+place; page tables, refcounts and the index stay on the host. A
+speculative verify step claims every page its k-wide write window
+touches (``ensure_decode_range``) and returns those past the accepted
+tokens afterwards (``rollback_speculation``), inside the admission
+reservation. The host KV tier (``tier``, demotion and promotion) comes
+with the KV-tiering slice and is not here.
 """
 from __future__ import annotations
 
@@ -496,6 +498,48 @@ class PagedKVCache(_SlotTable):
             self.cow_copies += 1
             return (page, dst)
         return None
+
+    def ensure_decode_range(self, slot: int, pos: int,
+                            n: int) -> List[Tuple[int, int]]:
+        """Make positions ``pos .. pos + n - 1`` writable for a
+        speculative verify step: every page the range touches is
+        allocated (or COW'd if shared) as :meth:`ensure_decode_page`
+        does for the k=1 position. Returns the (src, dst) device copies
+        to run before the step. The engine clamps ``n`` to the tokens
+        the request may still emit, so the range stays inside the
+        admission reservation."""
+        copies: List[Tuple[int, int]] = []
+        P = self.page_size
+        for idx in range(pos // P, (pos + n - 1) // P + 1):
+            c = self.ensure_decode_page(slot, max(pos, idx * P))
+            if c is not None:
+                copies.append(c)
+        return copies
+
+    def rollback_speculation(self, slot: int,
+                             next_write_pos: int) -> int:
+        """Return the pages a verify step allocated beyond what the
+        accepted tokens need: every row page past the page holding
+        ``next_write_pos`` goes back to the pool and its reservation
+        budget is restored. Those pages can only hold rejected-draft
+        k/v: shared and indexed prompt pages all lie at or below the
+        next write position (matching stops at prompt_len - 1 <=
+        next_write_pos). Returns the number of pages returned."""
+        req = self.slots[slot]
+        row = self.page_table[slot]
+        plan = self._plans.get(req.rid) if req is not None else None
+        freed = 0
+        for j in range(next_write_pos // self.page_size + 1,
+                       self.pages_per_slot):
+            page = int(row[j])
+            if page:
+                row[j] = 0
+                self._unref(page)
+                freed += 1
+        if freed and plan is not None:
+            plan["allocated"] -= freed
+            self._committed += freed
+        return freed
 
     def release(self, slot: int) -> None:
         """Free the slot lease AND its pages: every referenced page drops

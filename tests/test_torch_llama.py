@@ -197,8 +197,3 @@ def test_later_slice_flavours_raise():
     cfg = port_llama.llama_tiny_config()
     with pytest.raises(NotImplementedError):
         port_llama.LlamaForCausalLM(cfg, use_tp=True, device="cpu")
-    model = port_llama.LlamaForCausalLM(cfg, device="cpu")
-    attn = model.llama.layers[0].self_attn
-    x = torch.zeros(1, 1, cfg.hidden_size)
-    with pytest.raises(NotImplementedError):
-        attn(x, cache=(None,) * 7)

@@ -205,26 +205,13 @@ def test_model_needs_cuda_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(admission_lookahead=2),
-                                dict(speculative=True), dict(mesh=object()),
+                                dict(registry=object()), dict(mesh=object()),
                                 dict(prefill_chunk=16),
                                 dict(kv_host_tier=True),
                                 dict(cancel_probe=lambda r: False)])
 def test_later_slice_arguments_raise(port_model, kw):
     with pytest.raises(NotImplementedError):
         ServingEngine(port_model, **kw)
-
-
-def test_paged_verify_cache_raises(port_model):
-    """The paged 7-tuple (per-row write lengths: the speculative verify)
-    comes with the speculative-decoding slice."""
-    cfg = port_model.config
-    attn = port_model.llama.layers[0].self_attn
-    shape = (3, 8, cfg.kv_heads, cfg.head_dim)
-    pools = [torch.zeros(shape) for _ in range(2)]
-    cache = (*pools, None, None, torch.zeros(1, 2, dtype=torch.long),
-             torch.zeros(1, dtype=torch.long), torch.ones(1))
-    with pytest.raises(NotImplementedError, match="speculative"):
-        attn(torch.zeros(1, 1, cfg.hidden_size), cache=cache)
 
 
 def test_reference_defaults_and_unknown_arguments(port_model):
