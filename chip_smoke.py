@@ -177,7 +177,7 @@ no result):
              each held to the k=1 engine of its layout (serve, 6a, 6b)
              by the identity rule: the same tokens, or else, with the
              k=1 tokens fed to the verify as its drafts (teacher
-             forcing), its argmax agrees at >= SPEC_AGREE_MIN of the
+             forcing), its argmax agrees at >= IDENTITY_AGREE_MIN of the
              positions and the k=1 token's logit lies within one bf16
              step of the maximum at every split, with the products whose
              bits differ between the verify's M = 64 and the decode's
@@ -203,15 +203,62 @@ no result):
              (temperature 0.8, top_k 8) through the self-draft
              spec_sampled engine against k=1, its TV beside that of two
              k=1 bands with disjoint seeds.
-6g. serve-int4 — serve's 16 requests through ServingEngine(
+6g. serve-chunked — bench_serving_engine.py --chunked-prefill at its
+             full-width settings (:1971-1975): 16 slots, max_len 512,
+             min_bucket 32, chunk 64, page 128, prefix sharing off;
+             short prompts of 24 and 48 tokens x 64 new, long prompts of
+             420 and 480 tokens x 4 new arriving at step 3
+             (RandomState(0), ids 1-99), every prompt to 2 tokens first
+             (warm). The unchunked and the prefill_chunk=64 engine on the
+             paged layout, the same pair on paged int8 and contiguous,
+             and a paged prefill_chunk=64 engine with a
+             ChunkBudgetController; each chunked run held to its layout's
+             unchunked run by the identity rule (as 6d, teacher forcing
+             through the sampler), every request by length, row 1
+             exactly layers x monolithic prefills and never inside a
+             chunk, no other kernel, nothing leaked. CHUNKED_PREFILL's
+             fields (the compile counts replaced by the chunk lengths run
+             beside prefill_buckets(32, 512)); the reference's >= 3x
+             stall bar printed, not gated; a burst of 12 long prompts
+             queued at once through a ChunkBudgetController engine,
+             which must raise its budget and run several chunks a step,
+             held by the identity rule to the burst through the chunk-64
+             engine without one; one decode step, one step with a chunk
+             and one with the whole 480-token prefill under the
+             profiler.
+6h. serve-recover — serve's 16 requests on the paged and the contiguous
+             layout with serving.step.prefill injected at the 4th
+             admission and serving.step.decode at the 21st decode step;
+             serve's trace on the paged layout with serving.step.decode
+             at the 151st decode step (150 decode forwards replayed);
+             the prefix-share trace's first 16 prompts on the paged
+             layout with prefix sharing and serve's two faults, where
+             the second recover() finds the pages two requests shared
+             gone with the requests that wrote them (reroutes [0, 2]
+             gated); and the chunked trace on a paged prefill_chunk=64
+             engine with serving.prefill.chunk at a mid-prompt chunk;
+             recover() after each fault (no other exception caught).
+             Each run: a
+             ConservationLedger auditor, a FlightRecorder dumping into a
+             temporary directory, ptpu_serving_recoveries_total equal to
+             the faults fired and to the dumps holding a
+             serving.step_error record, no ledger, engine or page
+             violation, row 1 exactly layers x monolithic prefills
+             (re-prefills included), and the identity rule against the
+             fault-free run of the same layout (serve, 6a, 6g; the
+             prefix trace's is run here); each recover report (recovered
+             slots, replay mismatches, reroutes, the longest delivered
+             output, latency) with the device memory before and the peak
+             across it.
+6i. serve-int4 — serve's 16 requests through ServingEngine(
              weight_only_int4(model, group=128)): int4_matmul exactly
              113 launches (16 layers x 7 linears + lm_head) per model
              call, one call per prefill and decode step; flash 16 x 16;
              tokens/s, TTFT, weight bytes against bf16's.
-6h. check-int4 — as check, for the int4 engine; the int4 prefill logits
+6j. check-int4 — as check, for the int4 engine; the int4 prefill logits
              through the kernel against the plain route within
              INT4_ROUTE_TOL; last-logit parity against bf16 (printed).
-6i. decode — bench_llama_decode.py's phases: generate() at a 64-token
+6k. decode — bench_llama_decode.py's phases: generate() at a 64-token
              prompt and 128 new tokens, batch 1 and 8, in bf16,
              weight_only_int8 and weight_only_int4, launches asserted
              (113 int4_matmul or 113 quantize_rows a model call), the
@@ -300,6 +347,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -374,14 +422,23 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the serving engine's spans: torch.profiler ranges that the trace also
+# reports on the device, around kernels it counts already
+SPAN_NAMES = ("serving.step", "serving.prefill", "serving.chunk_prefill",
+              "serving.decode", "serving.verify")
+
+
 def device_events(prof):
     """The trace's kernels (and copies) on the device; CPU-side ops
-    also carry the device time of what they launched, so summing them
-    too would count it twice."""
+    also carry the device time of what they launched, and user ranges
+    (the engine's spans) the time of the kernels inside them, so
+    summing them too would count it twice."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in SPAN_NAMES]
 
 
 def traced(torch, setup, with_cpu: bool = False, calls: int = 0):
@@ -2448,8 +2505,8 @@ def phase_serve_prefix(torch, np, model):
                            max_len=MAX_LEN, min_bucket=MIN_BUCKET)
     raw = contig._prefill_raw
 
-    def keep_raw(slot, ids):
-        out = raw(slot, ids)
+    def keep_raw(slot, ids, req, **kw):
+        out = raw(slot, ids, req, **kw)
         prefill_logits[ids.tobytes()] = out
         return out
     contig._prefill_raw = keep_raw
@@ -2471,18 +2528,16 @@ def phase_serve_prefix(torch, np, model):
                             max_len=MAX_LEN, min_bucket=MIN_BUCKET,
                             page_size=PAGE, num_pages=n_pages,
                             kv_dtype=quant, prefix_sharing=True)
-        extend_logits, extends = {}, [0]
-        prefill, extend = eng._prefill_paged, eng._extend
+        extend_logits = {}
+        prefill = eng._prefill_raw
 
-        def keep_paged(slot, req, prefill=prefill, store=extend_logits):
-            out = prefill(slot, req)
+        def keep_paged(slot, ids, req, prefill=prefill, store=extend_logits,
+                       **kw):
+            out = prefill(slot, ids, req, **kw)
             store[req.rid] = out
             return out
-
-        def count_extend(*a, extend=extend, n=extends):
-            n[0] += 1
-            return extend(*a)
-        eng._prefill_paged, eng._extend = keep_paged, count_extend
+        eng._prefill_raw = keep_paged
+        extends = count_calls(eng, "_extend")
         run = prefix_burst(torch, np, eng, prompts,
                            warm=[np.concatenate([s, s[:1]])
                                  for s in systems])
@@ -2579,13 +2634,90 @@ def phase_serve_prefix(torch, np, model):
             for name in res}
 
 
+# -- the identity rule (the speculative, chunked and recover phases) ---------
+# a run whose tokens are not its base run's passes when, fed the base
+# run's tokens (teacher forcing), its argmax picks them at this share of
+# positions or more, and at every split the base token's logit lies
+# within one bf16 step of the maximum
+IDENTITY_AGREE_MIN = 0.99
+
+
+def split_gap(row, tok: int):
+    """(the row's max logit less ``tok``'s, one bf16 step at the row's
+    largest magnitude)."""
+    import numpy as np
+    step = 2.0 ** (math.floor(math.log2(float(np.abs(row).max()))) - 7)
+    return float(row.max() - row[tok]), step
+
+
+def identity_rule(name, reqs, base_reqs, forced, suffix="") -> dict:
+    """The identity rule: ``reqs``' greedy tokens equal ``base_reqs``'
+    (held by "tokens"), or else ``forced()`` (the run again, fed the base
+    tokens, returning (agreement, [(gap, bf16 step)] at each split))
+    gives an agreement >= IDENTITY_AGREE_MIN and every gap within its
+    step (held by "near-ties"); raises otherwise. Returns the row
+    printed, with which of the two held."""
+    same = sum(a.output_ids == b.output_ids for a, b in zip(reqs, base_reqs))
+    row = {"token_identical": same == len(reqs), "requests_identical": same,
+           f"greedy_agreement{suffix}": agreement(reqs, base_reqs),
+           "identity_held_by": "tokens"}
+    if same == len(reqs):
+        return row
+    agree, gaps = forced()
+    row.update({f"forced_agreement{suffix}": agree,
+                "agree_min": IDENTITY_AGREE_MIN, "split_gaps": gaps[:8],
+                "splits": len(gaps), "identity_held_by": "near-ties"})
+    if agree < IDENTITY_AGREE_MIN or any(g > s for g, s in gaps):
+        raise AssertionError(
+            f"{name}: {len(reqs) - same} requests' tokens differ from the "
+            f"base run's; teacher-forced agreement {agree} (min "
+            f"{IDENTITY_AGREE_MIN}), split gaps {gaps[:8]}")
+    return row
+
+
+class teacher_forcing:
+    """While entered, the engine's sampler returns the base run's tokens
+    (``base``: token lists in submission order; the driver calls
+    ``track(req)`` on each request it submits, in that order) and records
+    whether each position's argmax was that token, and at a split its
+    gap (``split_gap``). Untracked requests sample as usual."""
+
+    def __init__(self, base):
+        self.base = [list(b) for b in base]
+        self.want = {}
+        self.hits, self.gaps = [], []
+
+    def track(self, req) -> None:
+        # every request has its own SamplingParams: it names the request
+        self.want[id(req.sampling)] = (req, self.base[len(self.want)])
+
+    def __enter__(self):
+        from paddle_tpu_torch.serving import engine as engine_mod
+        self._mod, self._sample = engine_mod, engine_mod.sample_token
+        engine_mod.sample_token = self._forced
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sample_token = self._sample
+
+    def _forced(self, logits, params, rng):
+        import numpy as np
+        got = self.want.get(id(params))
+        if got is None:
+            return self._sample(logits, params, rng)
+        req, toks = got
+        tok = toks[len(req.out_tokens)]
+        self.hits.append(int(np.argmax(logits)) == tok)
+        if not self.hits[-1]:
+            self.gaps.append(split_gap(logits, tok))
+        return tok
+
+    def result(self):
+        return sum(self.hits) / len(self.hits), self.gaps
+
+
 # -- speculative decoding (ServingEngine(speculative=True)) ------------------
 SPEC_K = 4
-# the identity rule where the verify's tokens are not the k=1 decode's:
-# the verify fed the k=1 tokens as drafts (teacher forcing) must pick
-# the k=1 token at this share of positions or more, and at every split
-# the k=1 token's logit must lie within one bf16 step of the maximum
-SPEC_AGREE_MIN = 0.99
 # bench_serving_engine.py --speculative at full width (:2031-2034)
 NGRAM_REQS, NGRAM_NEW = 64, 64
 # --spec-v2 at full width (:2042-2045): 48 requests cut to 16 and the
@@ -2673,9 +2805,7 @@ def spec_forced(torch, np, model, prompts, base_reqs, **engine_kw):
             tok = ref[n + j]
             hits.append(int(greedy_row[j]) == tok)
             if not hits[-1]:
-                row = logits_row[j]
-                step = 2.0 ** (math.floor(math.log2(np.abs(row).max())) - 7)
-                gaps.append((float(row.max() - row[tok]), step))
+                gaps.append(split_gap(logits_row[j], tok))
             req.out_tokens.append(tok)
             eng.metrics.on_token(req.rid)
             if eng._is_finished(req, tok):
@@ -2690,26 +2820,20 @@ def spec_forced(torch, np, model, prompts, base_reqs, **engine_kw):
 
 def spec_identity(torch, np, model, name, prompts, base_reqs, reqs,
                   products, **engine_kw) -> dict:
-    """The identity rule (SPEC_AGREE_MIN): the speculative run's tokens
-    equal the k=1 run's of the same layout, or else the teacher-forced
-    agreement and the gaps at its splits pass; raises otherwise."""
-    same = sum(a.output_ids == b.output_ids for a, b in zip(reqs, base_reqs))
-    row = {"token_identical": same == len(reqs), "requests_identical": same,
-           "greedy_agreement_vs_k1": agreement(reqs, base_reqs)}
-    if same == len(reqs):
-        return row
-    agree, gaps = spec_forced(torch, np, model, prompts, base_reqs,
-                              **engine_kw)
+    """The identity rule against the k=1 run of the same layout, teacher
+    forcing through the verify's drafts (``spec_forced``); at a split,
+    the products whose bits differ between the verify's M = 64 and the
+    decode's M = 16 (``verify_products``) are named."""
     differ = [k for k, v in products.items() if not v]
-    row.update(forced_agreement_vs_k1=agree, agree_min=SPEC_AGREE_MIN,
-               split_gaps=gaps[:8], splits=len(gaps),
-               products_with_other_bits=differ)
-    if agree < SPEC_AGREE_MIN or any(g > s for g, s in gaps):
-        raise AssertionError(
-            f"{name}: {len(reqs) - same} requests' tokens differ from the "
-            f"k=1 engine's; teacher-forced agreement {agree} (min "
-            f"{SPEC_AGREE_MIN}), split gaps {gaps[:8]}; products whose "
-            f"bits differ at M=64 vs 16: {differ}")
+    try:
+        row = identity_rule(name, reqs, base_reqs, lambda: spec_forced(
+            torch, np, model, prompts, base_reqs, **engine_kw),
+            suffix="_vs_k1")
+    except AssertionError as e:
+        raise AssertionError(f"{e}; products whose bits differ at M=64 vs "
+                             f"16: {differ}") from None
+    if not row["token_identical"]:
+        row["products_with_other_bits"] = differ
     return row
 
 
@@ -2995,6 +3119,553 @@ def phase_serve_spec_draft(torch, np, model, products):
           "phase_s": time.perf_counter() - t0})
     return {k: {"flash_attention_fwd": r["launches"]["flash_attention_fwd"]}
             for k, r in runs.items()}
+
+
+def count_calls(engine, method: str) -> list:
+    """Wrap ``engine.<method>`` on the instance; returns a one-item list
+    that counts its calls."""
+    n = [0]
+    fn = getattr(engine, method)
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return fn(*a, **kw)
+    setattr(engine, method, counted)
+    return n
+
+
+def served_by_length(name, reqs, news) -> None:
+    for r, n in zip(reqs, news):
+        if not (r.finished and r.finish_reason == "length"
+                and len(r.output_ids) == n):
+            raise AssertionError(
+                f"{name}: request {r.rid}: {r.finish_reason}, "
+                f"{len(r.output_ids)} of {n} tokens")
+
+
+def quiesced(name, engine, ledger=None) -> None:
+    """No leaked slot, queue entry, chunk or proposer state, no leaked
+    page, and (with an auditor) every request delivered exactly once."""
+    from paddle_tpu_torch.resilience import engine_leak_violations
+    bad = engine_leak_violations(engine)
+    if ledger is not None:
+        bad += ledger.violations()
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
+    no_leaks(engine, name)
+
+
+# -- chunked prefill (ServingEngine(prefill_chunk=...)) ----------------------
+# bench_serving_engine.py --chunked-prefill at full width (:1971-1975):
+# 16 slots, max_len 512, min_bucket 32, chunk 64, page 128; short
+# prompts of 24 and 48 tokens x 64 new, long prompts of 420 and 480
+# tokens x 4 new arriving at step 3; prefix sharing off
+CP_CHUNK = 64
+CP_SHORT_LENS, CP_SHORT_NEW = (24, 48), 64
+CP_LONG_LENS, CP_LONG_NEW = (420, 480), 4
+CP_ARRIVAL = 3
+CP_STALL_BAR = 3.0               # the reference's bar, printed, not gated
+CP_LAYOUTS = {"paged": {}, "paged-int8": dict(kv_dtype="int8"),
+              "contiguous": dict(kv_layout="contiguous")}
+
+
+def cp_trace(np):
+    """run_chunked_prefill's prompts (RandomState(0), ids 1-99)."""
+    rng = np.random.RandomState(0)
+    shorts = [rng.randint(1, 100, (L,)).astype(np.int64)
+              for L in CP_SHORT_LENS]
+    longs = [rng.randint(1, 100, (L,)).astype(np.int64)
+             for L in CP_LONG_LENS]
+    return shorts, longs
+
+
+def cp_engine(model, **kw):
+    """An engine of the chunked trace's shape, with its own registry."""
+    from paddle_tpu_torch.observability import MetricRegistry
+    from paddle_tpu_torch.serving import ServingEngine
+    if kw.get("kv_layout") != "contiguous":
+        kw = dict(page_size=PAGE, prefix_sharing=False, **kw)
+    kw.setdefault("registry", MetricRegistry())
+    return ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                         min_bucket=MIN_BUCKET, **kw)
+
+
+def cp_drive(torch, model, shorts, longs, tf=None, **engine_kw):
+    """run_chunked_prefill's drive(): every prompt to 2 tokens first
+    (every path warm), then the shorts, the longs at step CP_ARRIVAL, on
+    the clock of the step calls (each step ends reading its logits to
+    the host); the max and p99 inter-token gap of the shorts. The launch
+    counts are set to 0 just before the trace and read just after; the
+    monolithic prefills (``_full_prefill``, the flash route) and the
+    chunks run are counted and timed (each ends reading its logits to
+    the host), with the flash launches inside chunks."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    eng = cp_engine(model, **engine_kw)
+    for p in shorts + longs:
+        eng.submit(p, max_new_tokens=2)
+    eng.run()
+    chunk_lens, chunk_flash, chunk_s, full_s = [], [0], [], []
+    run_chunk, full_prefill = eng._run_chunk, eng._full_prefill
+
+    def spied(slot, padded, pos, t):
+        f0 = flash_attention_fwd.launches
+        t0 = time.perf_counter()
+        out = run_chunk(slot, padded, pos, t)
+        chunk_s.append(time.perf_counter() - t0)
+        chunk_flash[0] += flash_attention_fwd.launches - f0
+        chunk_lens.append(int(padded.shape[1]))
+        return out
+
+    def timed(slot, padded, n):
+        t0 = time.perf_counter()
+        out = full_prefill(slot, padded, n)
+        full_s.append((int(padded.shape[1]), time.perf_counter() - t0))
+        return out
+    eng._run_chunk, eng._full_prefill = spied, timed
+
+    def submit(prompts, new):
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        for r in reqs if tf is not None else ():
+            tf.track(r)
+        return reqs
+    torch.cuda.synchronize()
+    reset_launches()
+    s_reqs = submit(shorts, CP_SHORT_NEW)
+    l_reqs = []
+    clock, steps, gaps = 0.0, 0, []
+    seen = {r.rid: (0, None) for r in s_reqs}
+    while eng.has_work():
+        if steps == CP_ARRIVAL:
+            l_reqs = submit(longs, CP_LONG_NEW)
+        w0 = time.perf_counter()
+        eng.step()
+        clock += time.perf_counter() - w0
+        steps += 1
+        for r in s_reqs:
+            n, t_last = seen[r.rid]
+            if len(r.out_tokens) > n:
+                if t_last is not None:
+                    gaps.append(clock - t_last)
+                seen[r.rid] = (len(r.out_tokens), clock)
+    torch.cuda.synchronize()
+    return {"engine": eng, "reqs": s_reqs + l_reqs, "steps": steps,
+            "gaps": gaps, "wall_s": clock, "launches": read_launches(),
+            "full_prefills": len(full_s), "chunk_steps": len(chunk_lens),
+            "chunk_lengths": sorted(set(chunk_lens)),
+            "chunk_flash": chunk_flash[0],
+            "chunk_ms_mean": 1e3 * sum(chunk_s) / max(1, len(chunk_s)),
+            "prefill_512_ms": [1e3 * t for b, t in full_s if b == MAX_LEN]}
+
+
+def cp_checked(name, run, layers) -> int:
+    """The chunked trace's gates: every request by length, row 1 exactly
+    layers x monolithic prefills and never inside a chunk, no other
+    kernel, nothing leaked. Returns the flash launches."""
+    served_by_length(name, run["reqs"],
+                     [CP_SHORT_NEW] * len(CP_SHORT_LENS)
+                     + [CP_LONG_NEW] * len(CP_LONG_LENS))
+    if run["chunk_flash"]:
+        raise AssertionError(f"{name}: {run['chunk_flash']} flash launches "
+                             f"inside chunk steps")
+    quiesced(name, run["engine"])
+    return flash_only(name, run["launches"], layers * run["full_prefills"])
+
+
+def cp_forced(torch, model, shorts, longs, base_reqs, **engine_kw):
+    """The chunked trace again, fed the base run's tokens."""
+    with teacher_forcing([r.output_ids for r in base_reqs]) as tf:
+        run = cp_drive(torch, model, shorts, longs, tf=tf, **engine_kw)
+    quiesced("teacher-forced chunked run", run["engine"])
+    return tf.result()
+
+
+# a burst of long prompts, all queued at once (CP_BURST of 420 and 480
+# tokens in turn x 4 new, RandomState(1), ids 1-99): 12 in the chunk FIFO
+# pass the ChunkBudgetController's raise_depth (6), so after its dwell
+# (8 steps) it raises the budget to 2 and then 4 chunks a step; held to
+# the same burst through the chunk-64 engine without a controller (the
+# same chunks, one a step)
+CP_BURST = 12
+
+
+def cp_burst(torch, model, prompts, tf=None, **engine_kw):
+    """Queue ``prompts`` at once on a paged prefill_chunk=64 engine and
+    serve them to the end; the chunks each step ran, and the launches."""
+    eng = cp_engine(model, prefill_chunk=CP_CHUNK, **engine_kw)
+    ran = count_calls(eng, "_run_chunk")
+    torch.cuda.synchronize()
+    reset_launches()
+    reqs = [eng.submit(p, max_new_tokens=CP_LONG_NEW) for p in prompts]
+    for r in reqs if tf is not None else ():
+        tf.track(r)
+    per_step = []
+    t0 = time.perf_counter()
+    while eng.has_work():
+        before = ran[0]
+        eng.step()
+        per_step.append(ran[0] - before)
+    torch.cuda.synchronize()
+    return {"engine": eng, "reqs": reqs, "steps": len(per_step),
+            "chunk_steps": ran[0], "most_chunks_a_step": max(per_step),
+            "wall_s": time.perf_counter() - t0, "launches": read_launches()}
+
+
+def cp_burst_checked(torch, np, model) -> dict:
+    """The controller's raised budget on the card: the burst through a
+    ChunkBudgetController engine, which must adapt and run more than one
+    chunk in a step, held by the identity rule to the burst without one;
+    every request by length, no monolithic prefill (row 1 never
+    launched), nothing leaked."""
+    from paddle_tpu_torch.observability import MetricRegistry
+    from paddle_tpu_torch.serving import ChunkBudgetController
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, 100, (CP_LONG_LENS[i % 2],)).astype(np.int64)
+               for i in range(CP_BURST)]
+
+    def ctl():
+        return ChunkBudgetController(registry=MetricRegistry())
+    runs = {"one_chunk": cp_burst(torch, model, prompts),
+            "controller": cp_burst(torch, model, prompts,
+                                   chunk_control=ctl())}
+    row = {}
+    for name, run in runs.items():
+        full = f"serve-chunked-burst {name}"
+        served_by_length(full, run["reqs"], [CP_LONG_NEW] * CP_BURST)
+        quiesced(full, run["engine"])
+        flash_only(full, run["launches"], 0)
+        row[name] = {k: run[k] for k in ("steps", "chunk_steps",
+                                         "most_chunks_a_step", "wall_s")}
+    snap = runs["controller"]["engine"].chunk_control.snapshot()
+    row["controller"]["controller"] = snap
+    if snap["adaptations"] < 1 or runs["controller"]["most_chunks_a_step"] < 2:
+        raise AssertionError(
+            f"serve-chunked-burst: the controller never raised the budget "
+            f"({snap}, at most {runs['controller']['most_chunks_a_step']} "
+            f"chunks a step)")
+
+    def forced():
+        with teacher_forcing([r.output_ids
+                              for r in runs["one_chunk"]["reqs"]]) as tf:
+            run = cp_burst(torch, model, prompts, tf=tf, chunk_control=ctl())
+        quiesced("teacher-forced burst", run["engine"])
+        return tf.result()
+    row.update(identity_rule("serve-chunked-burst",
+                             runs["controller"]["reqs"],
+                             runs["one_chunk"]["reqs"], forced))
+    row["requests"] = CP_BURST
+    return row
+
+
+CP_PROFILE_STEPS = 4
+
+
+def cp_profile(torch, model, shorts, longs) -> dict:
+    """Steps of each kind under the profiler, the shorts decoding in all
+    three: CP_PROFILE_STEPS plain decode steps, CP_PROFILE_STEPS steps
+    that each run one 64-token chunk of the 480-token prompt beside the
+    decode, and (unchunked) the one step that runs its whole prefill
+    beside the decode; ms a step."""
+    def busy(chunked):
+        eng = cp_engine(model, **(dict(prefill_chunk=CP_CHUNK)
+                                  if chunked else {}))
+        for p in shorts:
+            eng.submit(p, max_new_tokens=CP_SHORT_NEW)
+        while eng._chunk_fifo or not all(
+                r.out_tokens for r in eng.cache.slots if r is not None):
+            eng.step()
+        eng.step()
+        return eng
+
+    def steps(eng, n):
+        return lambda: [eng.step() for _ in range(n)]
+
+    def decode():
+        return steps(busy(True), CP_PROFILE_STEPS)
+
+    def chunk():
+        eng = busy(True)
+        eng.submit(longs[-1], max_new_tokens=CP_LONG_NEW)
+        eng.step()                      # admission and the first chunk
+        return steps(eng, CP_PROFILE_STEPS)   # a chunk and the decode each
+
+    def prefill():
+        eng = busy(False)
+        eng.submit(longs[-1], max_new_tokens=CP_LONG_NEW)
+        return steps(eng, 1)
+    out = {}
+    for name, setup, n in (("decode_step", decode, CP_PROFILE_STEPS),
+                           ("chunk_step", chunk, CP_PROFILE_STEPS),
+                           ("prefill_480_step", prefill, 1)):
+        wall, dev, top = profiled(torch, setup)
+        out[name] = {"steps": n, "wall_ms": wall * 1e3 / n,
+                     "device_ms": dev * 1e3 / n,
+                     "device_busy_share": dev / wall,
+                     "top_kernels_ms": [(k, ms / n) for k, ms in top[:4]]}
+    return out
+
+
+def phase_serve_chunked(torch, np, model):
+    """bench_serving_engine.py --chunked-prefill at full width: the
+    unchunked and the prefill_chunk=64 engine on the paged layout
+    (CHUNKED_PREFILL's fields), the same pair on paged int8 and
+    contiguous and a fifth, paged engine with a ChunkBudgetController,
+    each chunked run held to its layout's unchunked run by the identity
+    rule; a burst of long prompts through a controller engine, whose
+    raised budget runs several chunks a step; one decode, chunk and
+    whole-prefill step profiled."""
+    from paddle_tpu_torch.observability import MetricRegistry
+    from paddle_tpu_torch.serving import ChunkBudgetController, \
+        prefill_buckets
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    shorts, longs = cp_trace(np)
+    rows, launches, paged = {}, {}, {}
+    for layout, kw in CP_LAYOUTS.items():
+        name = f"serve-chunked-{layout}"
+        base = cp_drive(torch, model, shorts, longs, **kw)
+        ck = cp_drive(torch, model, shorts, longs, prefill_chunk=CP_CHUNK,
+                      **kw)
+        flash = {k: cp_checked(f"{name} {k}", r, layers)
+                 for k, r in (("unchunked", base), ("chunked", ck))}
+        del base["engine"], ck["engine"]
+        ident = identity_rule(name, ck["reqs"], base["reqs"], lambda: cp_forced(
+            torch, model, shorts, longs, base["reqs"],
+            prefill_chunk=CP_CHUNK, **kw))
+        launches[layout] = {"flash_attention_fwd": flash["chunked"]}
+        rows[layout] = {"flash_launches": flash, **ident,
+                        "max_decode_stall_s": {"unchunked": max(base["gaps"]),
+                                               "chunked": max(ck["gaps"])}}
+        if layout == "paged":
+            paged = {"base": base, "ck": ck}
+    base, ck = paged["base"], paged["ck"]
+    ctl_run = cp_drive(torch, model, shorts, longs, prefill_chunk=CP_CHUNK,
+                       chunk_control=ChunkBudgetController(
+                           registry=MetricRegistry()))
+    ctl = ctl_run["engine"].chunk_control.snapshot()
+    flash = cp_checked("serve-chunked-controller", ctl_run, layers)
+    del ctl_run["engine"]
+    launches["controller"] = {"flash_attention_fwd": flash}
+    rows["controller"] = {
+        "flash_launches": flash, "controller": ctl,
+        "max_decode_stall_s": max(ctl_run["gaps"]),
+        "steps": ctl_run["steps"], "chunk_steps": ctl_run["chunk_steps"],
+        **identity_rule("serve-chunked-controller", ctl_run["reqs"],
+                        base["reqs"], lambda: cp_forced(
+                            torch, model, shorts, longs, base["reqs"],
+                            prefill_chunk=CP_CHUNK,
+                            chunk_control=ChunkBudgetController(
+                                registry=MetricRegistry())))}
+    rows["burst"] = cp_burst_checked(torch, np, model)
+    launches["burst"] = {"flash_attention_fwd": 0}
+    stall_base, stall_ck = max(base["gaps"]), max(ck["gaps"])
+    reduction = stall_base / stall_ck
+    summary = {   # CHUNKED_PREFILL's fields, without the compile counts
+        "chunk": CP_CHUNK, "requests_short": len(shorts),
+        "requests_long": len(longs),
+        "long_prompt_lens": [int(p.shape[0]) for p in longs],
+        "max_decode_stall_s_unchunked": stall_base,
+        "max_decode_stall_s_chunked": stall_ck,
+        "stall_reduction": reduction,
+        "tok_latency_p99_s_unchunked": float(np.percentile(base["gaps"], 99)),
+        "tok_latency_p99_s_chunked": float(np.percentile(ck["gaps"], 99)),
+        "steps_unchunked": base["steps"], "steps_chunked": ck["steps"],
+        "chunk_steps": ck["chunk_steps"],
+        "token_identical": rows["paged"]["token_identical"],
+        "chunk_lengths_run": ck["chunk_lengths"],
+        "prefill_buckets": prefill_buckets(MIN_BUCKET, MAX_LEN)}
+    if not set(ck["chunk_lengths"]) <= set(summary["prefill_buckets"]):
+        raise AssertionError(f"serve-chunked: chunk lengths "
+                             f"{ck['chunk_lengths']} outside the buckets")
+    emit({"phase": "serve-chunked", "slots": SLOTS, "max_len": MAX_LEN,
+          "min_bucket": MIN_BUCKET, "page_size": PAGE,
+          "chunked_prefill": summary,
+          "reference_bar_cpu": {f"stall_reduction >= {CP_STALL_BAR}":
+                                reduction >= CP_STALL_BAR},
+          "wall_s": {"unchunked": base["wall_s"], "chunked": ck["wall_s"]},
+          "monolithic_prefills": {"unchunked": base["full_prefills"],
+                                  "chunked": ck["full_prefills"]},
+          "chunk_ms_mean": ck["chunk_ms_mean"],
+          "prefill_512_ms_unchunked": base["prefill_512_ms"],
+          **{f"layout_{k}": v for k, v in rows.items()},
+          "profile": cp_profile(torch, model, shorts, longs), "leaks": 0,
+          "phase_s": time.perf_counter() - t0})
+    return launches, ck["reqs"]
+
+
+# -- resilience: faults and recover() ----------------------------------------
+# serve's trace on each layout: serving.step.prefill at the 4th admission
+# of step 0 (3 requests in slots, 13 requeued) and serving.step.decode at
+# the 21st decode step, each followed by recover(); the chunked trace on
+# a paged prefill_chunk=64 engine: serving.prefill.chunk at its 5th chunk
+# (the 420-token prompt's 4th, at position 192)
+RC_SERVE_FAULTS = (("serving.step.prefill", 3), ("serving.step.decode", 20))
+RC_CHUNK_FAULTS = (("serving.prefill.chunk", 4),)
+# serve's trace on the paged layout with serving.step.decode at its 151st
+# decode step, where the four 160-token requests have delivered 151
+# tokens: recover() replays 150 decode forwards (its latency grows with
+# the longest delivered output)
+RC_LATE_FAULTS = (("serving.step.decode", 150),)
+# the prefix-share trace's first 16 prompts (prefix_trace: two 384-token
+# system prompts in turn, + 16 tokens) on the paged layout with prefix
+# sharing (the default), outputs 4, 4, then 16 and 32 in turn, and
+# serve's two faults: the prefill fault leaves requests 0-2 in slots
+# (2 sharing 0's three pages), which recover() writes again in admission
+# order, 2 matching 0 again (no reroute); at the decode fault (step 9)
+# requests 0 and 1, whose prefills wrote every shared page, have
+# finished, so 2 and 3 run their prompts whole (2 reroutes) and the
+# later requests share their pages again
+RC_PREFIX_NEWS = (4, 4) + (16, 32) * 7
+RC_PREFIX_FAULTS = (("serving.step.prefill", 3), ("serving.step.decode", 8))
+RC_PREFIX_REROUTES = [0, 2]
+
+
+def rc_drive(torch, model, arrivals, faults_at, tf=None, **engine_kw):
+    """Serve ``arrivals`` (step -> [(prompt, new tokens)]) with each of
+    ``faults_at`` ((point, hits to skip)) armed to fire once, calling
+    recover() after each injected fault, and nothing else caught. A
+    ConservationLedger audits the engine and a FlightRecorder dumps into
+    a temporary directory. Returns the requests, the recover reports
+    (with the peak device memory across each), the flash launches and
+    monolithic prefills, and the gates' numbers."""
+    import gc
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.observability import FlightRecorder, MetricRegistry
+    from paddle_tpu_torch.resilience import ConservationLedger, faults
+    from paddle_tpu_torch.serving import ServingEngine
+    # earlier runs' engines sit in reference cycles (count_calls wraps a
+    # bound method on its own instance): free their pools first, so the
+    # memory before a recover is this engine's
+    gc.collect()
+    dump_dir = tempfile.mkdtemp(prefix="ptpu_flight_")
+    led = ConservationLedger()
+    eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                        min_bucket=MIN_BUCKET, registry=MetricRegistry(),
+                        flight_recorder=FlightRecorder(dump_dir=dump_dir),
+                        auditor=led, **engine_kw)
+    full = count_calls(eng, "_full_prefill")
+    reqs, reports = [], []
+    faults.clear()
+    faults.reset_counts()
+    try:
+        for point, after in faults_at:
+            faults.inject(point, times=1, after=after)
+        torch.cuda.synchronize()
+        reset_launches()
+        for steps in itertools.count():
+            for p, n in arrivals.get(steps, ()):
+                reqs.append(eng.submit(p, max_new_tokens=n))
+                if tf is not None:
+                    tf.track(reqs[-1])
+            if not eng.has_work():
+                if steps >= max(arrivals):
+                    break
+                continue
+            try:
+                eng.step()
+            except faults.InjectedFault:
+                longest = max((len(r.out_tokens) for r in eng.cache.slots
+                               if r is not None and not r.finished),
+                              default=0)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                rep = eng.recover()
+                torch.cuda.synchronize()
+                reports.append({
+                    "reason": rep["reason"],
+                    "recovered_slots": rep["recovered_slots"],
+                    "replay_mismatches": rep["replay_mismatches"],
+                    "reroutes": rep["reroutes"],
+                    "handed_back": len(rep["finished"]),
+                    "longest_delivered": longest,
+                    "latency_s": rep["latency_s"],
+                    "mem_before_gib": before / 2**30,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated()
+                    / 2**30})
+        torch.cuda.synchronize()
+        launches = read_launches()
+        fired = sum(faults.fired().values())
+    finally:
+        faults.clear()
+    dumps = sorted(os.listdir(dump_dir))
+    errors = sum(any(r["kind"] == "serving.step_error" for r in json.load(
+        open(os.path.join(dump_dir, d)))["records"]) for d in dumps)
+    shutil.rmtree(dump_dir)
+    recoveries = eng.registry.get("ptpu_serving_recoveries_total").value
+    news = [r.max_new_tokens for r in reqs]
+    served_by_length("serve-recover", reqs, news)
+    quiesced("serve-recover", eng, led)
+    if not (fired == len(faults_at) == len(reports) == recoveries
+            == len(dumps) == errors):
+        raise AssertionError(
+            f"serve-recover: {len(faults_at)} faults armed, {fired} fired, "
+            f"{len(reports)} recovered, ptpu_serving_recoveries_total "
+            f"{recoveries}, {len(dumps)} flight-recorder dumps, {errors} "
+            f"with a serving.step_error record")
+    return {"reqs": reqs, "reports": reports, "launches": launches,
+            "full_prefills": full[0], "faults": fired,
+            "recoveries_total": recoveries, "dumps": len(dumps),
+            "kv_bytes": eng.cache.kv_bytes(), "ledger_violations": 0}
+
+
+def phase_serve_recover(torch, np, model, prompts, base_runs, chunked_base):
+    """serve's trace on the paged and contiguous layouts with a prefill
+    and a decode fault, and on the paged layout with a late decode fault;
+    the prefix-share trace's first 16 prompts with serve's two faults;
+    the chunked trace with a mid-prompt chunk fault; each recovered and
+    held to its fault-free run by the identity rule (``base_runs``:
+    layout -> serve's requests there; ``chunked_base``: serve-chunked's
+    paged chunk-64 requests; the prefix trace's is run here)."""
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
+    serve = {0: list(zip(prompts, news))}
+    shorts, longs = cp_trace(np)
+    chunked = {0: [(p, CP_SHORT_NEW) for p in shorts],
+               CP_ARRIVAL: [(p, CP_LONG_NEW) for p in longs]}
+    prefix = {0: list(zip(prefix_trace(np)[1][:SLOTS], RC_PREFIX_NEWS))}
+    prefix_base = rc_drive(torch, model, prefix, (), page_size=PAGE)
+    runs = {
+        "paged": (serve, RC_SERVE_FAULTS, dict(page_size=PAGE),
+                  base_runs["paged"]),
+        "contiguous": (serve, RC_SERVE_FAULTS,
+                       dict(kv_layout="contiguous"), base_runs["contiguous"]),
+        "paged-late": (serve, RC_LATE_FAULTS, dict(page_size=PAGE),
+                       base_runs["paged"]),
+        "paged-prefix": (prefix, RC_PREFIX_FAULTS, dict(page_size=PAGE),
+                         prefix_base["reqs"]),
+        "paged-chunked": (chunked, RC_CHUNK_FAULTS, dict(
+            page_size=PAGE, prefix_sharing=False, prefill_chunk=CP_CHUNK),
+            chunked_base)}
+    rows, launches = {}, {}
+    for name, (arrivals, faults_at, kw, base_reqs) in runs.items():
+        run = rc_drive(torch, model, arrivals, faults_at, **kw)
+        flash = flash_only(f"serve-recover-{name}", run["launches"],
+                           layers * run["full_prefills"])
+        reroutes = [r["reroutes"] for r in run["reports"]]
+        if reroutes != (RC_PREFIX_REROUTES if name == "paged-prefix"
+                        else [0] * len(faults_at)):
+            raise AssertionError(f"serve-recover-{name}: reroutes "
+                                 f"{reroutes}")
+
+        def forced():
+            with teacher_forcing([r.output_ids for r in base_reqs]) as tf:
+                rc_drive(torch, model, arrivals, faults_at, tf=tf, **kw)
+            return tf.result()
+        ident = identity_rule(f"serve-recover-{name}", run["reqs"],
+                              base_reqs, forced)
+        launches[name] = {"flash_attention_fwd": flash}
+        rows[name] = {
+            "faults": [p for p, _ in faults_at], "reports": run["reports"],
+            "recoveries_total": run["recoveries_total"],
+            "flight_recorder_dumps": run["dumps"],
+            "monolithic_prefills": run["full_prefills"],
+            "flash_launches": flash, "kv_bytes": run["kv_bytes"],
+            "ledger_violations": 0, **ident}
+    emit({"phase": "serve-recover", "slots": SLOTS, "max_len": MAX_LEN,
+          **rows, "leaks": 0, "phase_s": time.perf_counter() - t0})
+    return launches
 
 
 # -- weight-only int4 and int8 serving (Llama-1B, kernel row 7) -------------
@@ -4633,6 +5304,13 @@ def main() -> int:
     for name, counts in phase_serve_spec_draft(
             torch, np, model, products).items():
         launches["serve-spec-draft-" + name] = counts
+    chunked, chunked_reqs = phase_serve_chunked(torch, np, model)
+    for name, counts in chunked.items():
+        launches["serve-chunked-" + name] = counts
+    for name, counts in phase_serve_recover(
+            torch, np, model, prompts,
+            {"contiguous": reqs, "paged": paged[0]}, chunked_reqs).items():
+        launches["serve-recover-" + name] = counts
     del paged, paged8
     torch.cuda.empty_cache()
     qmodel, qreqs, launches["serve-int4"] = phase_serve_int4(

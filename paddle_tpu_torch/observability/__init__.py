@@ -1,0 +1,36 @@
+"""paddle_tpu_torch.observability — the serving engine's telemetry.
+
+Counterpart of ``paddle_tpu/observability`` (copies, not imports: the
+port never imports the reference package):
+
+- **Metrics registry** (``registry.py``): thread-safe ``Counter`` /
+  ``Gauge`` / ``Histogram`` families with label sets and an injectable
+  clock; Prometheus text exposition and JSON exporters. The process
+  default (``default_registry()``) is what the serving engine publishes
+  its ``ptpu_serving_*`` families to unless it is given its own.
+- **Spans** (``tracing.py``): host annotations that open a
+  ``torch.profiler`` range while the profiler records and carry
+  structured attributes (request ids) into an installed trace buffer.
+- **Flight recorder** (``flight_recorder.py``): a bounded ring of the
+  last N step records, dumped to a JSON file when a step raises
+  (``dump_dir``, else ``PTPU_FLIGHT_DIR``, else the temporary
+  directory).
+
+The reference's watchtower (SLO burn rates, anomaly detectors,
+incidents) and cluster timeline come with later slices of the port.
+"""
+from .registry import (Counter, Gauge, Histogram,  # noqa: F401
+                       MetricError, MetricRegistry, default_registry)
+from .tracing import (Span, span, TraceContext,  # noqa: F401
+                      TraceBuffer, install_trace_buffer,
+                      current_trace_buffer, bind_request,
+                      unbind_request, clear_bindings, context_for,
+                      active_context)
+from .flight_recorder import FlightRecorder, default_recorder  # noqa: F401
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricError",
+           "MetricRegistry", "default_registry", "Span", "span",
+           "TraceContext", "TraceBuffer", "install_trace_buffer",
+           "current_trace_buffer", "bind_request", "unbind_request",
+           "clear_bindings", "context_for", "active_context",
+           "FlightRecorder", "default_recorder"]

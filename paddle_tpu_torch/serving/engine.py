@@ -4,8 +4,10 @@ path: the paged pool (the default) or the contiguous slot pool.
 Counterpart of ``paddle_tpu/serving/engine.py`` ``_ModelAdapter`` and
 ``ServingEngine``. Each ``step()``:
 
-1. cancels requests past their deadline;
-2. admits queued requests into free slots, FCFS; on the paged layout an
+1. cancels requests past their deadline, and requests whose client went
+   away (``Request.cancel_requested`` or the ``cancel_probe``);
+2. admits queued requests into free slots, FCFS (``admission_lookahead``
+   may pass over that many blocked requests); on the paged layout an
    admission also needs its worst-case page span to fit the pool (the
    page reservation, ``PagedKVCache.try_reserve``), so decode never runs
    out of pages. Each admission runs its prompt, padded to its power-of-2
@@ -17,14 +19,22 @@ Counterpart of ``paddle_tpu/serving/engine.py`` ``_ModelAdapter`` and
    which attends over the shared pages; an unmatched prompt runs the
    full prefill in a local ``[1, bucket]`` cache whose k/v are then
    written into the claimed pages (quantized on the int8 path);
-3. runs ONE decode forward over ``[max_slots, 1]`` tokens with per-row
-   positions (inactive rows pinned to position 0, and on the paged
-   layout to trash page 0; their logits are ignored), samples every
-   active row on the host, and evicts rows that hit EOS or their length.
-   Paged: pages a write crosses into are allocated (or COW'd) before
-   the step.
+3. with ``prefill_chunk`` (chunked prefill), a prompt longer than the
+   step's prefill budget (one chunk; ``chunk_control`` scales it) is
+   admitted into the PREFILLING state instead (slot leased, pages
+   claimed) and advances one chunk a step from the head of the chunk
+   FIFO, next to the decode: the chunk runs at its start position
+   through the einsum cache attention (a ``[1, chunk]`` forward on the
+   slot's row, write-masked past the prompt; paged: the extend at a
+   mid-prompt start), and the final chunk samples the first token;
+4. runs ONE decode forward over ``[max_slots, 1]`` tokens with per-row
+   positions (inactive and PREFILLING rows pinned to position 0, and on
+   the paged layout to trash page 0; their logits are ignored), samples
+   every active row on the host, and evicts rows that hit EOS or their
+   length. Paged: pages a write crosses into are allocated (or COW'd)
+   before the step.
 
-``speculative=True`` swaps step 3 for ONE k-wide verify forward over
+``speculative=True`` swaps step 4 for ONE k-wide verify forward over
 ``[max_slots, spec_k]`` tokens (``_decode_verify``): each row's block is
 its last token and up to ``spec_k - 1`` draft tokens from the n-gram
 proposer or a draft model (``spec_decode.py``), written only up to its
@@ -47,17 +57,47 @@ The reference compiles one program per step shape; PyTorch runs
 eagerly, so the same shapes are simply launched each step (CUDA graphs
 are later work). The KV pools are written in place; page tables,
 refcounts and the prefix index stay on the host, and the page table
-goes to the device as a copy once per model call. A step that fails
-may leave a half-written pool, so it marks the engine broken
-(``EngineBroken`` from then on); a failed paged prefill first returns
-every page it claimed. ``recover()`` comes with the resilience slice.
+goes to the device as a copy once per model call.
 
-Arguments of the reference engine that this slice does not cover are
-accepted at their reference defaults and raise ``NotImplementedError``
-naming the slice that brings them otherwise.
+Resilience. The pools are written in place, so EVERY failed step marks
+the engine broken (the reference does so on its donated-pool path;
+its undonated CPU flavour, which may retry a step, has no counterpart
+here): ``step()`` and ``submit()`` raise ``EngineBroken`` until
+``recover()``, which keeps the device pools but rebuilds the host state
+(slot table; on the paged layout free list, refcounts, page table and
+prefix index) and writes every in-flight request's KV again, in
+admission order: its prompt by its admission's route, its delivered
+tokens by decode forwards, so the pools hold the failed run's bits (the
+greedy replay checked and counted); decoding then resumes where it
+stopped. Requests a failed step finished are handed back once (by the
+next ``step()``, ``recover()`` or ``drain()``). ``recover()`` covers
+failures raised on the host (the fault points of
+``resilience.faults``, a Python error mid-step); a CUDA error that
+poisons the context cannot be recovered in-process and is not caught.
+Fault points: ``serving.step.decode``, ``serving.decode.verify``,
+``serving.spec.draft``, ``serving.spec.resample``,
+``serving.step.prefill``, ``serving.prefill.paged`` and
+``serving.prefill.chunk``. A request admitted with tokens already
+delivered (``adopt()``, or requeued by a failed admission) takes the
+same route: its prompt's prefill, then its tokens by decode forwards
+(``_resume``).
+
+Observability: the ``ptpu_serving_*`` families of the ``registry`` (the
+process default unless given), the spans ``serving.step``,
+``serving.prefill``, ``serving.chunk_prefill``, ``serving.decode`` and
+``serving.verify``, a flight-recorder record per step and a dump when a
+step raises, and an optional ``auditor`` (a
+``resilience.ConservationLedger``) told of every submission and of every
+delivery at the external boundaries (``step``, ``recover``, ``drain``,
+``cancel``).
+
+Arguments of the reference engine that this port does not cover yet
+(the multi-GPU and KV-tiering slices) are accepted at their reference
+defaults and raise ``NotImplementedError`` naming the slice otherwise.
 """
 from __future__ import annotations
 
+import sys
 import time
 from typing import Callable, List, Optional
 
@@ -65,6 +105,8 @@ import numpy as np
 import torch
 from torch.nn import functional as TF
 
+from ..observability import default_recorder, default_registry, span
+from ..resilience.faults import InjectedFault, maybe_fail
 from .errors import (DeadlineExceeded, EngineBroken, EngineClosed,
                      EngineIdle, QueueFull, RequestCancelled)
 from .metrics import EngineMetrics
@@ -78,20 +120,14 @@ from ..models._decode_cache import PageTable, per_position, quantize_kv_page
 __all__ = ["ServingEngine"]
 
 _MESH = "multi-GPU serving slice"
-_CHUNK = "chunked-prefill slice"
 _TIER = "KV-tiering slice"
-_HOOKS = "observability and fault-hook slice"
 # reference-engine argument -> (its reference default, the slice of the
 # port that brings it)
 _LATER = {
     "mesh": (None, _MESH), "prefill_devices": (0, _MESH),
     "kv_transport": (None, _MESH),
-    "prefill_chunk": (None, _CHUNK), "chunk_control": (None, _CHUNK),
-    "admission_lookahead": (0, _CHUNK),
     "kv_host_tier": (False, _TIER), "host_tier_pages": (None, _TIER),
     "prefix_store_dir": (None, _TIER),
-    "registry": (None, _HOOKS), "flight_recorder": (None, _HOOKS),
-    "auditor": (None, _HOOKS), "cancel_probe": (None, _HOOKS),
 }
 
 
@@ -133,6 +169,9 @@ class ServingEngine:
                  min_bucket: int = 16,
                  max_queue: Optional[int] = None,
                  time_fn: Callable[[], float] = time.perf_counter,
+                 registry=None, flight_recorder=None,
+                 auditor=None,
+                 cancel_probe: Optional[Callable] = None,
                  kv_layout: str = "paged",
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
@@ -146,6 +185,9 @@ class ServingEngine:
                  draft_model=None,
                  spec_sampled: bool = False,
                  spec_tune: bool = False,
+                 prefill_chunk: Optional[int] = None,
+                 chunk_control=None,
+                 admission_lookahead: int = 0,
                  **reference_only):
         for name, value in reference_only.items():
             if name not in _LATER:
@@ -157,20 +199,6 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) comes with the {later} "
                     f"of the port")
-        if kv_layout not in ("paged", "contiguous"):
-            raise ValueError(
-                f"kv_layout must be 'paged' or 'contiguous', got "
-                f"{kv_layout!r}")
-        if kv_dtype not in (None, "int8"):
-            raise ValueError(
-                f"kv_dtype must be None (model dtype) or 'int8', got "
-                f"{kv_dtype!r}")
-        if kv_layout == "contiguous" and (
-                page_size is not None or num_pages is not None
-                or kv_dtype is not None or prefix_sharing is not None):
-            raise ValueError(
-                "page_size/num_pages/kv_dtype/prefix_sharing only apply "
-                "to the paged kv_layout")
         self.adapter = _ModelAdapter(model)
         model.eval()
         self.max_slots = int(max_slots)
@@ -185,8 +213,23 @@ class ServingEngine:
                 f"max_queue must be >= 1 or None, got {max_queue}")
         self.max_queue = max_queue
         self.min_bucket = min(int(min_bucket), self.max_len)
+        self._init_chunking(prefill_chunk, chunk_control,
+                            admission_lookahead)
+        if kv_layout not in ("paged", "contiguous"):
+            raise ValueError(
+                f"kv_layout must be 'paged' or 'contiguous', got "
+                f"{kv_layout!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (model dtype) or 'int8', got "
+                f"{kv_dtype!r}")
+        if kv_layout == "contiguous" and (
+                page_size is not None or num_pages is not None
+                or kv_dtype is not None or prefix_sharing is not None):
+            raise ValueError(
+                "page_size/num_pages/kv_dtype/prefix_sharing only apply "
+                "to the paged kv_layout")
         self.paged = kv_layout == "paged"
-        ad = self.adapter
         if self.paged:
             if page_size is None:
                 # the largest power-of-2 divisor of max_len up to 128
@@ -198,26 +241,208 @@ class ServingEngine:
             self.kv_quant = kv_dtype == "int8"
             self.prefix_sharing = True if prefix_sharing is None \
                 else bool(prefix_sharing)
-            self.cache = PagedKVCache(
-                ad.num_layers, self.max_slots, self.max_len, ad.kv_heads,
-                ad.head_dim, ad.dtype, ad.device, page_size=self.page_size,
-                num_pages=self.num_pages, quant=self.kv_quant,
-                prefix_sharing=self.prefix_sharing)
             # the most requests in flight at once (benchmarks read it)
             self.peak_active_slots = 0
-        else:
-            self.cache = SlotKVCache(ad.num_layers, self.max_slots,
-                                     self.max_len, ad.kv_heads,
-                                     ad.head_dim, ad.dtype, ad.device)
+        self.cache = self._new_cache()
         self._init_speculation(speculative, spec_k, spec_ngram, spec_gate,
                                spec_proposer, draft_model, spec_sampled,
                                spec_tune)
         self.scheduler = FIFOScheduler()
-        self.metrics = EngineMetrics(self.max_slots, time_fn)
+        self.registry = registry if registry is not None \
+            else default_registry()
+        # `is None`, not truthiness: an EMPTY FlightRecorder is falsy
+        # (it has __len__)
+        self.recorder = flight_recorder if flight_recorder is not None \
+            else default_recorder()
+        self.metrics = EngineMetrics(self.max_slots, time_fn,
+                                     registry=self.registry)
         self._next_rid = 0
         self._step_idx = 0
+        # set when a step fails (its in-place KV writes may be half
+        # done); recover() clears it
         self._broken: Optional[str] = None
         self._closed = False
+        # requests that reached a terminal state inside a FAILED step
+        # (deadline sweep, a decode finisher evicted before the raise)
+        # or that recover() found finished in a slot: they surface
+        # through the next successful step()/recover()/drain() exactly
+        # once. The list survives a recover() that itself fails.
+        self._undelivered: List[Request] = []
+        # admissions so far: each request's place in the admission
+        # order, which recover() replays
+        self._admissions = 0
+        # optional conservation auditor (on_submitted(req) /
+        # on_delivered(req, via)), called at the EXTERNAL delivery
+        # boundaries only, so a ledger sees exactly what callers see
+        self.auditor = auditor
+        # optional liveness callback(req) -> bool (True = the client is
+        # gone), checked at the step-boundary sweep and mid-prefill,
+        # after the request's own cancel_requested flag
+        self.cancel_probe = cancel_probe
+        self._in_drain = False
+        self._init_families()
+
+    def _init_chunking(self, prefill_chunk, chunk_control,
+                       admission_lookahead) -> None:
+        """The chunked-prefill arguments and their validation (reference
+        :175-210). ``prefill_chunk`` is a power of 2 and a prefill bucket,
+        so every non-final chunk is its own bucket (no padding) and the
+        chunk shapes stay within the bucket set. ``chunk_control`` (a
+        ``control.ChunkBudgetController``) scales the per-step prefill
+        budget as a multiple of the chunk; None keeps at most one chunk
+        a step."""
+        self.prefill_chunk = None
+        if prefill_chunk is not None:
+            c = int(prefill_chunk)
+            if c < 1 or (c & (c - 1)):
+                raise ValueError(
+                    f"prefill_chunk must be a power of 2, got "
+                    f"{prefill_chunk}")
+            if bucket_for(c, self.min_bucket, self.max_len) != c:
+                raise ValueError(
+                    f"prefill_chunk {c} must be a prefill bucket "
+                    f"(>= the min_bucket floor and <= max_len "
+                    f"{self.max_len})")
+            self.prefill_chunk = c
+        if chunk_control is not None and self.prefill_chunk is None:
+            raise ValueError(
+                "chunk_control requires prefill_chunk (the controller "
+                "scales the chunked-prefill budget)")
+        self.chunk_control = chunk_control
+        if admission_lookahead < 0:
+            raise ValueError(
+                f"admission_lookahead must be >= 0, got "
+                f"{admission_lookahead}")
+        self.admission_lookahead = int(admission_lookahead)
+        # PREFILLING slots in admission order: the head advances one
+        # chunk a step (audited empty at quiesce)
+        self._chunk_fifo: List[int] = []
+
+    def _init_families(self) -> None:
+        """The engine's ``ptpu_serving_*`` registry families (reference
+        :454-560, without the KV-tier families)."""
+        reg = self.registry
+        self._m_queue_depth = reg.gauge(
+            "ptpu_serving_queue_depth", "requests waiting for a slot")
+        self._m_active = reg.gauge(
+            "ptpu_serving_active_slots", "slots decoding this step")
+        self._m_step = reg.histogram(
+            "ptpu_serving_step_seconds",
+            "wall time of one engine iteration (engine clock)")
+        self._m_prefill = reg.counter(
+            "ptpu_serving_prefills_total", "prefill program runs",
+            labels=("bucket",))
+        self._m_evict = reg.counter(
+            "ptpu_serving_evictions_total", "slots freed",
+            labels=("reason",))
+        self._m_reject = reg.counter(
+            "ptpu_serving_rejected_total",
+            "submissions refused at admission", labels=("reason",))
+        self._m_deadline = reg.counter(
+            "ptpu_serving_deadline_cancellations_total",
+            "requests cancelled at their deadline (queued + in-flight)")
+        self._m_disconnect = reg.counter(
+            "ptpu_serving_disconnects_total",
+            "requests cancelled because their client went away")
+        self._m_recover = reg.counter(
+            "ptpu_serving_recoveries_total",
+            "successful recover() calls after a broken step")
+        self._m_replay_mismatch = reg.counter(
+            "ptpu_serving_recover_replay_mismatch_total",
+            "recovery re-prefills whose greedy replay token diverged "
+            "from the already-delivered token")
+        if self.prefill_chunk is not None:
+            self._m_chunk_steps = reg.counter(
+                "ptpu_serving_chunk_steps_total",
+                "chunked-prefill chunk program runs")
+            self._m_chunk_depth = reg.gauge(
+                "ptpu_serving_chunk_queue_depth",
+                "PREFILLING requests mid-chunked-prefill")
+        if self.paged:
+            self._m_pages_free = reg.gauge(
+                "ptpu_serving_pages_free", "KV pages on the free list")
+            self._m_pages_active = reg.gauge(
+                "ptpu_serving_pages_active",
+                "KV pages referenced by at least one request")
+            self._m_pages_cached = reg.gauge(
+                "ptpu_serving_pages_cached",
+                "refcount-0 prefix-index pages (reclaimable)")
+            self._m_kv_bytes = reg.gauge(
+                "ptpu_serving_kv_bytes",
+                "total device bytes of the paged KV pool (+scales)")
+            self._m_kv_bytes.set(self.cache.kv_bytes())
+            self._m_prefix_hit = reg.counter(
+                "ptpu_serving_prefix_hit_tokens_total",
+                "prompt tokens served from shared prefix pages")
+            self._m_prefix_lookup = reg.counter(
+                "ptpu_serving_prefix_lookup_tokens_total",
+                "prompt tokens eligible for prefix matching")
+            self._m_cow = reg.counter(
+                "ptpu_serving_cow_copies_total",
+                "copy-on-write page copies")
+            self._last_page_stats = {"prefix_hit_tokens": 0,
+                                     "prefix_lookup_tokens": 0,
+                                     "cow_copies": 0}
+        if self.speculative:
+            self._m_spec_acc = reg.histogram(
+                "ptpu_serving_spec_accepted_length",
+                "tokens emitted per row per verify step (1 = k=1 "
+                "fallback or fully rejected draft), by the proposer "
+                "that drafted the row ('none' = undrafted)",
+                buckets=tuple(float(i) for i in
+                              range(1, self.spec_k + 1)),
+                labels=("proposer",))
+            self._m_spec_draft = reg.counter(
+                "ptpu_serving_spec_draft_tokens_total",
+                "draft tokens proposed to the verify program")
+            self._m_spec_accepted = reg.counter(
+                "ptpu_serving_spec_accepted_draft_tokens_total",
+                "draft tokens confirmed by the verify program")
+            self._m_spec_hit = reg.gauge(
+                "ptpu_serving_spec_draft_hit_rate",
+                "cumulative accepted/proposed draft-token ratio")
+            self._m_spec_proposer = reg.counter(
+                "ptpu_spec_proposer_total",
+                "rows drafted per verify step, by proposer kind",
+                labels=("kind",))
+            if self._tuner is not None:
+                self._m_spec_tuner_k = reg.gauge(
+                    "ptpu_spec_tuner_k",
+                    "spec window k the autotuner is running per "
+                    "request class (1 = speculation off)",
+                    labels=("klass",))
+
+    def _new_cache(self, pools=None):
+        """A KV cache in the configured layout with fresh host state;
+        ``pools`` takes the device pools of an existing one over
+        (``recover()``) instead of allocating new ones."""
+        ad = self.adapter
+        if self.paged:
+            return PagedKVCache(
+                ad.num_layers, self.max_slots, self.max_len, ad.kv_heads,
+                ad.head_dim, ad.dtype, ad.device, page_size=self.page_size,
+                num_pages=self.num_pages, quant=self.kv_quant,
+                prefix_sharing=self.prefix_sharing, pools=pools)
+        return SlotKVCache(ad.num_layers, self.max_slots, self.max_len,
+                           ad.kv_heads, ad.head_dim, ad.dtype, ad.device,
+                           pools=pools)
+
+    def _publish_page_stats(self) -> None:
+        if not self.paged:
+            return
+        c = self.cache
+        self._m_pages_free.set(c.free_page_count())
+        self._m_pages_active.set(c.active_page_count())
+        self._m_pages_cached.set(c.cached_page_count())
+        last = self._last_page_stats
+        for counter, key in ((self._m_prefix_hit, "prefix_hit_tokens"),
+                             (self._m_prefix_lookup,
+                              "prefix_lookup_tokens"),
+                             (self._m_cow, "cow_copies")):
+            cur = getattr(c, key)
+            if cur > last[key]:
+                counter.inc(cur - last[key])
+            last[key] = cur
 
     def _init_speculation(self, speculative, spec_k, spec_ngram, spec_gate,
                           spec_proposer, draft_model, spec_sampled,
@@ -283,7 +508,7 @@ class ServingEngine:
         :class:`DeadlineExceeded` in ``Request.error``.
 
         Typed refusals: :class:`EngineClosed` after ``drain()``,
-        :class:`EngineBroken` after a failed step, :class:`QueueFull`
+        :class:`EngineBroken` until ``recover()``, :class:`QueueFull`
         when ``max_queue`` requests are already waiting."""
         self._check_admission()
         return self.submit_request(self._build_request(
@@ -293,36 +518,123 @@ class ServingEngine:
         """Enqueue a pre-built Request (the typed admission checks
         apply)."""
         self._check_admission()
+        # sampled BEFORE the request enters the queue: a request that
+        # arrives while other work is in flight may see its first token
+        # wait behind prefills (the decode-stall histogram's population)
+        stalled = self.has_work()
         self.scheduler.add(req)
-        self.metrics.on_submit(req.rid)
+        self.metrics.on_submit(req.rid, stalled=stalled)
+        self._m_queue_depth.set(self.scheduler.depth)
+        if self.auditor is not None:
+            self.auditor.on_submitted(req)
+        return req
+
+    def adopt(self, req: Request) -> Request:
+        """Take over an existing request mid-flight (its previous engine
+        died). It may already carry delivered tokens: its admission then
+        runs its prompt's prefill and writes those tokens by decode
+        forwards (``_resume``, as ``recover()`` does), so greedy output
+        goes on with the same tokens and nothing is retracted. Bypasses ``max_queue`` (a request the
+        service already accepted is never dropped) and is not audited
+        as a submission again (it was where it first entered)."""
+        if self._closed:
+            raise EngineClosed()
+        if self._broken:
+            raise EngineBroken(self._broken)
+        req.slot = None
+        req.prefill_pos = None
+        stalled = self.has_work()
+        self.scheduler.add(req)
+        self.metrics.on_submit(req.rid, stalled=stalled)
+        self._m_queue_depth.set(self.scheduler.depth)
         return req
 
     def has_work(self) -> bool:
         return self.scheduler.has_pending() or \
             bool(self.cache.active_slots())
 
-    def step(self) -> List[Request]:
-        """One engine iteration: admit into free slots (bucketed
-        prefill), then one decode step over every occupied slot, then
-        evict finished sequences. Returns the requests finished this
-        step.
+    def probe(self, timeout: Optional[float] = None) -> dict:
+        """Health probe: a cheap, non-mutating liveness summary. A
+        broken engine is still alive (it answers and recovers), so this
+        never raises."""
+        del timeout  # in-process: answering at all is the liveness
+        return {"broken": self._broken,
+                "queued": self.scheduler.depth,
+                "active": len(self.cache.active_slots())}
 
-        Typed refusals: :class:`EngineBroken` after a failed step;
-        :class:`EngineIdle` when there is no queued or in-flight work
-        (guard loops with ``has_work()``)."""
+    def step(self) -> List[Request]:
+        """One engine iteration: admit into free slots (bucketed or
+        chunked prefill), advance the chunked prefill, one decode step
+        over every decoding slot, evict finished sequences. Returns the
+        requests finished this step (and any a failed step left
+        undelivered).
+
+        Every step appends a flight-recorder record; a step that raises
+        marks the engine broken and dumps the recorder's ring before the
+        exception propagates.
+
+        Typed refusals: :class:`EngineBroken` until ``recover()`` after
+        a failed step; :class:`EngineIdle` when there is no queued or
+        in-flight work (guard loops with ``has_work()``)."""
         if self._broken:
             raise EngineBroken(self._broken)
         if not self.has_work():
             raise EngineIdle()
+        t0 = self.metrics.now()
         step_idx = self._step_idx
         self._step_idx += 1
+        # allocated outside the try: a request that reaches a terminal
+        # state early in the step is already out of its slot or the
+        # queue, so if the step then fails it must survive the raise
         finished: List[Request] = []
         try:
-            with torch.inference_mode():
-                self._step_inner(finished)
+            with span("serving.step", step=step_idx) as sp, \
+                    torch.inference_mode():
+                admitted, n_active = self._step_inner(finished)
+                sp.set_attr("active_slots", n_active)
         except Exception as e:
+            if finished:
+                self._undelivered.extend(finished)
+            # the step may have written part of the pools in place:
+            # refuse further use until recover() rebuilds the KV state
             self._broken = f"step #{step_idx}: {type(e).__name__}: {e}"
+            try:
+                self.recorder.record(
+                    "serving.step_error", step=step_idx,
+                    error=f"{type(e).__name__}: {e}")
+                path = self.recorder.dump(
+                    reason=f"ServingEngine.step #{step_idx} raised "
+                           f"{type(e).__name__}: {e}",
+                    registry=self.registry)
+                print(f"[serving] flight recorder dumped to {path}",
+                      file=sys.stderr)
+            except Exception:
+                pass               # never mask the original failure
             raise
+        dt = self.metrics.now() - t0
+        depth = self.scheduler.depth
+        self._m_step.observe(dt)
+        self._m_queue_depth.set(depth)
+        self._m_active.set(n_active)
+        if self._undelivered:
+            # requests stranded by an earlier FAILED step ride the first
+            # successful step out (they finished first: prepend)
+            finished = self._undelivered + finished
+        # the whole batch stays owed until the return below: if the
+        # recorder or the auditor raises first, the next step(),
+        # recover() or drain() still delivers it
+        self._undelivered = finished
+        self.recorder.record(
+            "serving.step", step=step_idx, step_latency_s=dt,
+            active_slots=n_active, queue_depth=depth,
+            admitted=admitted,
+            evicted=[(r.rid, r.finish_reason) for r in finished])
+        if self.auditor is not None and not self._in_drain:
+            # drain() audits its aggregate return instead, so each
+            # request is audited at exactly ONE external boundary
+            for r in finished:
+                self.auditor.on_delivered(r, via="step")
+        self._undelivered = []
         return finished
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
@@ -339,55 +651,81 @@ class ServingEngine:
     def drain(self, max_steps: Optional[int] = None) -> List[Request]:
         """Graceful shutdown: refuse new submissions and serve the queue
         plus every in-flight slot to completion. If ``max_steps`` runs
-        out first, or a step fails (the engine is then broken), what
-        remains is cancelled (``finish_reason == "cancelled"``, a
-        :class:`RequestCancelled` naming the cause in ``Request.error``,
-        chained to the failed step's exception) instead of being
-        stranded. Returns every request finished or
-        cancelled during the drain."""
+        out first, or the engine is (or becomes) broken and the caller
+        chose shutdown over ``recover()``, what remains is cancelled
+        (``finish_reason == "cancelled"``, a :class:`RequestCancelled`
+        naming the cause in ``Request.error``, chained to the failed
+        step's exception) instead of being stranded. Never raises out of
+        the step loop. Returns every request finished or cancelled
+        during the drain, and any a failed step left undelivered.
+
+        Unlike the reference, which retries a failed step up to three
+        times on its undonated path, every failed step here breaks the
+        engine, so the next pass cancels the rest."""
         self._closed = True
         done: List[Request] = []
         steps = 0
         last_err: Optional[BaseException] = None
-        while self.has_work():
-            if max_steps is not None and steps >= max_steps:
-                cutoff = "drain cutoff"
-            elif self._broken:
-                cutoff = f"drain on broken engine ({self._broken})"
-            else:
-                try:
-                    done.extend(self.step())
-                except Exception as e:   # the engine is broken now: the
-                    last_err = e         # next pass cancels the rest
-                steps += 1
-                continue
-            for req in self.scheduler.drain():
-                self._cancel(req, cutoff, last_err)
-                self.metrics.on_finished(req.rid)
-                done.append(req)
-            for s in self.cache.active_slots():
-                req = self.cache.slots[s]
-                self._cancel(req, cutoff, last_err)
-                self._evict(s, req, done)
-            break
+        self._in_drain = True
+        try:
+            while self.has_work():
+                if max_steps is not None and steps >= max_steps:
+                    cutoff = "drain cutoff"
+                elif self._broken:
+                    cutoff = f"drain on broken engine ({self._broken})"
+                else:
+                    try:
+                        done.extend(self.step())
+                    except Exception as e:   # broken now: the next
+                        last_err = e         # pass cancels the rest
+                    steps += 1
+                    continue
+                for req in self.scheduler.drain():
+                    self._cancel(req, cutoff, last_err)
+                    self.metrics.on_finished(req.rid)
+                    done.append(req)
+                for s in self.cache.active_slots():
+                    req = self.cache.slots[s]
+                    self._cancel(req, cutoff, last_err)
+                    self._evict(s, req, done)
+                break
+        finally:
+            self._in_drain = False
+        if self._undelivered:
+            # terminal requests a failed step stranded, with no
+            # successful step left to carry them out
+            done.extend(self._undelivered)
         self._proposer_retain(())          # a drained engine holds none
+        # owed until the return happens: if the auditor raises, a
+        # re-issued drain() hands the batch over
+        self._undelivered = done
+        if self.auditor is not None:
+            for r in done:
+                self.auditor.on_delivered(r, via="drain")
+        self._undelivered = []
         return done
 
     def cancel(self, req: Request, reason: str = "cancelled") -> bool:
-        """Cancel one request (queued or in flight; its pages return to
-        the pool); False if it already finished. Delivered tokens stay on
-        the handle."""
+        """Cancel one request (queued, PREFILLING or decoding; its pages
+        return to the pool); False if it already finished. Delivered
+        tokens stay on the handle."""
         if req.finished:
             return False
-        if not self.scheduler.remove(req):
-            if req.slot is None or self.cache.slots[req.slot] is not req:
-                return False
+        if self.scheduler.remove(req):
+            pass
+        elif req.slot is not None and self.cache.slots[req.slot] is req:
+            self._clear_chunk_state(req.slot, req)
             self.cache.release(req.slot)
             req.slot = None
+            self._m_evict.labels(reason=reason).inc()
+        else:
+            return False
         req.finished, req.finish_reason = True, reason
         req.error = RequestCancelled(req.rid, reason)
         self.metrics.on_finished(req.rid)
         self._proposer_release(req.rid)
+        if self.auditor is not None:
+            self.auditor.on_delivered(req, via="cancel")
         return True
 
     def spec_stats(self) -> dict:
@@ -436,10 +774,233 @@ class ServingEngine:
             if s["prefix_lookup_tokens"] else 0.0)
         return s
 
-    def recover(self):
-        raise NotImplementedError(
-            "ServingEngine.recover() comes with the resilience slice of "
-            "the port")
+    def recover(self) -> dict:
+        """Rebuild the KV state from host-side request state after a
+        failed step (reference :1600-1726).
+
+        The device pools are kept (nothing in them is read before it is
+        written again) and the host state is fresh: the slot table and,
+        paged, the free list, refcounts, page table and prefix index.
+        Each in-flight request's KV is then written again the way its
+        run wrote it, in admission order: its prompt by the route of its
+        admission (the monolithic prefill at the prompt's bucket, or the
+        same chunks; paged, after a shared prefix no longer than the one
+        its admission matched, whose pages the requests admitted before
+        it have written again by then), then its delivered tokens but
+        the last through ``[max_slots, 1]`` decode forwards
+        (``_resume``), so on the card the pools hold the failed run's
+        bits and the tokens go on as an uninjected run's. (The reference
+        re-prefills prompt + delivered tokens in one program; here that
+        program would run the flash prefill over tokens whose KV the
+        einsum decode wrote, and split greedy tokens at near-ties.) Two
+        cases leave the failed run's route, and on the card may split
+        greedy tokens at near-ties: a shared prefix whose pages came
+        from a request that has finished since (the rebuilt index does
+        not hold them, so the prompt runs from a shorter match; counted
+        in the report's ``reroutes``), and a speculative engine's
+        tokens, which verify blocks wrote.
+
+        Latency: the re-prefills, plus one decode forward for each
+        delivered token of the longest in-flight request (the rows
+        replay together), so it grows linearly with how far that
+        request got. A request that was PREFILLING re-enters the chunk
+        FIFO at its start. For a greedy request the logits that
+        predicted its last delivered token predict it again: checked,
+        and counted in ``ptpu_serving_recover_replay_mismatch_total``
+        (delivered tokens are never retracted). Safe to call again: a
+        failure during recovery leaves the engine broken and the next
+        ``recover()`` starts over from the same host state.
+
+        Covers failures raised on the host (fault points, a Python
+        error mid-step); a CUDA error that poisons the context cannot be
+        recovered in-process.
+
+        Returns a report: the reason, recovered slot count, replay
+        mismatches, reroutes, the requests handed back (finished in the
+        failed step, or found finished or disconnected here), latency."""
+        t0 = self.metrics.now()
+        reason = self._broken
+        in_flight = sorted(((s, r) for s, r in enumerate(self.cache.slots)
+                            if r is not None),
+                           key=lambda sr: sr[1]._admit_seq)
+        # PREFILLING requests go back into the FIFO, in its order (they
+        # were admitted after every decoding request: while the FIFO is
+        # not empty every admission chunks)
+        prefilling = [s for s in self._chunk_fifo]
+        self._chunk_fifo.clear()
+        for _, r in in_flight:
+            r.prefill_pos = None
+        old = self.cache
+        pools = (old.ks, old.vs, old.kss, old.vss) if self.paged \
+            else (old.ks, old.vs)
+        if self.paged:
+            # flush the old cache's counter deltas, then re-baseline:
+            # the fresh cache restarts its counters at zero
+            self._publish_page_stats()
+            self._last_page_stats = {k: 0
+                                     for k in self._last_page_stats}
+        self.cache = self._new_cache(pools=pools)
+        del old, pools
+        # accumulate on the ENGINE, not a local: if a re-prefill below
+        # fails, these requests are gone from the slot table and the
+        # retried recover() must still hand them back
+        finished = self._undelivered
+        todo = []
+        for s, req in in_flight:
+            if req.finished:
+                # completed inside the failed step, never delivered
+                req.slot = None
+                self._m_evict.labels(
+                    reason=req.finish_reason or "unknown").inc()
+                self.metrics.on_finished(req.rid)
+                finished.append(req)
+            else:
+                # bookkeeping FIRST, so a failure mid-re-prefill leaves
+                # the slot table complete for the next recover()
+                self.cache.assign(s, req)
+                todo.append((s, req))
+        reroutes = 0
+        resume = []
+        with torch.inference_mode():
+            for s, req in todo:
+                if self._cancel_requested(req):
+                    # the client went away while the engine was down
+                    self.cache.release(s)
+                    req.slot = None
+                    self._finish_disconnect(
+                        req, "client disconnected during recover()",
+                        finished=finished)
+                    continue
+                if s in prefilling:
+                    continue
+                shared = req._shared_len
+                logits = self._reprefill_prompt(s, req)
+                reroutes += req._shared_len != shared
+                if req.out_tokens:
+                    resume.append((s, req, logits))
+                    continue
+                # the failed step died between the slot assignment and
+                # the first sampled token: finish the admission
+                tok = sample_token(logits, req.sampling, req._rng)
+                req.out_tokens.append(tok)
+                self.metrics.on_token(req.rid)
+                if self._is_finished(req, tok):
+                    self._evict(s, req, finished)
+            mismatches = self._resume(resume)
+            for s in prefilling:
+                req = self.cache.slots[s]
+                if req is not None:
+                    shared = req._shared_len
+                    self._enter_prefilling(s, req, share_limit=shared)
+                    reroutes += req._shared_len != shared
+        # draft state only for the requests that survived into the
+        # rebuilt slot table, in every configured proposer
+        self._proposer_retain(
+            r.rid for r in self.cache.slots if r is not None)
+        self._broken = None
+        self._m_recover.inc()
+        dt = self.metrics.now() - t0
+        report = {"reason": reason,
+                  "recovered_slots": len(todo),
+                  "replay_mismatches": mismatches,
+                  "reroutes": reroutes,
+                  "finished": list(finished),
+                  "latency_s": dt}
+        self.recorder.record(
+            "serving.recover", reason=reason, latency_s=dt,
+            recovered_slots=len(todo), replay_mismatches=mismatches,
+            reroutes=reroutes,
+            evicted=[(r.rid, r.finish_reason) for r in finished])
+        if self.auditor is not None:
+            for r in report["finished"]:
+                self.auditor.on_delivered(r, via="recover")
+        # consumed only once the report is on its way to the caller
+        self._undelivered = []
+        return report
+
+    def _reprefill_prompt(self, slot: int, req: Request) -> np.ndarray:
+        """``recover()``: write the prompt's KV by the route of the
+        request's admission (its bits on the card) and return the logits
+        at its last token: the monolithic prefill, or, for a request
+        admitted through the chunk FIFO, the same chunks in a row; paged,
+        after a shared prefix no longer than its admission's."""
+        if not req._chunked:
+            return self._prefill_raw(slot, req.prompt, req,
+                                     share_limit=req._shared_len)
+        start = self._claim_for_chunks(slot, req,
+                                       share_limit=req._shared_len)
+        n, chunk = req.prompt_len, self.prefill_chunk
+        for pos in range(start, n, chunk):
+            t = min(chunk, n - pos)
+            logits = self._run_chunk(
+                slot, self._padded(req.prompt, pos,
+                                   bucket_for(t, self.min_bucket,
+                                              self.max_len)), pos, t)
+        if self.paged:
+            self.cache.register_prefix(slot, req.prompt)
+        return logits
+
+    def _resume(self, rows) -> int:
+        """Bring requests that already carry delivered tokens, their
+        prompts just written, back to where they stopped: ``rows`` are
+        (slot, request, the logits at its prompt's last token), from
+        ``recover()`` or from an admission (``adopt()``, a requeue after
+        a failed admission). A request with one token checks it against
+        those logits; the rest write their tokens through
+        ``_replay_decode``, together. Returns the mismatches."""
+        mismatches, replay = 0, []
+        for s, req, logits in rows:
+            if len(req.out_tokens) > 1:
+                replay.append((s, req))
+            else:
+                mismatches += self._check_replay(req, logits)
+        return mismatches + self._replay_decode(replay)
+
+    def _replay_decode(self, rows) -> int:
+        """``recover()``: write the delivered tokens' KV (all but each
+        request's last, whose KV the next decode step writes) the way
+        the decode steps wrote it, by ``[max_slots, 1]`` decode forwards:
+        forward ``j`` feeds each row its delivered token ``j`` at its
+        position, rows done being inactive (they write nothing). A row's
+        bits depend on its own tokens and KV alone, so they are the
+        failed run's. The forward that feeds a row's second-to-last
+        token predicts its last one again: checked. Returns the
+        mismatches."""
+        mismatches = 0
+        steps = max((len(r.out_tokens) for _, r in rows), default=1) - 1
+        for j in range(steps):
+            active = [s for s, r in rows if len(r.out_tokens) - 1 > j]
+            toks = np.zeros((self.max_slots, 1), np.int64)
+            pos = np.zeros((self.max_slots,), np.int64)
+            copies = []
+            for s in active:
+                req = self.cache.slots[s]
+                toks[s, 0] = req.out_tokens[j]
+                pos[s] = req.prompt_len + j
+                if self.paged:
+                    c = self.cache.ensure_decode_page(s, int(pos[s]))
+                    if c is not None:
+                        copies.append(c)
+            if self.paged:
+                self._run_copies(copies)
+            logits = self._decode_logits(active, toks, pos, masked=True)
+            for s in active:
+                req = self.cache.slots[s]
+                if j == len(req.out_tokens) - 2:
+                    mismatches += self._check_replay(req, logits[s])
+        return mismatches
+
+    def inflight_rids(self) -> set:
+        """Every request id the engine itself still owns: queued, in a
+        slot (PREFILLING or decoding), or finished but not yet
+        delivered. Diffed against ``metrics.inflight_phases()``, a rid
+        the metrics still track and the engine does not is a request
+        some failure path dropped."""
+        rids = {r.rid for r in self.scheduler.pending()}
+        for s in self.cache.active_slots():
+            rids.add(self.cache.slots[s].rid)
+        rids.update(r.rid for r in self._undelivered)
+        return rids
 
     # -- admission -----------------------------------------------------
     def _check_admission(self) -> None:
@@ -449,6 +1010,7 @@ class ServingEngine:
             raise EngineBroken(self._broken)
         if self.max_queue is not None \
                 and self.scheduler.depth >= self.max_queue:
+            self._m_reject.labels(reason="queue_full").inc()
             raise QueueFull(self.scheduler.depth, self.max_queue)
 
     def _build_request(self, prompt_ids, max_new_tokens: int = 16,
@@ -491,25 +1053,62 @@ class ServingEngine:
         return req
 
     # -- one iteration -------------------------------------------------
-    def _step_inner(self, finished: List[Request]) -> None:
+    def _step_inner(self, finished: List[Request]):
+        admitted: List[int] = []
+        # 0) deadline and disconnect sweeps, before any prefill or
+        # decode is spent on those requests
         self._expire_deadlines(finished)
+        self._sweep_disconnects(finished)
+        # 1) admission: freed slots refill BEFORE the decode, so a new
+        # request's first decode token rides this very step. Paged:
+        # admission is gated by FREE PAGES as well as free slots: the
+        # claim reserves the request's worst-case page span
         claim = unclaim = None
         if self.paged:
-            # admission is gated by FREE PAGES as well as free slots: the
-            # claim reserves the request's worst-case page span
             def claim(req):
                 return self.cache.try_reserve(
                     req, req.prompt, req.prompt_len + req.max_new_tokens)
             unclaim = self.cache.cancel_reservation
-        pairs = self.scheduler.admissions(self.cache.free_slots(),
-                                          claim=claim, unclaim=unclaim)
+        pairs = self.scheduler.admissions(
+            self.cache.free_slots(), claim=claim,
+            lookahead=self.admission_lookahead, unclaim=unclaim)
+        # the per-step prefill token budget of a chunked engine: one
+        # chunk's worth. A prompt that fits runs the monolithic prefill
+        # inside the budget; a longer one claims its slot and pages now
+        # and enters the PREFILLING FIFO, advancing one chunk a step
+        # below, so no step runs more than `prefill_chunk` prefill
+        # tokens beside the decode
+        chunk = self.prefill_chunk
+        budget = chunk
+        if chunk is not None and self.chunk_control is not None:
+            # queued and chunk-pending work push the budget up, the
+            # decoding population (which every extra chunk stalls)
+            # pulls it down
+            budget = self.chunk_control.step_budget(
+                chunk,
+                self.scheduler.depth + len(self._chunk_fifo),
+                stall=float(len(self.cache.active_slots())))
         for i, (slot, req) in enumerate(pairs):
             try:
-                self._prefill(slot, req)
+                if chunk is None:
+                    self._prefill(slot, req)
+                else:
+                    if not self._chunk_fifo and req.prompt_len <= budget:
+                        self._prefill(slot, req)
+                        budget -= req.prompt_len
+                    else:
+                        self._begin_chunked(slot, req)
+            except RequestCancelled as e:
+                # the client vanished while THIS request was being
+                # prefilled: the abort path already returned its pages
+                # and no slot was assigned; cancel it alone and go on
+                self._finish_disconnect(req, exc=e, finished=finished)
+                continue
             except Exception:
-                # admissions() popped the whole batch: what was not yet
+                # admissions() popped the whole batch: what was not
                 # admitted goes back to the queue head in FCFS order,
-                # its page reservation returned
+                # its page reservation returned (a request adopted with
+                # tokens too, unlike the reference, which drops it)
                 for _, later in reversed(pairs[i + 1:]):
                     if self.paged:
                         self.cache.cancel_reservation(later)
@@ -519,9 +1118,30 @@ class ServingEngine:
                         self.cache.cancel_reservation(req)
                     self.scheduler.requeue(req)
                 raise
+            admitted.append(req.rid)
             if req.finished:
                 self._evict(slot, req, finished)
-        active = self.cache.active_slots()
+        # 1b) PREFILLING work within what is left of the budget: at most
+        # one chunk a step without a chunk controller; with one, chunks
+        # run back to back until its budget is spent
+        ran = 0
+        while chunk is not None and self._chunk_fifo:
+            head = self.cache.slots[self._chunk_fifo[0]]
+            take = min(chunk, head.prompt_len - head.prefill_pos)
+            if take > budget:
+                break
+            self._chunk_step(finished)
+            budget -= take
+            ran += 1
+            if self.chunk_control is None and ran >= 1:
+                break
+        if chunk is not None:
+            self._m_chunk_depth.set(len(self._chunk_fifo))
+        # 2) one decode step over the decoding slots (the speculative
+        # engine runs its k-wide verify instead); PREFILLING slots hold
+        # no decodable token until their final chunk
+        active = [s for s in self.cache.active_slots()
+                  if self.cache.slots[s].prefill_pos is None]
         if active:
             if self.speculative:
                 self._decode_verify(active, finished)
@@ -531,38 +1151,119 @@ class ServingEngine:
         if self.paged:
             self.peak_active_slots = max(self.peak_active_slots,
                                          len(active))
+            self._publish_page_stats()
+        return admitted, len(active)
+
+    def _check_replay(self, req: Request, logits: np.ndarray) -> int:
+        """A replay's re-predicted token against the delivered one
+        (greedy requests only); 1 and the mismatch counter bumped when
+        they differ."""
+        if req.sampling.temperature <= 0 \
+                and int(np.argmax(logits)) != req.out_tokens[-1]:
+            self._m_replay_mismatch.inc()
+            return 1
+        return 0
+
+    def _admit(self, req: Request, chunked: bool) -> None:
+        """Record the route of an admission, which ``recover()`` takes
+        again: chunked or not, and its place in the admission order."""
+        req._chunked = chunked
+        req._admit_seq = self._admissions
+        self._admissions += 1
 
     def _prefill(self, slot: int, req: Request) -> None:
         """Run the request's bucketed prefill into its slot and sample
-        its first token (TTFT)."""
-        self.metrics.on_first_prefill(req.rid)
-        if self.paged:
-            logits = self._prefill_paged(slot, req)
-        else:
-            logits = self._prefill_raw(slot, req.prompt)
+        its first token (TTFT). A request that already carries tokens
+        (adopted, or requeued after a fault) writes them after its
+        prompt instead (``_resume``)."""
+        self.metrics.on_first_prefill(req.rid)   # queue wait ends here
+        self._admit(req, chunked=False)
+        logits = self._prefill_raw(slot, req.prompt, req, cancel_check=True)
         self.cache.assign(slot, req)
         req.slot = slot
+        if req.out_tokens:
+            self._resume([(slot, req, logits)])
+            return
         tok = sample_token(logits, req.sampling, req._rng)
         req.out_tokens.append(tok)
         self.metrics.on_token(req.rid)
         self._is_finished(req, tok)
 
-    def _prefill_raw(self, slot: int, ids: np.ndarray) -> np.ndarray:
-        """Write ``ids``'s k/v into positions ``0..bucket-1`` of the slot
-        row (the padded tail is garbage the causal mask hides and each
-        decode step overwrites before attending) and return the host
-        logits at the last real token."""
+    def _prefill_raw(self, slot: int, ids: np.ndarray, req: Request,
+                     cancel_check: bool = False,
+                     share_limit: Optional[int] = None) -> np.ndarray:
+        """Write ``ids``'s k/v into positions ``0..len-1`` of the slot
+        and return the host logits at the last real token; shared by the
+        admission prefill and ``recover()``'s re-prefill.
+
+        Paged (reference ``_prefill_raw``'s paged branch): reserve if
+        the request holds no reservation yet (``recover()``), match it
+        again (at most ``share_limit`` tokens), consume it into the
+        slot's page table (the match's length kept as the request's
+        ``_shared_len``), run the COW copies, then the full prefill
+        (nothing matched) or the extend over the shared pages, and index
+        the prompt's full pages. Any failure after the reservation
+        returns every page (``abort_sequence``). ``cancel_check``: a
+        client found gone raises :class:`RequestCancelled` before the
+        model runs."""
+        maybe_fail("serving.step.prefill", slot=slot)
         n = int(ids.shape[0])
-        bucket = bucket_for(n, self.min_bucket, self.max_len)
-        # views of the slot's rows: the prefill writes the pool in place
-        caches = [(k[slot:slot + 1, :bucket], v[slot:slot + 1, :bucket], 0)
-                  for k, v in zip(self.cache.ks, self.cache.vs)]
-        return self._logits(self._padded(ids, 0, bucket), n, caches)[0]
+        if not self.paged:
+            if cancel_check and self._cancel_requested(req):
+                raise RequestCancelled(
+                    req.rid, "client disconnected before prefill")
+            bucket = bucket_for(n, self.min_bucket, self.max_len)
+            self._m_prefill.labels(bucket=bucket).inc()
+            with span("serving.prefill", request_id=req.rid, slot=slot,
+                      bucket=bucket, prompt_len=n,
+                      replay=bool(req.out_tokens)):
+                return self._full_prefill(slot, self._padded(ids, 0, bucket),
+                                          n)
+        cache = self.cache
+        try:
+            if req.rid not in cache._plans and not cache.try_reserve(
+                    req, ids, req.prompt_len + req.max_new_tokens,
+                    share_limit):
+                raise RuntimeError(
+                    f"request {req.rid}: page reservation failed on "
+                    f"re-prefill (pool too small for the in-flight set)")
+            # same-wave sharing: earlier admissions of this batch have
+            # registered their pages since the claim
+            cache.refresh_reservation(req, ids, share_limit)
+            start, copies = cache.begin_sequence(slot, req, ids)
+            req._shared_len = start
+            # pages claimed, the table row live, nothing run yet: the
+            # abort path below must return every page
+            maybe_fail("serving.prefill.paged", slot=slot,
+                       shared=start > 0)
+            if cancel_check and self._cancel_requested(req):
+                raise RequestCancelled(
+                    req.rid, "client disconnected mid-prefill")
+            self._run_copies(copies)
+            tail = n - start
+            bucket = bucket_for(tail, self.min_bucket, self.max_len)
+            self._m_prefill.labels(bucket=bucket).inc()
+            with span("serving.prefill", request_id=req.rid, slot=slot,
+                      bucket=bucket, prompt_len=n, shared_prefix=start,
+                      replay=bool(req.out_tokens)):
+                padded = self._padded(ids, start, bucket)
+                if start == 0:
+                    logits = self._full_prefill(slot, padded, n)
+                else:
+                    logits = self._extend(padded, start, tail,
+                                          cache.page_table[slot][None].copy())
+            cache.register_prefix(slot, ids)
+            return logits
+        except Exception:
+            cache.abort_sequence(slot, req)
+            raise
 
     def _padded(self, ids: np.ndarray, start: int, bucket: int):
-        """``ids[start:]`` zero-padded to ``[1, bucket]`` on the device."""
+        """``ids[start:start + bucket]`` zero-padded to ``[1, bucket]``
+        on the device."""
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :len(ids) - start] = ids[start:]
+        tail = ids[start:start + bucket]
+        padded[0, :len(tail)] = tail
         return torch.from_numpy(padded).to(self.adapter.device)
 
     def _logits(self, ids, n: int, caches):
@@ -573,37 +1274,177 @@ class ServingEngine:
         logits = ad.head(h[:, n - 1:n])[0, -1]
         return logits.float().cpu().numpy(), new_caches
 
-    def _prefill_paged(self, slot: int, req: Request) -> np.ndarray:
-        """The paged admission (reference ``_prefill_raw``'s paged
-        branch): consume the reservation into the slot's page table, run
-        the COW copies, then the full prefill (nothing matched) or the
-        extend over the shared pages, and index the prompt's full pages.
-        Any failure after the claim returns every page
-        (``abort_sequence``)."""
-        cache = self.cache
-        ids = req.prompt
-        n = int(ids.shape[0])
+    def _full_prefill(self, slot: int, padded, n: int) -> np.ndarray:
+        """The monolithic prefill of ``n`` tokens at position 0, the
+        route that runs the flash-attention kernel: on the slot's row of
+        the contiguous pool (positions ``0..bucket-1``; the padded tail
+        is garbage the causal mask hides and each decode step
+        overwrites before attending), or through a local cache written
+        into the slot's pages (``_paginated_prefill``)."""
+        bucket = padded.shape[1]
+        if not self.paged:
+            # views of the slot's rows: the prefill writes the pool in
+            # place
+            caches = [(k[slot:slot + 1, :bucket], v[slot:slot + 1, :bucket],
+                       0) for k, v in zip(self.cache.ks, self.cache.vs)]
+            return self._logits(padded, n, caches)[0]
+        npg = -(-bucket // self.cache.page_size)
+        return self._paginated_prefill(
+            padded, n, self.cache.page_table[slot][:npg].copy())
+
+    # -- chunked prefill -------------------------------------------------
+    def _begin_chunked(self, slot: int, req: Request) -> None:
+        """Claim a slot for a CHUNKED prefill without running any model
+        call: the request enters the PREFILLING state (slot leased,
+        pages placed, ``prefill_pos`` at the shared-prefix boundary) and
+        advances one chunk a step from the FIFO head (``_chunk_step``).
+        The paged admission already reserved the worst-case page span,
+        so chunking never runs out of pages mid-prompt."""
+        self.metrics.on_first_prefill(req.rid)   # queue wait ends here
+        self._admit(req, chunked=True)
+        self._enter_prefilling(slot, req)
+        self.cache.assign(slot, req)
+        req.slot = slot
+
+    def _enter_prefilling(self, slot: int, req: Request,
+                          share_limit: Optional[int] = None) -> None:
+        """Place the request's pages (paged) and put its slot at the
+        chunk FIFO's tail, PREFILLING from the shared-prefix boundary."""
+        start = self._claim_for_chunks(slot, req, share_limit)
+        req.prefill_pos = int(start)
+        self._chunk_fifo.append(slot)
+
+    def _claim_for_chunks(self, slot: int, req: Request,
+                          share_limit: Optional[int] = None) -> int:
+        """Paged: reserve (if the request holds no reservation yet),
+        match again (at most ``share_limit`` tokens) and consume the
+        reservation into the slot's page table, COW copies run; any
+        failure returns every page. Returns the shared-prefix length (0
+        on the contiguous layout), kept as the request's
+        ``_shared_len``."""
+        if not self.paged:
+            return 0
+        cache, ids = self.cache, req.prompt
         try:
-            # same-wave sharing: earlier admissions of this batch have
-            # registered their pages since the claim
-            cache.refresh_reservation(req, ids)
+            if req.rid not in cache._plans and not cache.try_reserve(
+                    req, ids, req.prompt_len + req.max_new_tokens,
+                    share_limit):
+                raise RuntimeError(
+                    f"request {req.rid}: page reservation failed at "
+                    f"chunked admission")
+            cache.refresh_reservation(req, ids, share_limit)
             start, copies = cache.begin_sequence(slot, req, ids)
+            req._shared_len = start
             self._run_copies(copies)
-            bucket = bucket_for(n - start, self.min_bucket, self.max_len)
-            padded = self._padded(ids, start, bucket)
-            row = cache.page_table[slot]
-            if start == 0:
-                npg = -(-bucket // cache.page_size)
-                logits = self._paginated_prefill(padded, n,
-                                                 row[:npg].copy())
-            else:
-                logits = self._extend(padded, start, n - start,
-                                      row[None].copy())
-            cache.register_prefix(slot, ids)
-            return logits
         except Exception:
+            # the abort path returns every claim (the slot lease, if
+            # held, is left alone); the caller requeues, or recover()
+            # starts over
             cache.abort_sequence(slot, req)
             raise
+        return start
+
+    def _chunk_step(self, finished: List[Request]) -> None:
+        """Advance the PREFILLING FIFO head by one chunk: write tokens
+        ``prefill_pos .. prefill_pos + t - 1`` into the slot's KV,
+        attending over everything already written, and on the FINAL
+        chunk sample the first token and enter decode."""
+        slot = self._chunk_fifo[0]
+        req = self.cache.slots[slot]
+        ids, n = req.prompt, req.prompt_len
+        pos = req.prefill_pos
+        t = min(self.prefill_chunk, n - pos)
+        final = pos + t >= n
+        try:
+            # slot leased, pages claimed, part of the prompt written:
+            # the unwind below frees the pages AND the lease and
+            # requeues
+            maybe_fail("serving.prefill.chunk", slot=slot, pos=pos,
+                       final=final)
+            if self._cancel_requested(req):
+                raise RequestCancelled(
+                    req.rid, "client disconnected mid-chunked-prefill")
+            bucket = bucket_for(t, self.min_bucket, self.max_len)
+            self._m_prefill.labels(bucket=bucket).inc()
+            with span("serving.chunk_prefill", request_id=req.rid,
+                      slot=slot, pos=pos, chunk=t, final=final,
+                      replay=bool(req.out_tokens)):
+                logits = self._run_chunk(slot, self._padded(ids, pos,
+                                                            bucket), pos, t)
+        except RequestCancelled as e:
+            self._unwind_chunk(slot, req, requeue=False)
+            self._finish_disconnect(req, exc=e, finished=finished)
+            return
+        except Exception:
+            self._unwind_chunk(slot, req, requeue=True)
+            raise
+        req.prefill_pos = pos + t
+        self._m_chunk_steps.inc()
+        if final:
+            self._finish_chunked(slot, req, logits, finished)
+
+    def _run_chunk(self, slot: int, padded, pos: int, t: int) -> np.ndarray:
+        """One chunk (reference ``_chunk_fn``, run eagerly): the
+        ``[1, bucket]`` chunk at scalar position ``pos``, its first
+        ``t`` tokens real, through the einsum cache attention (never the
+        flash kernel, as in the reference, whose cache has none), and
+        the host logits at token ``t - 1`` (only the final chunk's are
+        used). Contiguous: on the slot's ``[1, max_len]`` row of the
+        pool, writes past ``t`` masked (``wlen``). Paged: the extend at
+        a mid-prompt start through the slot's page table, writes past
+        ``t`` sent to trash page 0."""
+        if self.paged:
+            return self._extend(padded, pos, t,
+                                self.cache.page_table[slot][None].copy(),
+                                wlen=t)
+        wl = torch.tensor([t], device=self.adapter.device)
+        caches = [(k[slot:slot + 1], v[slot:slot + 1], pos, wl)
+                  for k, v in zip(self.cache.ks, self.cache.vs)]
+        return self._logits(padded, t, caches)[0]
+
+    def _finish_chunked(self, slot: int, req: Request, logits: np.ndarray,
+                        finished: List[Request]) -> None:
+        """Final chunk done: leave the PREFILLING state and enter
+        decode (a request that carries tokens writes them instead,
+        ``_resume``), as the tail of the monolithic ``_prefill`` does."""
+        self._chunk_fifo.pop(0)
+        req.prefill_pos = None
+        if self.paged:
+            self.cache.register_prefix(slot, req.prompt)
+        if req.out_tokens:
+            self._resume([(slot, req, logits)])
+            return
+        tok = sample_token(logits, req.sampling, req._rng)
+        req.out_tokens.append(tok)
+        self.metrics.on_token(req.rid)
+        if self._is_finished(req, tok):
+            self._evict(slot, req, finished)
+
+    def _clear_chunk_state(self, slot: int, req: Request) -> None:
+        """Drop a PREFILLING request's chunk bookkeeping without
+        touching the cache (the terminal paths release the slot
+        themselves)."""
+        if req.prefill_pos is None:
+            return
+        req.prefill_pos = None
+        if slot in self._chunk_fifo:
+            self._chunk_fifo.remove(slot)
+
+    def _unwind_chunk(self, slot: int, req: Request,
+                      requeue: bool) -> None:
+        """Unwind a PREFILLING slot after a mid-chunk fault or
+        disconnect: the chunk bookkeeping goes, the paged claims return
+        through the abort path and the lease frees (abort_sequence
+        zeroed the table row and popped the plan, so release() has
+        nothing left to unref). ``requeue`` puts the request back at
+        the queue head; its replay re-chunks from the start."""
+        self._clear_chunk_state(slot, req)
+        if self.paged:
+            self.cache.abort_sequence(slot, req)
+        self.cache.release(slot)
+        req.slot = None
+        if requeue:
+            self.scheduler.requeue(req)
 
     def _paginated_prefill(self, padded, n: int, page_ids: np.ndarray):
         """Full-prompt paged prefill: run the prompt through a local
@@ -647,13 +1488,19 @@ class ServingEngine:
                  c.vss[i] if c.vss else None, tab, pos)
                 for i, (k, v) in enumerate(zip(c.ks, c.vs))]
 
-    def _extend(self, padded, start: int, tail: int, table: np.ndarray):
-        """Shared-prefix tail prefill: the tail runs through the paged
-        cache path at position ``start``, attending over the shared
-        pages through the slot's table and writing its own k/v through
-        it (bucket padding past the table goes to the trash page)."""
-        return self._logits(padded, tail,
-                            self._paged_caches(table, start))[0]
+    def _extend(self, padded, start: int, tail: int, table: np.ndarray,
+                wlen: Optional[int] = None):
+        """The paged extend: ``tail`` tokens run through the paged cache
+        path at position ``start``, attending over the pages already
+        written (shared prefix pages, earlier chunks) through the slot's
+        table and writing their own k/v through it. Bucket padding past
+        the table goes to the trash page, and with ``wlen`` every write
+        past the first ``wlen`` tokens does (the chunk's padding)."""
+        caches = self._paged_caches(table, start)
+        if wlen is not None:
+            wl = torch.tensor([wlen], device=self.adapter.device)
+            caches = [c + (wl,) for c in caches]
+        return self._logits(padded, tail, caches)[0]
 
     def _run_copies(self, copies) -> None:
         """COW page copies on the device, before any program reads the
@@ -667,7 +1514,6 @@ class ServingEngine:
     def _decode(self, active, finished: List[Request]) -> None:
         """The k=1 decode step over every slot (reference
         ``_decode_plain``)."""
-        ad = self.adapter
         toks = np.zeros((self.max_slots, 1), np.int64)
         pos = np.zeros((self.max_slots,), np.int64)
         copies = []
@@ -681,18 +1527,19 @@ class ServingEngine:
                 c = self.cache.ensure_decode_page(s, req.next_pos)
                 if c is not None:
                     copies.append(c)
-        pos_dev = torch.from_numpy(pos).to(ad.device)
+        # COW copies run BEFORE the fault point: ensure_decode_page
+        # already flipped the table rows, so the device must match the
+        # table whenever the fault can fire
         if self.paged:
             self._run_copies(copies)
-            # inactive rows read and write trash page 0 at position 0
-            table = np.zeros_like(self.cache.page_table)
-            table[active] = self.cache.page_table[active]
-            caches = self._paged_caches(table, pos_dev)
-        else:
-            caches = [(k, v, pos_dev)
-                      for k, v in zip(self.cache.ks, self.cache.vs)]
-        h, _ = ad.call(torch.from_numpy(toks).to(ad.device), caches)
-        logits = ad.head(h[:, -1:])[:, -1].float().cpu().numpy()
+        maybe_fail("serving.step.decode", step=self._step_idx - 1)
+        with span("serving.decode", batch=len(active),
+                  request_ids=[self.cache.slots[s].rid for s in active]):
+            # chunked engines write-mask the inactive rows: the plain
+            # call writes every row's k/v at position 0, which would
+            # overwrite a PREFILLING slot's first chunk
+            logits = self._decode_logits(
+                active, toks, pos, masked=self.prefill_chunk is not None)
         for s in active:
             req = self.cache.slots[s]
             tok = sample_token(logits[s], req.sampling, req._rng)
@@ -700,6 +1547,31 @@ class ServingEngine:
             self.metrics.on_token(req.rid)
             if self._is_finished(req, tok):
                 self._evict(s, req, finished)
+
+    def _decode_logits(self, active, toks: np.ndarray, pos: np.ndarray,
+                       masked: bool) -> np.ndarray:
+        """One ``[max_slots, 1]`` forward feeding ``toks`` at ``pos``:
+        host logits [max_slots, vocab]. Inactive rows run at position 0,
+        on the paged layout through trash page 0; ``masked`` (contiguous)
+        gates the writes so that only active rows write (their writes
+        and attention keep the bits of the plain call)."""
+        ad = self.adapter
+        pos_dev = torch.from_numpy(pos).to(ad.device)
+        if self.paged:
+            table = np.zeros_like(self.cache.page_table)
+            table[active] = self.cache.page_table[active]
+            caches = self._paged_caches(table, pos_dev)
+        elif masked:
+            act = np.zeros((self.max_slots,), np.int64)
+            act[active] = 1
+            wl = torch.from_numpy(act).to(ad.device)
+            caches = [(k, v, pos_dev, wl)
+                      for k, v in zip(self.cache.ks, self.cache.vs)]
+        else:
+            caches = [(k, v, pos_dev)
+                      for k, v in zip(self.cache.ks, self.cache.vs)]
+        h, _ = ad.call(torch.from_numpy(toks).to(ad.device), caches)
+        return ad.head(h[:, -1:])[:, -1].float().cpu().numpy()
 
     # -- speculative decoding ------------------------------------------
     def _decode_verify(self, active, finished: List[Request]) -> None:
@@ -715,7 +1587,12 @@ class ServingEngine:
         position: the causal mask hides them until a later step
         overwrites them, so the only rollback is the pages claimed past
         the accepted tokens (paged). A failed draft proposal is
-        contained to its row (``_on_draft_fault``)."""
+        contained to its row (``_on_draft_fault``).
+
+        Fault points: ``serving.spec.draft`` (one row's proposal,
+        contained), ``serving.decode.verify`` (drafts built, pages
+        claimed, nothing emitted yet; also on a gated step) and
+        ``serving.spec.resample`` (in ``_emit_verified``)."""
         K = self.spec_k
         toks = np.zeros((self.max_slots, K), np.int64)
         pos = np.zeros((self.max_slots,), np.int64)
@@ -746,6 +1623,8 @@ class ServingEngine:
                 draft, qs = (), []
                 t0 = self.metrics.now()
                 try:
+                    maybe_fail("serving.spec.draft",
+                               step=self._step_idx - 1, slot=s)
                     if sampled and isinstance(prop, DraftModelProposer):
                         draft, qs = prop.propose_sampled(
                             req.rid, req.full_ids, want, req.sampling,
@@ -767,17 +1646,26 @@ class ServingEngine:
                     if sampled:
                         row_draft[s], row_qs[s] = draft, qs
                     self._spec["draft_tokens"] += len(draft)
+                    self._m_spec_draft.inc(len(draft))
+                    self._m_spec_proposer.labels(kind=kind).inc()
             wlen[s] = n
         if self.spec_gate and all(int(wlen[s]) == 1 for s in active):
             # no row drafted: the k=1 decode emits the same tokens (the
             # same logits row, the same per-request RNG stream) at 1/k
-            # of the verify's work; no page state was touched yet
+            # of the verify's work; no page state was touched yet. The
+            # verify's fault point still guards every speculative step
+            maybe_fail("serving.decode.verify", step=self._step_idx - 1,
+                       gated=True)
             n_rows = len(active)
             self._decode(active, finished)
+            # counted AFTER the delegated step succeeds: a fault inside
+            # it replays through this gate after recover()
             self._spec["gated_steps"] += 1
             self._spec["rows"] += n_rows
             self._spec["emitted"] += n_rows
             self._spec["acc_len_hist"][1] += n_rows
+            for _ in range(n_rows):
+                self._m_spec_acc.labels(proposer="none").observe(1.0)
             # rows that tried to draft and came back empty read as
             # accepted length 1 to the tuner
             self._tuner_step(attempted, {s: 1 for s in attempted})
@@ -788,8 +1676,13 @@ class ServingEngine:
                 for s in active:
                     copies += self.cache.ensure_decode_range(
                         s, self.cache.slots[s].next_pos, int(wlen[s]))
+                # COW copies BEFORE the fault point (as in the decode)
                 self._run_copies(copies)
-            logits, greedy, acc = self._verify(active, toks, pos, wlen)
+            maybe_fail("serving.decode.verify", step=self._step_idx - 1)
+            with span("serving.verify", batch=len(active), k=K,
+                      request_ids=[self.cache.slots[s].rid
+                                   for s in active]):
+                logits, greedy, acc = self._verify(active, toks, pos, wlen)
         except Exception:
             # nothing was emitted, but ensure_decode_range claimed every
             # page the k-wide window touches: return those past each
@@ -812,6 +1705,11 @@ class ServingEngine:
                 self._spec["emitted"] += emitted
                 self._spec["accepted_draft_tokens"] += emitted - 1
                 self._spec["acc_len_hist"][min(emitted, K)] += 1
+                self._m_spec_acc.labels(
+                    proposer=row_kind.get(s, "none")).observe(
+                        float(emitted))
+                if emitted > 1:
+                    self._m_spec_accepted.inc(emitted - 1)
                 if self.paged and not req.finished:
                     # pages past the next write position hold only
                     # rejected drafts (a finished row releases all)
@@ -828,6 +1726,9 @@ class ServingEngine:
                         self.cache.rollback_speculation(s, req.next_pos)
             raise
         self._spec["steps"] += 1
+        if self._spec["draft_tokens"]:
+            self._m_spec_hit.set(self._spec["accepted_draft_tokens"]
+                                 / self._spec["draft_tokens"])
         # every attempted row's accepted length (an empty draft is 1)
         self._tuner_step(attempted, {s: emitted_by_slot.get(s, 1)
                                      for s in attempted})
@@ -918,6 +1819,9 @@ class ServingEngine:
                         return emitted
                     continue
                 # first rejection: one corrective token from the residual
+                # (a failure here must neither lose nor duplicate tokens)
+                maybe_fail("serving.spec.resample",
+                           step=self._step_idx - 1, slot=slot)
                 if qs:
                     res = np.maximum(p - qs[j], 0.0)
                 else:
@@ -954,15 +1858,17 @@ class ServingEngine:
     def _on_draft_fault(self, slot: int, req: Request, proposer,
                         exc: Exception) -> None:
         """Contain a failed draft proposal to its row for this step: the
-        row falls back to k=1. A draft model's failure may have come
-        part-way through its in-place pool writes, so that proposer is
-        reset whole (its pools are allocated again); the n-gram
-        proposer's index is derived from confirmed history, so the rid
-        is unwound. ``draft_faults`` counts it."""
-        if isinstance(proposer, DraftModelProposer):
-            proposer.reset()
-        else:
+        row falls back to k=1. An injected fault fires before the
+        proposer runs, and the n-gram proposer's index is derived from
+        confirmed history, so the rid is unwound; a draft model's own
+        failure may have come part-way through its in-place pool writes,
+        so that proposer is reset whole (its pools are allocated again).
+        ``draft_faults`` counts it."""
+        if isinstance(exc, InjectedFault) \
+                or not isinstance(proposer, DraftModelProposer):
             proposer.unwind(req.rid)
+        else:
+            proposer.reset()
         self._spec["draft_faults"] += 1
 
     def _tuner_step(self, attempted: dict, accepted: dict) -> None:
@@ -973,6 +1879,8 @@ class ServingEngine:
         for s, (klass, kind) in attempted.items():
             self._tuner.observe(klass, kind, accepted.get(s, 1))
         self._tuner.on_step()
+        for klass, st in self._tuner.snapshot()["classes"].items():
+            self._m_spec_tuner_k.labels(klass=klass).set(st["k"])
 
     # -- bookkeeping ---------------------------------------------------
     def _is_finished(self, req: Request, tok: int) -> bool:
@@ -984,9 +1892,14 @@ class ServingEngine:
 
     def _evict(self, slot: int, req: Request,
                finished: List[Request]) -> None:
+        # a PREFILLING request can reach a terminal state mid-prefill
+        # (deadline, disconnect, drain cutoff): drop its chunk
+        # bookkeeping so release() is the whole cleanup
+        self._clear_chunk_state(slot, req)
         self.cache.release(slot)
         req.slot = None
         finished.append(req)
+        self._m_evict.labels(reason=req.finish_reason or "unknown").inc()
         self.metrics.on_finished(req.rid)
         self._proposer_release(req.rid)
 
@@ -1004,6 +1917,7 @@ class ServingEngine:
         for req in self.scheduler.expire(now):
             req.finished, req.finish_reason = True, "deadline"
             req.error = DeadlineExceeded(req.rid, "expired while queued")
+            self._m_deadline.inc()
             self.metrics.on_finished(req.rid)
             finished.append(req)
         for s in self.cache.active_slots():
@@ -1013,4 +1927,62 @@ class ServingEngine:
                 req.error = DeadlineExceeded(
                     req.rid, f"expired in slot {s} after "
                              f"{len(req.out_tokens)} token(s)")
+                self._m_deadline.inc()
+                self._evict(s, req, finished)
+
+    def _cancel_requested(self, req: Request) -> bool:
+        """True if the client behind ``req`` is known gone: the
+        request's own flag, else the ``cancel_probe``. A probe that
+        itself raises reads as 'still connected'."""
+        if req.cancel_requested:
+            return True
+        probe = self.cancel_probe
+        if probe is None:
+            return False
+        try:
+            if probe(req):
+                req.cancel_requested = True
+                return True
+        except Exception:
+            return False
+        return False
+
+    def _finish_disconnect(self, req: Request,
+                           detail: Optional[str] = None,
+                           exc: Optional[BaseException] = None,
+                           finished: Optional[List[Request]] = None) \
+            -> None:
+        """The terminal bookkeeping of every path that finds the client
+        gone (prefill abort, the sweeps, recover). Callers that evict a
+        slot pass ``finished=None`` and let ``_evict`` deliver."""
+        req.finished, req.finish_reason = True, "disconnect"
+        req.error = exc if exc is not None \
+            else RequestCancelled(req.rid, detail or "disconnect")
+        self._m_disconnect.inc()
+        if finished is not None:
+            self.metrics.on_finished(req.rid)
+            finished.append(req)
+
+    def _sweep_disconnects(self, finished: List[Request]) -> None:
+        """Cancel queued and in-flight requests whose client went away
+        (the deadline sweep's step-boundary grain); a freed slot returns
+        its pages through the normal release."""
+        if self.cancel_probe is None and \
+                not any(r.cancel_requested
+                        for r in self.scheduler.pending()) and \
+                not any(self.cache.slots[s].cancel_requested
+                        for s in self.cache.active_slots()):
+            return
+        for req in list(self.scheduler.pending()):
+            if self._cancel_requested(req):
+                self.scheduler.remove(req)
+                self._finish_disconnect(
+                    req, "client disconnected while queued",
+                    finished=finished)
+        for s in self.cache.active_slots():
+            req = self.cache.slots[s]
+            if self._cancel_requested(req):
+                self._finish_disconnect(
+                    req, f"client disconnected in slot {s} after "
+                         f"{len(req.out_tokens)} token(s)")
                 self._evict(s, req, finished)

@@ -10,11 +10,12 @@ parsing RuntimeError strings:
   ``finish_reason == "deadline"``) when the engine cancels a queued or
   in-flight request at a step boundary; never raised by ``submit()``.
 - :class:`EngineBroken` — ``step()``/``submit()`` after a step failed
-  part-way through its in-place KV writes.
+  (its in-place KV writes may be half done), until ``recover()``.
 - :class:`EngineIdle` — ``step()`` with no queued or in-flight work.
 - :class:`EngineClosed` — ``submit()`` after ``drain()``.
-- :class:`RequestCancelled` — set as ``Request.error`` by
-  ``drain(max_steps=...)`` cutoffs.
+- :class:`RequestCancelled` — set as ``Request.error`` by ``cancel()``,
+  ``drain()`` cutoffs and client disconnects (raised inside a prefill
+  that observes the disconnect, and handled there).
 
 The front-door and router errors come with the fleet slice.
 """
@@ -61,9 +62,8 @@ class EngineBroken(ServingError):
     def __init__(self, reason: str):
         super().__init__(
             f"ServingEngine is broken (a step failed part-way through "
-            f"its in-place KV-cache writes): {reason}. Build a new "
-            f"engine; recover() comes with the resilience slice of the "
-            f"port.")
+            f"its in-place KV-cache writes): {reason}. Call recover() "
+            f"to rebuild the KV state from the requests and go on.")
         self.reason = reason
 
 

@@ -3,11 +3,15 @@ latency percentiles, slot occupancy, steps, and the draft
 proposals' seconds of a speculative engine.
 
 Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``
-without the bridge to the observability registry (that comes with the
-observability slice). The clock is injectable (``time_fn``) so tests
-can assert exact accounting with a fake clock. Per-request state is
-dropped when a request finishes; the percentile pools are rolling
-windows of the last ``window`` observations.
+(without the KV host tier's promotion wait, which comes with that
+slice). The clock is injectable (``time_fn``) so tests can assert exact
+accounting with a fake clock. Every hook also publishes to the
+``ptpu_serving_*`` families of the observability registry
+(``registry``, the process default unless given): request and token
+counters, and the TTFT, inter-token, queue-wait, decode-stall and
+draft histograms. Per-request state is dropped when a request
+finishes; the percentile pools are rolling windows of the last
+``window`` observations.
 """
 from __future__ import annotations
 
@@ -21,19 +25,26 @@ __all__ = ["EngineMetrics"]
 
 
 class _ReqStats:
-    __slots__ = ("t_submit", "t_first", "t_prefill", "t_last_token")
+    __slots__ = ("t_submit", "t_first", "t_prefill", "t_last_token",
+                 "stalled", "phase")
 
-    def __init__(self, t_submit: float):
+    def __init__(self, t_submit: float, stalled: bool = False):
         self.t_submit = t_submit
         self.t_first: Optional[float] = None
         self.t_prefill: Optional[float] = None
         self.t_last_token: Optional[float] = None
+        # submitted while the engine already had work in flight: its
+        # first token may have waited behind other requests' prefills
+        # (the decode-stall histogram's population)
+        self.stalled = stalled
+        # the last lifecycle phase seen for this request
+        self.phase = "queue"
 
 
 class EngineMetrics:
     def __init__(self, max_slots: int,
                  time_fn: Callable[[], float] = time.perf_counter,
-                 window: int = 65536):
+                 registry=None, window: int = 65536):
         self.max_slots = max_slots
         self.now = time_fn
         self._reqs: Dict[int, _ReqStats] = {}      # in-flight only
@@ -47,12 +58,39 @@ class EngineMetrics:
         self._draft: deque = deque(maxlen=window)
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
+        if registry is None:
+            from ..observability import default_registry
+            registry = default_registry()
+        self._m_requests = registry.counter(
+            "ptpu_serving_requests_total", "requests submitted")
+        self._m_tokens = registry.counter(
+            "ptpu_serving_tokens_total", "tokens emitted")
+        self._m_ttft = registry.histogram(
+            "ptpu_serving_ttft_seconds",
+            "submit-to-first-token latency")
+        self._m_gap = registry.histogram(
+            "ptpu_serving_inter_token_seconds",
+            "gap between consecutive tokens of one request")
+        self._m_queue_wait = registry.histogram(
+            "ptpu_serving_queue_wait_seconds",
+            "submit-to-first-prefill wait (scheduler queueing, "
+            "prefill compute excluded)")
+        self._m_stall = registry.histogram(
+            "ptpu_serving_decode_stall_seconds",
+            "submit-to-first-token gap for requests submitted while "
+            "other work was in flight (decode blocked behind prefills)")
+        self._m_draft = registry.histogram(
+            "ptpu_serving_spec_draft_seconds",
+            "wall time spent proposing one row's speculative draft "
+            "(the spec_draft SLO phase: n-gram lookup or draft-model "
+            "forwards, billed separately from verify compute)")
 
     # -- event hooks (the engine calls these) --------------------------
-    def on_submit(self, rid: int) -> None:
+    def on_submit(self, rid: int, stalled: bool = False) -> None:
         t = self.now()
-        self._reqs[rid] = _ReqStats(t)
+        self._reqs[rid] = _ReqStats(t, stalled=stalled)
         self._n_requests += 1
+        self._m_requests.inc()
         if self._t0 is None:
             self._t0 = t
         self._t_last = t
@@ -60,26 +98,37 @@ class EngineMetrics:
     def on_first_prefill(self, rid: int) -> None:
         """The request leaves the queue: its prefill starts."""
         r = self._reqs[rid]
+        r.phase = "prefill"
         if r.t_prefill is None:
             r.t_prefill = self.now()
-            self._qwait.append(r.t_prefill - r.t_submit)
+            w = r.t_prefill - r.t_submit
+            self._qwait.append(w)
+            self._m_queue_wait.observe(w)
 
     def on_token(self, rid: int) -> None:
         t = self.now()
         r = self._reqs[rid]
+        r.phase = "decode"
         if r.t_first is None:
             r.t_first = t
             self._ttft.append(t - r.t_submit)
+            self._m_ttft.observe(t - r.t_submit)
+            if r.stalled:
+                self._m_stall.observe(t - r.t_submit)
         else:
-            self._gaps.append(t - r.t_last_token)
+            gap = t - r.t_last_token
+            self._gaps.append(gap)
+            self._m_gap.observe(gap)
         r.t_last_token = t
         self._n_tokens += 1
+        self._m_tokens.inc()
         self._t_last = t
 
     def on_draft(self, wait_s: float) -> None:
         """One row's draft proposal completed (or failed): its wall
         time, the cost side of speculation (``spec_draft_s``)."""
         self._draft.append(wait_s)
+        self._m_draft.observe(wait_s)
 
     def on_step(self, active_slots: int) -> None:
         self._n_steps += 1
@@ -88,6 +137,17 @@ class EngineMetrics:
 
     def on_finished(self, rid: int) -> None:
         self._reqs.pop(rid, None)
+
+    # -- read surface ---------------------------------------------------
+    def inflight_phases(self) -> Dict[int, Dict[str, object]]:
+        """Per-request last-seen phase and age for every request this
+        ledger still holds in flight (``on_finished`` not yet called);
+        diffed against ``ServingEngine.inflight_rids()`` it names a
+        request some failure path dropped."""
+        now = self.now()
+        return {rid: {"phase": r.phase,
+                      "age_s": now - r.t_submit}
+                for rid, r in self._reqs.items()}
 
     # -- aggregation ---------------------------------------------------
     def summary(self) -> Dict[str, float]:

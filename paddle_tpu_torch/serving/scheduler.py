@@ -4,8 +4,9 @@ Counterpart of ``paddle_tpu/serving/scheduler.py``: the waiting queue,
 FCFS admission into freed slots, and the power-of-2 prefill buckets.
 In the reference the buckets bound the number of compiled prefill
 programs; here they keep the kernel and matmul shapes to O(log max_len)
-sizes. Admission takes the paged engine's page claim (strict FCFS);
-the admission lookahead comes with the chunked-prefill slice.
+sizes. Admission takes the paged engine's page claim, strict FCFS by
+default; ``lookahead`` lets a bounded number of blocked requests be
+passed over.
 """
 from __future__ import annotations
 
@@ -56,12 +57,31 @@ class Request:
     sampling: SamplingParams
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
+    # PREFILLING state (chunked prefill): tokens 0..prefill_pos-1 of
+    # the prompt are written to the claimed slot's KV but the request
+    # is not decoding yet; None = not mid-prefill (the only state an
+    # unchunked engine sees)
+    prefill_pos: Optional[int] = None
     finished: bool = False
     finish_reason: Optional[str] = None
     # absolute deadline on the ENGINE clock (None = no deadline)
     deadline: Optional[float] = None
     error: Optional[BaseException] = None
+    # the client-disconnect flag: set (possibly from another thread)
+    # when the client goes away; the engine cancels the request at the
+    # next safe point (the step-boundary sweep, or mid-prefill) with
+    # finish_reason "disconnect"
+    cancel_requested: bool = False
+    # tracing context (observability.TraceContext) the request's spans
+    # parent to
+    trace: Optional[object] = None
     _rng: Optional[np.random.RandomState] = None
+    # the route of its admission, which recover() takes again: through
+    # the chunk FIFO or not, the shared-prefix length its paged
+    # admission matched, and its place in the engine's admission order
+    _chunked: bool = False
+    _shared_len: int = 0
+    _admit_seq: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -107,6 +127,7 @@ class FIFOScheduler:
         return list(self._queue)
 
     def admissions(self, free_slots: List[int], claim=None,
+                   lookahead: int = 0,
                    unclaim=None) -> List[Tuple[int, Request]]:
         """Pair queued requests with free slots, FCFS, one per slot.
 
@@ -116,26 +137,42 @@ class FIFOScheduler:
         ``claim(head)`` returning False stops the batch with the head
         still queued (no skipping ahead of a request that does not fit
         yet). A truthy claim is a committed reservation: the caller
-        unwinds it if the admission later fails. A claim that RAISES
-        mid-batch unwinds the claims already made (``unclaim``) and puts
-        their requests back at the queue head in FCFS order before the
-        exception propagates."""
+        unwinds it if the admission later fails.
+
+        ``lookahead`` bounds head-of-line blocking: when the head's
+        claim fails, up to ``lookahead`` blocked requests may be passed
+        over (keeping their queue positions) to admit a smaller request
+        behind them that does fit. 0 (the default) is strict FCFS.
+
+        A claim that RAISES mid-batch unwinds the claims already made
+        (``unclaim``) and puts their requests back at the queue head in
+        FCFS order before the exception propagates."""
         picked = []
+        idx = 0          # scan position in the queue
+        skipped = 0      # blocked requests passed over (<= lookahead)
         for slot in free_slots:
-            if not self._queue:
+            got = None
+            while idx < len(self._queue):
+                req = self._queue[idx]
+                try:
+                    ok = claim is None or claim(req)
+                except BaseException:
+                    for _, r in reversed(picked):
+                        if unclaim is not None:
+                            unclaim(r)
+                        self.requeue(r)
+                    raise
+                if ok:
+                    got = req
+                    del self._queue[idx]
+                    break
+                skipped += 1
+                if skipped > lookahead:
+                    break
+                idx += 1
+            if got is None:
                 break
-            req = self._queue[0]
-            try:
-                ok = claim is None or claim(req)
-            except BaseException:
-                for _, r in reversed(picked):
-                    if unclaim is not None:
-                        unclaim(r)
-                    self.requeue(r)
-                raise
-            if not ok:
-                break
-            picked.append((slot, self._queue.popleft()))
+            picked.append((slot, got))
         return picked
 
     def requeue(self, req: Request) -> None:

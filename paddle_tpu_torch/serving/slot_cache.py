@@ -110,15 +110,21 @@ class _SlotTable:
 
 class SlotKVCache(_SlotTable):
     """Per-layer [max_slots, max_len, kv_heads, head_dim] k/v buffers
-    plus the slot lease table (the contiguous pool)."""
+    plus the slot lease table (the contiguous pool). ``pools`` (the
+    ``(ks, vs)`` lists of a cache of the same geometry) takes those
+    device buffers over instead of allocating new ones: the engine's
+    ``recover()`` rebuilds the host state around the pools it has."""
 
     def __init__(self, num_layers: int, max_slots: int, max_len: int,
                  kv_heads: int, head_dim: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, pools=None):
         _validate_geometry(num_layers, max_slots, max_len, kv_heads,
                            head_dim)
         super().__init__(max_slots)
         self.max_len = max_len
+        if pools is not None:
+            self.ks, self.vs = list(pools[0]), list(pools[1])
+            return
         shape = (max_slots, max_len, kv_heads, head_dim)
         self.ks = [torch.zeros(shape, dtype=dtype, device=device)
                    for _ in range(num_layers)]
@@ -147,13 +153,16 @@ class PagedKVCache(_SlotTable):
     """Block-paged KV pool with COW prefix sharing and optional int8
     storage (see module docstring). ``num_pages`` INCLUDES the reserved
     trash page 0; None means capacity parity with the contiguous pool
-    (``max_slots * max_len / page_size + 1``)."""
+    (``max_slots * max_len / page_size + 1``). ``pools`` (the ``(ks,
+    vs, kss, vss)`` lists of a cache of the same geometry) takes those
+    device pools over instead of allocating new ones, with fresh host
+    state (free list, refcounts, page table, prefix index)."""
 
     def __init__(self, num_layers: int, max_slots: int, max_len: int,
                  kv_heads: int, head_dim: int, dtype: torch.dtype,
                  device: torch.device, page_size: int = 128,
                  num_pages: Optional[int] = None, quant: bool = False,
-                 prefix_sharing: bool = True):
+                 prefix_sharing: bool = True, pools=None):
         _validate_geometry(num_layers, max_slots, max_len, kv_heads,
                            head_dim)
         if page_size < 1:
@@ -176,17 +185,22 @@ class PagedKVCache(_SlotTable):
         self.num_pages = num_pages
         self.quant = bool(quant)
         self.prefix_sharing = bool(prefix_sharing)
-        shape = (num_pages, page_size, kv_heads, head_dim)
-        pool_dtype = torch.int8 if self.quant else dtype
-        self.ks = [torch.zeros(shape, dtype=pool_dtype, device=device)
-                   for _ in range(num_layers)]
-        self.vs = [torch.zeros(shape, dtype=pool_dtype, device=device)
-                   for _ in range(num_layers)]
-        sshape = (num_pages, page_size, kv_heads)
-        self.kss = [torch.zeros(sshape, dtype=torch.float32, device=device)
-                    for _ in range(num_layers)] if self.quant else []
-        self.vss = [torch.zeros(sshape, dtype=torch.float32, device=device)
-                    for _ in range(num_layers)] if self.quant else []
+        if pools is not None:
+            self.ks, self.vs, self.kss, self.vss = map(list, pools)
+        else:
+            shape = (num_pages, page_size, kv_heads, head_dim)
+            pool_dtype = torch.int8 if self.quant else dtype
+            self.ks = [torch.zeros(shape, dtype=pool_dtype, device=device)
+                       for _ in range(num_layers)]
+            self.vs = [torch.zeros(shape, dtype=pool_dtype, device=device)
+                       for _ in range(num_layers)]
+            sshape = (num_pages, page_size, kv_heads)
+            self.kss = [torch.zeros(sshape, dtype=torch.float32,
+                                    device=device)
+                        for _ in range(num_layers)] if self.quant else []
+            self.vss = [torch.zeros(sshape, dtype=torch.float32,
+                                    device=device)
+                        for _ in range(num_layers)] if self.quant else []
         # rows of freed slots are zeroed (-> trash page)
         self.page_table = np.zeros((max_slots, self.pages_per_slot),
                                    np.int64)
@@ -234,13 +248,14 @@ class PagedKVCache(_SlotTable):
         self._lru_tick += 1
         node.lru = self._lru_tick
 
-    def _match_prefix(self, ids: np.ndarray):
+    def _match_prefix(self, ids: np.ndarray, limit: Optional[int] = None):
         """Longest shared prefix of ``ids`` in the index. Matching stops
         at ``len(ids) - 1``: the LAST prompt token is always recomputed
-        so the prefill has logits to sample from. Returns (matched_len,
-        [matched nodes]); the last node may be a partial match into the
-        first divergent page, which the first tail write COWs."""
-        matchable = ids[:-1]
+        so the prefill has logits to sample from (and at ``limit``
+        tokens, if given). Returns (matched_len, [matched nodes]); the
+        last node may be a partial match into the first divergent page,
+        which the first tail write COWs."""
+        matchable = ids[:-1][:limit]
         P = self.page_size
         node = self._root
         nodes: List[_PrefixNode] = []
@@ -355,12 +370,14 @@ class PagedKVCache(_SlotTable):
             else:
                 self._free_pages.append(page)
 
-    def try_reserve(self, req, ids: np.ndarray, total_len: int) -> bool:
-        """Admission gate: match the prompt against the prefix index,
-        pin the matched pages, and reserve the worst-case number of NEW
-        pages this request can touch (its span less its fully shared
-        pages; a partially shared page counts as new, its COW copy needs
-        one). False = does not fit now (the matched pages are unpinned
+    def try_reserve(self, req, ids: np.ndarray, total_len: int,
+                    share_limit: Optional[int] = None) -> bool:
+        """Admission gate: match the prompt against the prefix index
+        (at most ``share_limit`` tokens, if given), pin the matched
+        pages, and reserve the worst-case number of NEW pages this
+        request can touch (its span less its fully shared pages; a
+        partially shared page counts as new, its COW copy needs one).
+        False = does not fit now (the matched pages are unpinned
         again)."""
         if req.rid in self._plans:
             raise RuntimeError(
@@ -372,7 +389,7 @@ class PagedKVCache(_SlotTable):
                 - (max(0, int(len(ids)) - 1)) // self.page_size > budget:
             return False
         if self.prefix_sharing:
-            matched, nodes = self._match_prefix(ids)
+            matched, nodes = self._match_prefix(ids, share_limit)
         else:
             matched, nodes = 0, []
         for node in nodes:
@@ -399,7 +416,8 @@ class PagedKVCache(_SlotTable):
         }
         return True
 
-    def refresh_reservation(self, req, ids: np.ndarray) -> None:
+    def refresh_reservation(self, req, ids: np.ndarray,
+                            share_limit: Optional[int] = None) -> None:
         """Match an unconsumed reservation again right before prefill:
         requests admitted in the SAME wave claim before any of them has
         prefilled, so the head of the wave registers pages the rest can
@@ -408,7 +426,7 @@ class PagedKVCache(_SlotTable):
         if plan is None or plan["state"] != "reserved" \
                 or not self.prefix_sharing:
             return
-        matched, nodes = self._match_prefix(ids)
+        matched, nodes = self._match_prefix(ids, share_limit)
         if matched <= plan["matched"]:
             return
         for node in nodes:

@@ -204,11 +204,12 @@ def test_model_needs_cuda_by_default(monkeypatch):
         port_llama.LlamaForCausalLM(port_llama.llama_tiny_config())
 
 
-@pytest.mark.parametrize("kw", [dict(admission_lookahead=2),
-                                dict(registry=object()), dict(mesh=object()),
-                                dict(prefill_chunk=16),
+@pytest.mark.parametrize("kw", [dict(prefill_devices=2),
+                                dict(kv_transport=object()),
+                                dict(mesh=object()),
+                                dict(host_tier_pages=4),
                                 dict(kv_host_tier=True),
-                                dict(cancel_probe=lambda r: False)])
+                                dict(prefix_store_dir="store")])
 def test_later_slice_arguments_raise(port_model, kw):
     with pytest.raises(NotImplementedError):
         ServingEngine(port_model, **kw)

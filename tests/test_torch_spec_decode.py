@@ -554,8 +554,12 @@ def test_failed_verify_returns_overclaimed_pages(models, monkeypatch):
     the one holding the next write position goes back: the pool's free
     pages and reservation budget are what they were before the step;
     the engine is then broken, and drain() leaves nothing behind."""
+    from paddle_tpu_torch.observability import MetricRegistry
     kw = dict(max_slots=1, max_len=64, min_bucket=8, page_size=8)
-    eng = ServingEngine(models[1], speculative=True, spec_k=8, **kw)
+    # its own registry: the accepted-length histogram's buckets follow
+    # spec_k, and the default registry holds spec_k=4's
+    eng = ServingEngine(models[1], speculative=True, spec_k=8,
+                        registry=MetricRegistry(), **kw)
     h = eng.submit(np.arange(1, 13).astype(np.int64), max_new_tokens=10)
     prop = eng.proposer
     monkeypatch.setattr(prop, "propose",
