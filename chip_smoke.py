@@ -2305,13 +2305,14 @@ def serve_run(torch, engine, prompts, news, finite=None):
     return reqs, wall, launches
 
 
-def forced_agreement(engine, prompts, ref_reqs) -> float:
+def forced_agreement(engine, prompts, ref_reqs, gaps=None) -> float:
     """Greedy agreement per step of ``engine`` with ``ref_reqs``: the
     engine serves the same prompts, but each step is fed the reference
     run's tokens (teacher forcing), and the share of steps whose argmax
     is the reference's token is returned. Free-running agreement counts
     every token after a first split as a disagreement too; this one
-    counts what the KV storage changes at each step."""
+    counts what the KV storage changes at each step. ``gaps`` (a list)
+    collects each split's ``split_gap``."""
     import numpy as np
     from paddle_tpu_torch.serving import engine as engine_mod
     reqs = [engine.submit(p, max_new_tokens=len(r.output_ids))
@@ -2326,6 +2327,8 @@ def forced_agreement(engine, prompts, ref_reqs) -> float:
         req, toks = want[id(params)]
         tok = toks[len(req.out_tokens)]
         hits.append(int(np.argmax(logits)) == tok)
+        if gaps is not None and not hits[-1]:
+            gaps.append(split_gap(logits, tok))
         return tok
     engine_mod.sample_token = forced
     try:
@@ -2403,7 +2406,9 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
         row["tokens_equal_contiguous"] = len(reqs)
     else:
         agree = agreement(reqs, bf16_run[0])
-        forced = forced_agreement(engine(SLOTS), prompts, bf16_run[0])
+        gaps = []
+        forced = forced_agreement(engine(SLOTS), prompts, bf16_run[0], gaps)
+        steps = sorted(g / s for g, s in gaps)
         if forced < AGREE_MIN:
             raise AssertionError(
                 f"{name}: greedy agreement a step with serve-paged "
@@ -2417,6 +2422,14 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
                                  f"scales of {c.kss[0].dtype}")
         row.update(greedy_agreement_vs_bf16=agree,
                    step_agreement_vs_bf16=forced, agree_min=AGREE_MIN,
+                   split_gap_steps={
+                       "splits": len(steps),
+                       "p50": float(np.percentile(steps, 50)),
+                       "p90": float(np.percentile(steps, 90)),
+                       "max": steps[-1],
+                       "within_int8_gap_steps": sum(
+                           x <= INT8_GAP_STEPS for x in steps)}
+                   if steps else None,
                    logits_finite=len(finite),
                    pool_dtype=str(eng.cache.ks[0].dtype),
                    scale_dtype=str(eng.cache.kss[0].dtype),
@@ -2634,12 +2647,19 @@ def phase_serve_prefix(torch, np, model):
             for name in res}
 
 
-# -- the identity rule (the speculative, chunked and recover phases) ---------
+# -- the identity rule (the speculative, chunked, recover and tier phases) ----
 # a run whose tokens are not its base run's passes when, fed the base
 # run's tokens (teacher forcing), its argmax picks them at this share of
 # positions or more, and at every split the base token's logit lies
 # within one bf16 step of the maximum
 IDENTITY_AGREE_MIN = 0.99
+# the split bound of two int8-KV runs whose routes differ in what attends
+# over a shared prompt (serve-tier's int8 pair: row 1 over the prompt's
+# unquantized k/v in one, the extend over its int8 pages in the other):
+# int8 KV's own logit error, in bf16 steps at the row's largest logit.
+# serve-paged-int8 prints the split gaps of int8 KV against bf16 KV
+# (split_gap_steps); on the H100 its 33 splits lay within 2 steps
+INT8_GAP_STEPS = 2
 
 
 def split_gap(row, tok: int):
@@ -2650,13 +2670,14 @@ def split_gap(row, tok: int):
     return float(row.max() - row[tok]), step
 
 
-def identity_rule(name, reqs, base_reqs, forced, suffix="") -> dict:
+def identity_rule(name, reqs, base_reqs, forced, suffix="",
+                  gap_steps: int = 1) -> dict:
     """The identity rule: ``reqs``' greedy tokens equal ``base_reqs``'
     (held by "tokens"), or else ``forced()`` (the run again, fed the base
     tokens, returning (agreement, [(gap, bf16 step)] at each split))
-    gives an agreement >= IDENTITY_AGREE_MIN and every gap within its
-    step (held by "near-ties"); raises otherwise. Returns the row
-    printed, with which of the two held."""
+    gives an agreement >= IDENTITY_AGREE_MIN and every gap within
+    ``gap_steps`` of its step (held by "near-ties"); raises otherwise.
+    Returns the row printed, with which of the two held."""
     same = sum(a.output_ids == b.output_ids for a, b in zip(reqs, base_reqs))
     row = {"token_identical": same == len(reqs), "requests_identical": same,
            f"greedy_agreement{suffix}": agreement(reqs, base_reqs),
@@ -2665,13 +2686,15 @@ def identity_rule(name, reqs, base_reqs, forced, suffix="") -> dict:
         return row
     agree, gaps = forced()
     row.update({f"forced_agreement{suffix}": agree,
-                "agree_min": IDENTITY_AGREE_MIN, "split_gaps": gaps[:8],
-                "splits": len(gaps), "identity_held_by": "near-ties"})
-    if agree < IDENTITY_AGREE_MIN or any(g > s for g, s in gaps):
+                "agree_min": IDENTITY_AGREE_MIN, "gap_steps": gap_steps,
+                "split_gaps": gaps[:8], "splits": len(gaps),
+                "identity_held_by": "near-ties"})
+    if agree < IDENTITY_AGREE_MIN or any(g > gap_steps * s for g, s in gaps):
         raise AssertionError(
             f"{name}: {len(reqs) - same} requests' tokens differ from the "
             f"base run's; teacher-forced agreement {agree} (min "
-            f"{IDENTITY_AGREE_MIN}), split gaps {gaps[:8]}")
+            f"{IDENTITY_AGREE_MIN}), split gaps {gaps[:8]} (bound "
+            f"{gap_steps} bf16 steps)")
     return row
 
 
@@ -3668,6 +3691,566 @@ def phase_serve_recover(torch, np, model, prompts, base_runs, chunked_base):
     return launches
 
 
+# -- the KV host tier (ServingEngine(kv_host_tier=True)) ---------------------
+# bench_serving_engine.py --kv-tiering at full width (:2007-2013): 8 slots,
+# max_len 512, min_bucket 32, page 128, two 384-token system prompts, 16-token
+# tails, 32 new tokens, 6 waves of 8 alternating between the prompts. The
+# recipe's 40 device pages never reclaim at this width (a warm wave
+# allocates 8 tail pages of 39 usable), so the run takes 12: 11 usable pages
+# hold one prompt's 3 pages and a wave's 8 tails, and each flip demotes the
+# other prompt's three pages (the CPU recipe's regime, :2010-2013)
+KT_SLOTS, KT_PAGES, KT_SYS, KT_TAIL, KT_NEW = 8, 12, 384, 16, 32
+KT_WAVES, KT_WIDTH = 6, 8
+KT_CUTS = ["serve-tier: num_pages 40 -> 12 (40 never reclaims at full "
+           "width: a warm wave allocates 8 of 39 usable pages)"]
+# a second pool between 12 and 15 (15 holds both prompts and a wave's
+# tails, so from there no flip demotes): at 14 pages each flip demotes
+# one page of the other prompt, and the tier runs with room to spare
+KT_MID_PAGES = 14
+# the tiered recover: a persistent-store engine over the first three
+# waves with one decode fault mid-way through the first, whose prompt's
+# pages were never demoted (so park_in_tier copies them to the host and
+# the store), held to the fault-free persistent run's first 24 requests;
+# after the recover, 7 of the wave's 8 requests write their prompts by a
+# promotion from the tier and the extend
+KT_RECOVER_WAVES, KT_RECOVER_FAULT = 3, ("serving.step.decode", 15)
+
+
+def kt_trace(np):
+    """The waves: each a list of KT_WIDTH prompts, a system prompt (the
+    two alternate) and a tail; the bench's draws (seed 0, tokens 1-99)."""
+    rng = np.random.RandomState(0)
+    systems = [rng.randint(1, 100, (KT_SYS,)).astype(np.int64)
+               for _ in range(2)]
+    tails = [rng.randint(1, 100, (KT_TAIL,)).astype(np.int64)
+             for _ in range(KT_WAVES * KT_WIDTH)]
+    return [[np.concatenate([systems[w % 2], tails[w * KT_WIDTH + j]])
+             for j in range(KT_WIDTH)] for w in range(KT_WAVES)]
+
+
+def kt_drive(torch, model, waves, tf=None, num_pages=KT_PAGES, fault=None,
+             **kw):
+    """Serve ``waves`` one after another on a fresh engine of
+    ``num_pages`` device pages (each wave drained before the next), the
+    launch counts set to 0 just before and read just after. ``fault``:
+    (point, hits to skip) armed to fire once; the failed step's engine is
+    recovered (kt_recover). Returns the engine and a dict: requests,
+    tokens/s, launches, monolithic prefills, the ms of each demotion (its
+    D2H copy included: the payload copy completes before _demote goes
+    on), the recover reports."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.observability import FlightRecorder, MetricRegistry
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import ServingEngine
+    # the failed step dumps the flight recorder: into a directory the run
+    # removes
+    dump_dir = tempfile.mkdtemp(prefix="ptpu_flight_")
+    eng = ServingEngine(model, max_slots=KT_SLOTS, max_len=MAX_LEN,
+                        min_bucket=MIN_BUCKET, page_size=PAGE,
+                        num_pages=num_pages, registry=MetricRegistry(),
+                        flight_recorder=FlightRecorder(dump_dir=dump_dir),
+                        **kw)
+    full = count_calls(eng, "_full_prefill")
+    demote_ms = []
+    demote = eng.cache._demote
+
+    def timed(victim):
+        t0 = time.perf_counter()
+        ok = demote(victim)
+        demote_ms.append((time.perf_counter() - t0) * 1e3)
+        return ok
+    eng.cache._demote = timed
+    reqs, reports = [], []
+    faults.clear()
+    faults.reset_counts()
+    try:
+        if fault is not None:
+            faults.inject(fault[0], times=1, after=fault[1])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for w, wave in enumerate(waves):
+            for p in wave:
+                reqs.append(eng.submit(p, max_new_tokens=KT_NEW))
+                if tf is not None:
+                    tf.track(reqs[-1])
+            while eng.has_work():
+                try:
+                    eng.step()
+                except faults.InjectedFault:
+                    reports.append(dict(kt_recover(torch, eng, kw), wave=w))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        fired = sum(faults.fired().values())
+    finally:
+        faults.clear()
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    if fired != len(reports) or (fault is not None and fired != 1):
+        raise AssertionError(f"serve-tier: {fired} faults fired, "
+                             f"{len(reports)} recovered")
+    served_by_length("serve-tier", reqs, [KT_NEW] * len(reqs))
+    quiesced("serve-tier", eng)
+    return eng, {"reqs": reqs, "tokens_per_s": len(reqs) * KT_NEW / wall,
+                 "launches": launches, "full_prefills": full[0],
+                 "demote_ms": demote_ms, "recover": reports}
+
+
+def store_files(path) -> int:
+    """The chunk files of a prefix store directory (meta.json aside)."""
+    return sum(f.startswith("chunk-") for f in os.listdir(path))
+
+
+def kt_recover(torch, eng, kw) -> dict:
+    """recover() on a tiered engine after a failed step: its report's
+    latency, the wall s across it (the card synchronized on both sides),
+    the ms park_in_tier takes and the pages it parks, the tier's RAM
+    pages and (with a store) the store's chunk files before and after."""
+    store = kw.get("prefix_store_dir")
+    tier = eng._kv_tier
+    park = eng.cache.park_in_tier
+    parked = {}
+
+    def timed():
+        t0 = time.perf_counter()
+        parked["pages"] = park()
+        parked["ms"] = (time.perf_counter() - t0) * 1e3
+        return parked["pages"]
+    eng.cache.park_in_tier = timed
+    in_flight = sum(r is not None for r in eng.cache.slots)
+    before = {"host_pages": tier.host_page_count(),
+              "store_files": store_files(store) if store else None}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = eng.recover()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"reason": rep["reason"], "in_flight": in_flight,
+            "recovered_slots": rep["recovered_slots"],
+            "replay_mismatches": rep["replay_mismatches"],
+            "reroutes": rep["reroutes"], "latency_s": rep["latency_s"],
+            "wall_s": wall, "park_ms": parked.get("ms"),
+            "parked_pages": parked.get("pages"),
+            "host_pages_before": before["host_pages"],
+            "host_pages_after": tier.host_page_count(),
+            "store_files_before": before["store_files"],
+            "store_files_after": store_files(store) if store else None}
+
+
+def copy_rates(torch, eng) -> dict:
+    """D2H and H2D GB/s of one page payload's k stack (every layer),
+    pinned host memory, timed by CUDA events over 10 copies each."""
+    c = eng.cache
+    src = torch.stack([p[1] for p in c.ks])
+    host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    dst = torch.empty_like(src)
+    out = {"bytes": src.numel() * src.element_size()}
+    for name, (a, b) in (("d2h", (host, src)), ("h2d", (dst, host))):
+        a.copy_(b, non_blocking=True)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(10):
+            a.copy_(b, non_blocking=True)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 10
+        out[f"{name}_ms"] = ms
+        out[f"{name}_gbps"] = out["bytes"] / ms / 1e6
+    return out
+
+
+def phase_serve_tier(torch, np, model):
+    """--kv-tiering at full width (KT_CUTS): untiered, host tier,
+    persistent store over a temporary directory and an engine restarted
+    over the same directory (its first wave), a tiered int8-KV engine
+    beside an untiered one, the untiered and tiered pair again at
+    KT_MID_PAGES, and a persistent-store engine recovered after a decode
+    fault (KT_RECOVER_FAULT); the reference bars
+    (tests/test_benchmarks_smoke.py:295-310: tiered hit rate >= untiered,
+    demotions and promotions, a warm restart from disk), each tiered run
+    held to its untiered run and the recovered run to the fault-free
+    persistent run by the identity rule (the int8 pair with splits
+    within INT8_GAP_STEPS), row 1 exactly layers x monolithic prefills,
+    every RAM payload page-locked, no leaked page or pin. Prints
+    KV_TIERING's fields (flash launches in place of the compile count),
+    the promotion wait's p50/p99, ms per demoted page, the copies' GB/s,
+    host pages and bytes, tokens/s at both pool sizes, the recover's
+    latency, parking ms and store files."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    waves = kt_trace(np)
+    store = tempfile.mkdtemp(prefix="ptpu_kv_store_")
+    restart_store = tempfile.mkdtemp(prefix="ptpu_kv_store_")
+    recover_store = tempfile.mkdtemp(prefix="ptpu_kv_store_")
+    runs, engines = {}, {}
+    try:
+        plan = {"untiered": (waves, {}),
+                "tiered": (waves, dict(kv_host_tier=True)),
+                "persistent": (waves, dict(prefix_store_dir=store)),
+                "restart": (waves[:1], dict(prefix_store_dir=store)),
+                "untiered-int8": (waves, dict(kv_dtype="int8")),
+                "tiered-int8": (waves, dict(kv_host_tier=True,
+                                            kv_dtype="int8")),
+                f"untiered-{KT_MID_PAGES}": (waves, dict(
+                    num_pages=KT_MID_PAGES)),
+                f"tiered-{KT_MID_PAGES}": (waves, dict(
+                    num_pages=KT_MID_PAGES, kv_host_tier=True)),
+                "tiered-recover": (waves[:KT_RECOVER_WAVES], dict(
+                    prefix_store_dir=recover_store, fault=KT_RECOVER_FAULT))}
+        for name, (w, kw) in plan.items():
+            eng, run = kt_drive(torch, model, w, **kw)
+            run["flash"] = flash_only(f"serve-tier-{name}", run["launches"],
+                                      layers * run["full_prefills"])
+            runs[name], engines[name] = run, eng
+            if name == "persistent":
+                # the restart's forced run reopens a copy of the store as
+                # the restart found it
+                shutil.rmtree(restart_store)
+                shutil.copytree(store, restart_store)
+        rows, failed = {}, []
+        for name, base in (("tiered", "untiered"), ("persistent", "untiered"),
+                           ("restart", "untiered"),
+                           ("tiered-int8", "untiered-int8"),
+                           ("tiered-recover", "persistent")):
+            w, kw = plan[name]
+            base_reqs = runs[base]["reqs"][:len(runs[name]["reqs"])]
+
+            def forced(w=w, kw=kw, base_reqs=base_reqs, name=name):
+                # the restart reopens the store as it found it; another
+                # run with a store starts from an empty one
+                fresh = None
+                if name == "restart":
+                    kw = dict(prefix_store_dir=restart_store)
+                elif "prefix_store_dir" in kw:
+                    fresh = tempfile.mkdtemp(prefix="ptpu_kv_store_")
+                    kw = dict(kw, prefix_store_dir=fresh)
+                try:
+                    with teacher_forcing(
+                            [r.output_ids for r in base_reqs]) as tf:
+                        kt_drive(torch, model, w, tf=tf, **kw)
+                finally:
+                    if fresh:
+                        shutil.rmtree(fresh, ignore_errors=True)
+                return tf.result()
+            try:
+                rows[name] = identity_rule(
+                    f"serve-tier-{name}", runs[name]["reqs"], base_reqs,
+                    forced, gap_steps=INT8_GAP_STEPS
+                    if name.endswith("int8") else 1)
+            except AssertionError as e:
+                rows[name] = {"failed": str(e)}
+                failed.append(name)
+        st = {n: e.paged_stats() for n, e in engines.items()}
+        tier = engines["tiered"]._kv_tier
+        pinned = [t.is_pinned() for p in tier._ram.values()
+                  for t in p.values() if t.numel()]
+        waits = engines["tiered"].metrics.snapshot_windows()["promotion_wait"]
+        demote_ms = runs["tiered"]["demote_ms"]
+        tps = {n: r["tokens_per_s"] for n, r in runs.items()}
+        mid_u, mid_t = (f"untiered-{KT_MID_PAGES}", f"tiered-{KT_MID_PAGES}")
+        line = {
+            "device_pages": st["untiered"]["num_pages"], "page_size": PAGE,
+            "prefix_hit_rate_untiered": st["untiered"]["prefix_hit_rate"],
+            "prefix_hit_rate_tiered": st["tiered"]["prefix_hit_rate"],
+            "prefix_hit_rate_persistent": st["persistent"]["prefix_hit_rate"],
+            "restart_prefix_hit_rate": st["restart"]["prefix_hit_rate"],
+            "hit_tokens_host": st["tiered"]["prefix_hit_tokens_host"],
+            "hit_tokens_disk": st["restart"]["prefix_hit_tokens_disk"],
+            "demotions": st["tiered"]["demotions"],
+            "promotions": st["tiered"]["promotions"],
+            "promotion_wait_p99_s": float(np.percentile(waits, 99))
+            if waits else 0.0,
+            "token_identical": all(r.get("token_identical")
+                                   for r in rows.values()),
+            "tokens_per_s_untiered": tps["untiered"],
+            "tokens_per_s_tiered": tps["tiered"],
+            "flash_launches": {n: r["flash"] for n, r in runs.items()}}
+        recover = runs["tiered-recover"]["recover"]
+        bars = {
+            "tiered_hit_rate_ge_untiered": line["prefix_hit_rate_tiered"]
+            >= line["prefix_hit_rate_untiered"],
+            "demotions_and_promotions": line["demotions"] > 0
+            and line["promotions"] > 0,
+            "restart_warm": line["restart_prefix_hit_rate"] > 0
+            and line["hit_tokens_disk"] > 0,
+            "int8_tiered": st["tiered-int8"]["demotions"] > 0
+            and st["tiered-int8"]["promotions"] > 0,
+            "pinned": bool(pinned) and all(pinned),
+            "tiered_recover": len(recover) == 1
+            and recover[0]["recovered_slots"] > 0
+            and recover[0]["replay_mismatches"] == 0}
+        emit({"phase": "serve-tier", "slots": KT_SLOTS, "max_len": MAX_LEN,
+              "cuts": KT_CUTS, "KV_TIERING": line, "bars": bars,
+              "identity": rows,
+              "promotion_wait_p50_s": float(np.percentile(waits, 50))
+              if waits else 0.0,
+              "promotion_waits": len(waits),
+              "pages_per_promotion": line["promotions"] / max(1, len(waits)),
+              "ms_per_demoted_page": {
+                  "mean": float(np.mean(demote_ms)),
+                  "p50": float(np.percentile(demote_ms, 50)),
+                  "max": float(np.max(demote_ms)),
+                  "first_3": demote_ms[:3], "last_3": demote_ms[-3:]}
+              if demote_ms else None,
+              "copies": copy_rates(torch, engines["tiered"]),
+              "host_pages": tier.host_page_count(),
+              "host_bytes": tier.host_bytes(), "pinned": all(pinned),
+              "int8": {k: st["tiered-int8"][k] for k in (
+                  "demotions", "promotions", "prefix_hit_rate",
+                  "prefix_hit_tokens_host")},
+              "int8_untiered_hit_rate": st["untiered-int8"]["prefix_hit_rate"],
+              "tokens_per_s": tps,
+              "tiered_over_untiered": {
+                  KT_PAGES: tps["tiered"] / tps["untiered"],
+                  KT_MID_PAGES: tps[mid_t] / tps[mid_u]},
+              f"pool_{KT_MID_PAGES}": {
+                  "device_pages": st[mid_u]["num_pages"],
+                  "prefix_hit_rate_untiered": st[mid_u]["prefix_hit_rate"],
+                  "prefix_hit_rate_tiered": st[mid_t]["prefix_hit_rate"],
+                  "demotions": st[mid_t]["demotions"],
+                  "promotions": st[mid_t]["promotions"],
+                  "requests_identical_untiered": sum(
+                      a.output_ids == b.output_ids for a, b in zip(
+                          runs[mid_t]["reqs"], runs[mid_u]["reqs"]))},
+              "tiered_recover": {"fault": list(KT_RECOVER_FAULT),
+                                 "waves": KT_RECOVER_WAVES,
+                                 "reports": recover},
+              "leaks": 0, "phase_s": time.perf_counter() - t0})
+        bad = [k for k, v in bars.items() if not v] + failed
+        if bad:
+            raise AssertionError(f"serve-tier: failed: {bad}: {line}")
+    finally:
+        for d in (store, restart_store, recover_store):
+            shutil.rmtree(d, ignore_errors=True)
+    return {n: {"flash_attention_fwd": r["flash"]} for n, r in runs.items()}
+
+
+# -- the watchtower (observability.Watchtower over the engine) ---------------
+# bench_serving_engine.py --watchtower at full width (:2020-2024): 16 slots,
+# max_len 512, min_bucket 32, 48 requests of 4-20 tokens, 32 new, a stall
+# budget of 5 s; the engine's clock is virtual, advanced by each step's wall
+# time, and the stalled run freezes the engine for 20 virtual seconds
+WT_REQS, WT_NEW, WT_STALL_S = 48, 32, 5.0
+
+
+def wt_drive(torch, np, model, prompts, inject_stall: bool):
+    from paddle_tpu_torch.observability import (MetricRegistry, SLOObjective,
+                                                Watchtower)
+    from paddle_tpu_torch.serving import ServingEngine
+    clock = {"t": 0.0}
+    reg = MetricRegistry()
+    eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                        min_bucket=MIN_BUCKET, registry=reg,
+                        time_fn=lambda: clock["t"])
+    wt = Watchtower(
+        registry=reg, time_fn=lambda: clock["t"],
+        objectives=(SLOObjective(name="ttft_p99", threshold_s=120.0,
+                                 objective=0.5,
+                                 family="ptpu_serving_ttft_seconds"),
+                    SLOObjective(name="queue_wait_p95", threshold_s=120.0,
+                                 objective=0.5,
+                                 family="ptpu_serving_queue_wait_seconds")),
+        eval_interval_s=0.5, stall_after_s=WT_STALL_S,
+        anomaly_streams=False).attach_engine(eng)
+    wt.flush()
+    full = count_calls(eng, "_full_prefill")
+    torch.cuda.synchronize()
+    reset_launches()
+    reqs = [eng.submit(p, WT_NEW) for p in prompts]
+    steps = 0
+    stall_at = max(2, (WT_NEW * len(prompts) // SLOTS) // 2)
+    while eng.has_work():
+        w0 = time.perf_counter()
+        eng.step()
+        clock["t"] += time.perf_counter() - w0
+        steps += 1
+        if inject_stall and steps == stall_at:
+            for _ in range(int(WT_STALL_S * 4)):
+                clock["t"] += 1.0
+                wt.poll()
+        wt.poll()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wt.flush()
+    served_by_length("serve-watchtower", reqs, [WT_NEW] * len(reqs))
+    quiesced("serve-watchtower", eng)
+    if wt._steps != steps:
+        raise AssertionError(f"serve-watchtower: {steps} steps, the "
+                             f"watchtower counted {wt._steps}")
+    return {"reqs": reqs, "steps": steps, "wt": wt, "launches": launches,
+            "full_prefills": full[0],
+            "kinds": sorted({(i.kind, i.phase) for i in wt.incidents()})}
+
+
+def phase_serve_watchtower(torch, np, model):
+    """--watchtower at full width: a clean run raises no incident and
+    healthz stays green; the stalled run raises ('stall', 'decode') and
+    turns it red; the two runs' tokens are identical (detection reads
+    only); row 1 exactly layers x prefills; the ns one observe_step()
+    costs (one counter increment)."""
+    from paddle_tpu_torch.observability import MetricRegistry, Watchtower
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 100, (int(rng.choice([4, 7, 12, 20])),))
+               .astype(np.int64) for _ in range(WT_REQS)]
+    clean = wt_drive(torch, np, model, prompts, False)
+    stalled = wt_drive(torch, np, model, prompts, True)
+    launches = {}
+    for name, run in (("clean", clean), ("stalled", stalled)):
+        launches[name] = {"flash_attention_fwd": flash_only(
+            f"serve-watchtower-{name}", run["launches"],
+            layers * run["full_prefills"])}
+    wt = Watchtower(registry=MetricRegistry())
+    n = 1_000_000
+    t1 = time.perf_counter()
+    for _ in range(n):
+        wt.observe_step()
+    ns = (time.perf_counter() - t1) / n * 1e9
+    identical = [r.output_ids for r in clean["reqs"]] \
+        == [r.output_ids for r in stalled["reqs"]]
+    row = {"requests": WT_REQS, "steps": clean["steps"],
+           "stall_after_s": WT_STALL_S,
+           "incidents_clean": len(clean["wt"].incidents()),
+           "incidents_stalled": len(stalled["wt"].incidents()),
+           "incident_kinds_stalled": [list(k) for k in stalled["kinds"]],
+           "healthz_ok_clean": clean["wt"].healthz()["ok"],
+           "healthz_ok_stalled": stalled["wt"].healthz()["ok"],
+           "token_identical": identical,
+           "observe_step_ns": ns, "diagnosis": stalled["wt"].diagnose()}
+    emit({"phase": "serve-watchtower", "slots": SLOTS, "WATCHTOWER": row,
+          "flash_launches": launches, "leaks": 0,
+          "phase_s": time.perf_counter() - t0})
+    if not (row["incidents_clean"] == 0 and row["healthz_ok_clean"]
+            and ["stall", "decode"] in row["incident_kinds_stalled"]
+            and not row["healthz_ok_stalled"] and identical):
+        raise AssertionError(f"serve-watchtower: bars failed: {row}")
+    return launches
+
+
+# -- the serving chaos soak (resilience.chaos) on CUDA pools -----------------
+CHAOS_SEEDS = range(13)
+
+
+def chaos_f32_check(torch, F, heads, head_dim, lengths) -> list:
+    """Row 1 in f32 at the shapes the chaos episodes give it (B=1, S each
+    of ``lengths``, the tiny Llama's heads and head_dim, causal) against
+    the plain version at F32_TOL (lse at LSE_TOL); ms beside the bound,
+    the plain version and SDPA."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for S in lengths:
+        q, k, v = (torch.randn(1, S, heads, head_dim, device="cuda",
+                               generator=g) for _ in range(3))
+        out, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=True)
+        torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL,
+                                   msg=lambda m: f"chaos f32 S={S}: {m}")
+        torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0,
+                                   msg=lambda m: f"chaos f32 S={S} lse: {m}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fb, fby, *_ = attn_bound(1, S, heads, head_dim, True, 4, False)
+        rows.append({
+            "B": 1, "S": S, "H": heads, "D": head_dim, "dtype": "float32",
+            "causal": True,
+            "max_abs_err": (out - ref).abs().max().item(),
+            "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+            "ms": device_ms(torch, lambda: flash_attention_fwd(
+                q, k, v, causal=True), 10),
+            "plain_ms": device_ms(torch, lambda: flash_attention_fwd_plain(
+                q, k, v, causal=True), 10),
+            "library_ms": device_ms(torch, lambda: (
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+                10),
+            "bound_ms": fb, "bound_by": fby})
+    return rows
+
+
+def phase_chaos_serving(torch, F):
+    """The port's serving episode over seeds 0-12 on the card (its tiny
+    f32 Llamas from seeds 0 and 7, CUDA pools, a watchtower attached):
+    every episode holds every law; row 1 exactly layers x the monolithic
+    prefills of every engine the episodes build (recoveries included);
+    row 1 at those prefills' shapes against its plain version
+    (chaos_f32_check); the tallies printed."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    chaos.set_serving_models(device="cuda")
+    chaos._reference_outputs()
+    cfg = chaos._serving_model().config
+    tally = collections.Counter()
+    bad = {}
+    # every engine the episodes build: each monolithic prefill by bucket
+    buckets = collections.Counter()
+    full_prefill = ServingEngine._full_prefill
+
+    def counted(self, slot, padded, n):
+        buckets[int(padded.shape[1])] += 1
+        return full_prefill(self, slot, padded, n)
+    # every failed step dumps the flight recorder: into a directory the
+    # phase removes
+    dumps = tempfile.mkdtemp(prefix="ptpu_flight_")
+    flight_dir = os.environ.get("PTPU_FLIGHT_DIR")
+    os.environ["PTPU_FLIGHT_DIR"] = dumps
+    ServingEngine._full_prefill = counted
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        results = [chaos.run_serving_episode(seed, watchtower=True)
+                   for seed in CHAOS_SEEDS]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        ServingEngine._full_prefill = full_prefill
+        if flight_dir is None:
+            os.environ.pop("PTPU_FLIGHT_DIR", None)
+        else:
+            os.environ["PTPU_FLIGHT_DIR"] = flight_dir
+        shutil.rmtree(dumps)
+    for seed, res in zip(CHAOS_SEEDS, results):
+        st = res.stats
+        if not res.ok:
+            bad[seed] = res.violations[:4]
+        tally.update({"episodes": 1, "recoveries": st["recoveries"],
+                      "speculative": int(st["speculative"]),
+                      "accepted_drafts": st["spec_accepted_drafts"],
+                      "draft_proposed": int(st["spec_proposer"] == "draft"),
+                      "chunked": int(bool(st["prefill_chunk"])),
+                      "tiered": int(st["kv_tiered"]),
+                      "demotions": st["demotions"],
+                      "promotions": st["promotions"],
+                      "incidents": st["incidents"],
+                      **{f"fired:{k}": v for k, v in res.fired.items()}})
+    prefills = sum(buckets.values())
+    err = None
+    try:
+        flash = flash_only("chaos-serving", launches,
+                           cfg.num_hidden_layers * prefills)
+    except AssertionError as e:
+        flash, err = launches["flash_attention_fwd"], str(e)
+    f32 = chaos_f32_check(torch, F, cfg.num_attention_heads, cfg.head_dim,
+                          sorted(set(buckets) | {8, 16, 32}))
+    emit({"phase": "chaos-serving", "seeds": list(CHAOS_SEEDS),
+          "ok": not bad and err is None, "red": bad, "tally": dict(tally),
+          "flash_launches": flash, "layers": cfg.num_hidden_layers,
+          "monolithic_prefills": prefills,
+          "prefills_by_bucket": dict(sorted(buckets.items())),
+          "f32_check": f32, "f32_atol_rtol": F32_TOL, "lse_atol": LSE_TOL,
+          "phase_s": time.perf_counter() - t0})
+    if bad or err:
+        raise AssertionError(f"chaos-serving: red seeds {bad}; {err}")
+    return {"flash_attention_fwd": flash}
+
+
 # -- weight-only int4 and int8 serving (Llama-1B, kernel row 7) -------------
 INT4_GROUP = 128                 # bench_llama_decode.py's weight_only_int4
 # Llama-1B's linears: (K, N, the group Int4Linear gives them, which)
@@ -3718,6 +4301,13 @@ def int4pack_operands(torch, q, s, group):
 def int4_regime(M: int) -> str:
     """Which of row 7's kernels a call of M rows runs."""
     return "decode" if M <= 16 else "prefill"
+
+
+def kernel_names(events: dict) -> dict:
+    """kernel_events' keys cut to the kernel's name (no template
+    arguments or signature)."""
+    return {k.split("<")[0].split("(")[0].replace("void ", ""): n
+            for k, n in events.items()}
 
 
 def kernel_events(torch, fn, calls: int) -> dict:
@@ -4903,6 +5493,10 @@ def phase_kernels_bn(torch, F):
             x4 = x.view(N, C, S, 1).detach().requires_grad_()
             out = F.batch_norm(x4, None, None, w.bfloat16(), b.bfloat16(),
                                training=True)
+            # cuDNN's mixed route: bf16 x with f32 weight and bias, as
+            # the ResNet's O2 BN layers keep them (the bf16-affine call
+            # above is kept beside it for the earlier rows)
+            out32 = F.batch_norm(x4, None, None, w, b, training=True)
             cudnn.append({"shape": [N, C, S],
                           "fwd_ms": device_ms(torch, lambda: F.batch_norm(
                               x4, None, None, w.bfloat16(), b.bfloat16(),
@@ -4910,8 +5504,24 @@ def phase_kernels_bn(torch, F):
                           "bwd_ms": device_ms(torch, lambda: (
                               torch.autograd.grad(out, (x4,),
                                                   dy.view_as(out),
-                                                  retain_graph=True)), 10)})
-            del out, x4
+                                                  retain_graph=True)), 10),
+                          "f32_affine_fwd_ms": device_ms(
+                              torch, lambda: F.batch_norm(
+                                  x4, None, None, w, b, training=True), 10),
+                          "f32_affine_bwd_ms": device_ms(torch, lambda: (
+                              torch.autograd.grad(out32, (x4,),
+                                                  dy.view_as(out32),
+                                                  retain_graph=True)), 10),
+                          "f32_affine_fwd_kernels": kernel_names(
+                              kernel_events(torch, lambda: F.batch_norm(
+                                  x4, None, None, w, b, training=True), 2)),
+                          "bf16_affine_fwd_kernels": kernel_names(
+                              kernel_events(torch, lambda: F.batch_norm(
+                                  x4, None, None, w.bfloat16(),
+                                  b.bfloat16(), training=True), 2)),
+                          "bytes_bound_fwd_ms": bound(
+                              3 * N * C * S * 2, 0)[0]})
+            del out, out32, x4
         del x, dy, x32, y32, runs
     emit({"phase": "kernels-bn", "tolerance": {"sums_rel_max": BN_SUM_TOL,
                                                "apply_dx": "bitwise"},
@@ -5311,6 +5921,11 @@ def main() -> int:
             torch, np, model, prompts,
             {"contiguous": reqs, "paged": paged[0]}, chunked_reqs).items():
         launches["serve-recover-" + name] = counts
+    for name, counts in phase_serve_tier(torch, np, model).items():
+        launches["serve-tier-" + name] = counts
+    for name, counts in phase_serve_watchtower(torch, np, model).items():
+        launches["serve-watchtower-" + name] = counts
+    launches["chaos-serving"] = phase_chaos_serving(torch, F)
     del paged, paged8
     torch.cuda.empty_cache()
     qmodel, qreqs, launches["serve-int4"] = phase_serve_int4(

@@ -16,8 +16,14 @@ port never imports the reference package):
   (``dump_dir``, else ``PTPU_FLIGHT_DIR``, else the temporary
   directory).
 
-The reference's watchtower (SLO burn rates, anomaly detectors,
-incidents) and cluster timeline come with later slices of the port.
+- **Watchtower** (``watchtower.py``): multi-window SLO burn rates,
+  EWMA and robust-z anomaly detectors, stall and orphaned-request
+  detectors over an attached engine, deduped incidents, ``healthz()``
+  and ``render_diagnosis``; the engine's step bumps its counter
+  (``observe_step()``, one increment).
+
+The reference's cluster timeline (``ClusterTelemetry``, which merges N
+processes) comes with the serving fleet.
 """
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricError, MetricRegistry, default_registry)
@@ -27,10 +33,15 @@ from .tracing import (Span, span, TraceContext,  # noqa: F401
                       unbind_request, clear_bindings, context_for,
                       active_context)
 from .flight_recorder import FlightRecorder, default_recorder  # noqa: F401
+from .watchtower import (DEFAULT_OBJECTIVES, EwmaDetector,  # noqa: F401
+                         Incident, RobustZDetector, SLOObjective,
+                         Watchtower, render_diagnosis)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricError",
            "MetricRegistry", "default_registry", "Span", "span",
            "TraceContext", "TraceBuffer", "install_trace_buffer",
            "current_trace_buffer", "bind_request", "unbind_request",
            "clear_bindings", "context_for", "active_context",
-           "FlightRecorder", "default_recorder"]
+           "FlightRecorder", "default_recorder", "SLOObjective",
+           "DEFAULT_OBJECTIVES", "EwmaDetector", "RobustZDetector",
+           "Incident", "Watchtower", "render_diagnosis"]

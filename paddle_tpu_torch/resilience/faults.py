@@ -19,6 +19,8 @@ Points wired in the port:
 ``serving.step.prefill``     inside the (re-)prefill driver
 ``serving.prefill.paged``    paged prefill, AFTER pages are claimed
 ``serving.prefill.chunk``    between chunks of a chunked prefill
+``serving.kv.demote``        tier demotion, BEFORE either tier mutates
+``serving.kv.promote``       tier promotion, pages staged, not installed
 ``control.shed/chunk/affinity/scale``  the control Actuator, per kind
 ===========================  ===========================================
 
@@ -76,6 +78,11 @@ KNOWN_POINTS = (
     # of the prompt written; the unwind frees the pages AND the lease
     # and requeues the request (the replay re-chunks identically)
     "serving.prefill.chunk",
+    # KV host tier: demotion fires BEFORE either tier mutates (the
+    # reclaim's caller unwinds); promotion fires with the request
+    # staged and its dst pages claimed, nothing installed yet
+    "serving.kv.demote",
+    "serving.kv.promote",
     # one row's draft proposal: contained to that row's step (k=1)
     "serving.spec.draft",
     # sampled acceptance: first rejection, residual about to be drawn;

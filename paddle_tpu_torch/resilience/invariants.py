@@ -5,8 +5,9 @@ leaked engine state or page.
 Counterpart of ``paddle_tpu/resilience/invariants.py``
 ``ConservationLedger`` (:74-160), ``token_prefix_violations``
 (:219-253), ``engine_leak_violations`` (:255, with its chunked-prefill
-half but not the disaggregated-mesh or host-tier halves, whose slices
-bring them) and ``page_leak_violations`` (:329). A copy, not an import:
+and staged-promotion halves but not the disaggregated-mesh half, whose
+slice brings it) and ``page_leak_violations`` (:329, with the host-tier
+half). A copy, not an import:
 the port never imports the reference package.
 
 Checkers return a list of violation strings (empty = the law holds), so
@@ -151,7 +152,8 @@ def engine_leak_violations(engine) -> List[str]:
     """A quiesced engine holds nothing: no leased slots, no queued
     requests, no undelivered terminal requests, no PREFILLING work (the
     chunk FIFO empty: every chunked admission finished its final chunk
-    or was unwound) and, on a speculative engine, no draft-proposer state for
+    or was unwound), no request staged mid-promotion and, on a
+    speculative engine, no draft-proposer state for
     a request no longer in a slot, in EVERY configured proposer (the
     tuner may have routed a request through either); the draft model's
     pool must not lease a slot to a gone request, and its free list
@@ -175,6 +177,14 @@ def engine_leak_violations(engine) -> List[str]:
             f"leaked PREFILLING slots {list(engine._chunk_fifo)} in the "
             f"chunk FIFO (mid-prefill request neither finished nor "
             f"unwound)")
+    # tiered-KV half: no request staged mid-promotion (dst pages
+    # claimed, host payload not installed): every promotion commits or
+    # unwinds through abort_sequence
+    promos = getattr(engine, "_staged_promotions", None)
+    if promos:
+        out.append(
+            f"staged KV promotions for rids {sorted(promos)} never "
+            f"committed or unwound")
     if engine.speculative:
         live = {engine.cache.slots[s].rid for s in active}
         for kind, prop in sorted(engine._proposers.items()):
@@ -201,7 +211,11 @@ def page_leak_violations(engine) -> List[str]:
     refcount-0 in the prefix index (cached), the reservation budget is
     fully returned, and no freed slot's page-table row still points at
     a page. A violation means some failure path (an aborted prefill,
-    eviction, a deadline, cancel) dropped a refcount on the floor.
+    eviction, a deadline, cancel) dropped a refcount on the floor. On a
+    tiered cache, also: every promotion pin returned, every RAM-resident
+    tier key anchored by a HOST radix node (an unanchored buffer is host
+    memory nothing can promote or evict), and every HOST node backed by
+    tier data (a dataless node would promote garbage).
 
     Empty for a contiguous-pool engine."""
     if not getattr(engine, "paged", False):
@@ -238,4 +252,31 @@ def page_leak_violations(engine) -> List[str]:
         out.append(
             f"freed slots {stale} still hold page-table entries "
             f"{[cache.page_table[s].tolist() for s in stale]}")
+    tier = getattr(cache, "tier", None)
+    if tier is not None:
+        pins = {k: c for k, c in tier.pin_counts().items() if c}
+        if pins:
+            out.append(
+                f"leaked tier pins after quiesce: "
+                f"{[(len(k), c) for k, c in sorted(pins.items())]} "
+                f"(key_len, count)")
+        host_keys = set()
+        stack = [cache._root]
+        while stack:
+            nd = stack.pop()
+            stack.extend(nd.children.values())
+            if nd.page < 0:
+                host_keys.add(cache._node_key(nd))
+        orphans = [k for k in tier.ram_keys() if k not in host_keys]
+        if orphans:
+            out.append(
+                f"orphaned host-tier buffers: {len(orphans)} RAM entries "
+                f"(lens {sorted(len(k) for k in orphans)}) with no HOST "
+                f"radix node anchoring them")
+        dead = [k for k in host_keys if not tier.has(k)]
+        if dead:
+            out.append(
+                f"dataless HOST radix nodes: {len(dead)} nodes (lens "
+                f"{sorted(len(k) for k in dead)}) whose tier entry is "
+                f"gone — a match would promote garbage")
     return out

@@ -7,8 +7,10 @@ int8 KV) and the contiguous slot pool: iteration-level FCFS admission
 chunked prefill (``prefill_chunk``, with the ``ChunkBudgetController``),
 one decode forward per step over every slot (or, with
 ``speculative=True``, one k-wide verify of n-gram or draft-model
-drafts), host-side sampling, typed errors, fault points, ``recover()``
-and ``adopt()``, the metric registry, spans and the flight recorder.
+drafts), the host KV tier under the paged pool (``kv_host_tier``, with a
+persistent prefix store, ``kv_tier.py``), host-side sampling, typed
+errors, fault points, ``recover()`` and ``adopt()``, the metric
+registry, spans and the flight recorder.
 
     engine = ServingEngine(model, max_slots=8, max_len=512)
     req = engine.submit(prompt_ids, max_new_tokens=64)

@@ -76,24 +76,39 @@ failures raised on the host (the fault points of
 poisons the context cannot be recovered in-process and is not caught.
 Fault points: ``serving.step.decode``, ``serving.decode.verify``,
 ``serving.spec.draft``, ``serving.spec.resample``,
-``serving.step.prefill``, ``serving.prefill.paged`` and
-``serving.prefill.chunk``. A request admitted with tokens already
+``serving.step.prefill``, ``serving.prefill.paged``,
+``serving.prefill.chunk``, ``serving.kv.demote`` and
+``serving.kv.promote``. A request admitted with tokens already
 delivered (``adopt()``, or requeued by a failed admission) takes the
 same route: its prompt's prefill, then its tokens by decode forwards
 (``_resume``).
 
-Observability: the ``ptpu_serving_*`` families of the ``registry`` (the
-process default unless given), the spans ``serving.step``,
-``serving.prefill``, ``serving.chunk_prefill``, ``serving.decode`` and
-``serving.verify``, a flight-recorder record per step and a dump when a
-step raises, and an optional ``auditor`` (a
-``resilience.ConservationLedger``) told of every submission and of every
-delivery at the external boundaries (``step``, ``recover``, ``drain``,
-``cancel``).
+KV host tier (``kv_host_tier=True``, ``host_tier_pages``,
+``prefix_store_dir``; paged layout with prefix sharing): the reclaim
+demotes cold prefix pages to host RAM (page-locked on the card, and
+written through to a persistent store under ``prefix_store_dir``)
+instead of destroying them; a prompt that matches a demoted page gets a
+fresh device page, and the payload is installed there (one H2D copy,
+then a slice write per layer, ``_stage_promotions``) before its extend
+runs. The tier outlives the cache: ``recover()`` parks the dying index's
+device pages in it and the rebuilt cache matches them again, and a new
+engine over the same ``prefix_store_dir`` starts warm.
+
+Observability: the ``ptpu_serving_*`` and ``ptpu_kv_*`` families of the
+``registry`` (the process default unless given), the spans
+``serving.step``, ``serving.prefill``, ``serving.chunk_prefill``,
+``serving.kv_promote``, ``serving.decode`` and ``serving.verify``, a
+flight-recorder record per step and a dump when a step raises, an
+optional ``auditor`` (a ``resilience.ConservationLedger``) told of every
+submission and of every delivery at the external boundaries (``step``,
+``recover``, ``drain``, ``cancel``), and an optional watchtower
+(``observability.Watchtower.attach_engine``), whose counter each
+successful step bumps.
 
 Arguments of the reference engine that this port does not cover yet
-(the multi-GPU and KV-tiering slices) are accepted at their reference
-defaults and raise ``NotImplementedError`` naming the slice otherwise.
+(the multi-GPU slice: ``mesh``, ``prefill_devices``, ``kv_transport``)
+are accepted at their reference defaults and raise
+``NotImplementedError`` naming the slice otherwise.
 """
 from __future__ import annotations
 
@@ -109,6 +124,7 @@ from ..observability import default_recorder, default_registry, span
 from ..resilience.faults import InjectedFault, maybe_fail
 from .errors import (DeadlineExceeded, EngineBroken, EngineClosed,
                      EngineIdle, QueueFull, RequestCancelled)
+from .kv_tier import HostPageTier, PersistentPrefixStore
 from .metrics import EngineMetrics
 from .sampling import SamplingParams, sample_token, sampling_dist
 from .scheduler import FIFOScheduler, Request, bucket_for
@@ -120,14 +136,11 @@ from ..models._decode_cache import PageTable, per_position, quantize_kv_page
 __all__ = ["ServingEngine"]
 
 _MESH = "multi-GPU serving slice"
-_TIER = "KV-tiering slice"
 # reference-engine argument -> (its reference default, the slice of the
 # port that brings it)
 _LATER = {
     "mesh": (None, _MESH), "prefill_devices": (0, _MESH),
     "kv_transport": (None, _MESH),
-    "kv_host_tier": (False, _TIER), "host_tier_pages": (None, _TIER),
-    "prefix_store_dir": (None, _TIER),
 }
 
 
@@ -188,6 +201,9 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  chunk_control=None,
                  admission_lookahead: int = 0,
+                 kv_host_tier: bool = False,
+                 host_tier_pages: Optional[int] = None,
+                 prefix_store_dir: Optional[str] = None,
                  **reference_only):
         for name, value in reference_only.items():
             if name not in _LATER:
@@ -243,6 +259,7 @@ class ServingEngine:
                 else bool(prefix_sharing)
             # the most requests in flight at once (benchmarks read it)
             self.peak_active_slots = 0
+        self._init_tier(kv_host_tier, host_tier_pages, prefix_store_dir)
         self.cache = self._new_cache()
         self._init_speculation(speculative, spec_k, spec_ngram, spec_gate,
                                spec_proposer, draft_model, spec_sampled,
@@ -280,6 +297,9 @@ class ServingEngine:
         # after the request's own cancel_requested flag
         self.cancel_probe = cancel_probe
         self._in_drain = False
+        # an observability.Watchtower installs itself here
+        # (attach_engine); the step bumps its counter, nothing else
+        self._watchtower = None
         self._init_families()
 
     def _init_chunking(self, prefill_chunk, chunk_control,
@@ -318,9 +338,50 @@ class ServingEngine:
         # chunk a step (audited empty at quiesce)
         self._chunk_fifo: List[int] = []
 
+    def _init_tier(self, kv_host_tier, host_tier_pages,
+                   prefix_store_dir) -> None:
+        """The KV host tier and its validation (reference :238-260,
+        :366-387): cold refcount-0 prefix pages are demoted to host RAM
+        (page-locked on the card) instead of destroyed, and promoted back
+        on a radix hit; ``prefix_store_dir`` adds the persistent store
+        under the RAM tier (and turns the tier on), ``host_tier_pages``
+        bounds the RAM tier (None: unbounded). The tier OUTLIVES the
+        cache: ``recover()``'s fresh cache rebuilds its host nodes from
+        it."""
+        self.kv_host_tier = bool(kv_host_tier) \
+            or prefix_store_dir is not None
+        self.prefix_store_dir = prefix_store_dir
+        if host_tier_pages is not None and not self.kv_host_tier:
+            raise ValueError(
+                "host_tier_pages requires kv_host_tier=True (or "
+                "prefix_store_dir=)")
+        self._kv_tier = None
+        # rid -> slot of requests whose host pages are being installed
+        # on fresh device pages and not yet committed (audited empty at
+        # quiesce)
+        self._staged_promotions = {}
+        if not self.kv_host_tier:
+            return
+        if not (self.paged and self.prefix_sharing):
+            raise ValueError(
+                "kv_host_tier requires the paged kv_layout with "
+                "prefix_sharing enabled (the tier is keyed by radix "
+                "chunks)")
+        ad = self.adapter
+        store = None
+        if prefix_store_dir is not None:
+            store = PersistentPrefixStore(
+                prefix_store_dir, num_layers=ad.num_layers,
+                page_size=self.page_size, kv_heads=ad.kv_heads,
+                head_dim=ad.head_dim, dtype=ad.dtype, quant=self.kv_quant)
+        self._kv_tier = HostPageTier(
+            ad.num_layers, self.page_size, ad.kv_heads, ad.head_dim,
+            ad.dtype, quant=self.kv_quant, capacity_pages=host_tier_pages,
+            store=store, pin_payloads=ad.device.type == "cuda")
+
     def _init_families(self) -> None:
-        """The engine's ``ptpu_serving_*`` registry families (reference
-        :454-560, without the KV-tier families)."""
+        """The engine's ``ptpu_serving_*`` and ``ptpu_kv_*`` registry
+        families (reference :454-560)."""
         reg = self.registry
         self._m_queue_depth = reg.gauge(
             "ptpu_serving_queue_depth", "requests waiting for a slot")
@@ -383,6 +444,23 @@ class ServingEngine:
             self._last_page_stats = {"prefix_hit_tokens": 0,
                                      "prefix_lookup_tokens": 0,
                                      "cow_copies": 0}
+        if self._kv_tier is not None:
+            self._m_host_pages = reg.gauge(
+                "ptpu_kv_host_pages",
+                "KV pages resident in the host RAM tier")
+            self._m_demotions = reg.counter(
+                "ptpu_kv_demotions_total",
+                "cold KV pages demoted device -> host tier")
+            self._m_promotions = reg.counter(
+                "ptpu_kv_promotions_total",
+                "tiered KV pages promoted back onto device pages")
+            self._m_tier_hit = reg.counter(
+                "ptpu_kv_tier_prefix_hit_tokens_total",
+                "prompt tokens served from demoted prefix pages, by "
+                "the tier that held them", labels=("tier",))
+            self._last_page_stats.update(
+                demotions=0, promotions=0,
+                prefix_hit_tokens_host=0, prefix_hit_tokens_disk=0)
         if self.speculative:
             self._m_spec_acc = reg.histogram(
                 "ptpu_serving_spec_accepted_length",
@@ -422,7 +500,8 @@ class ServingEngine:
                 ad.num_layers, self.max_slots, self.max_len, ad.kv_heads,
                 ad.head_dim, ad.dtype, ad.device, page_size=self.page_size,
                 num_pages=self.num_pages, quant=self.kv_quant,
-                prefix_sharing=self.prefix_sharing, pools=pools)
+                prefix_sharing=self.prefix_sharing, pools=pools,
+                tier=self._kv_tier)
         return SlotKVCache(ad.num_layers, self.max_slots, self.max_len,
                            ad.kv_heads, ad.head_dim, ad.dtype, ad.device,
                            pools=pools)
@@ -443,6 +522,19 @@ class ServingEngine:
             if cur > last[key]:
                 counter.inc(cur - last[key])
             last[key] = cur
+        if self._kv_tier is not None:
+            self._m_host_pages.set(self._kv_tier.host_page_count())
+            for counter, key in (
+                    (self._m_demotions, "demotions"),
+                    (self._m_promotions, "promotions"),
+                    (self._m_tier_hit.labels(tier="host"),
+                     "prefix_hit_tokens_host"),
+                    (self._m_tier_hit.labels(tier="disk"),
+                     "prefix_hit_tokens_disk")):
+                cur = getattr(c, key)
+                if cur > last[key]:
+                    counter.inc(cur - last[key])
+                last[key] = cur
 
     def _init_speculation(self, speculative, spec_k, spec_ngram, spec_gate,
                           spec_proposer, draft_model, spec_sampled,
@@ -616,6 +708,9 @@ class ServingEngine:
         self._m_step.observe(dt)
         self._m_queue_depth.set(depth)
         self._m_active.set(n_active)
+        wt = self._watchtower
+        if wt is not None:
+            wt.observe_step()
         if self._undelivered:
             # requests stranded by an earlier FAILED step ride the first
             # successful step out (they finished first: prepend)
@@ -811,6 +906,17 @@ class ServingEngine:
         failure during recovery leaves the engine broken and the next
         ``recover()`` starts over from the same host state.
 
+        With a host tier, the dying index's device pages are parked in
+        the tier first (``PagedKVCache.park_in_tier``), which the
+        reference does not do: one blocking D2H copy into page-locked
+        memory for each indexed page the tier does not hold yet (the
+        pages of prompts that were never demoted, or were promoted
+        since), each written through to the prefix store when there is
+        one. So the recover pays those copies and file writes on top of
+        the re-prefills, and a store may afterwards hold pages that no
+        demotion put there: a later engine over the same directory
+        starts warmer than the reference's would.
+
         Covers failures raised on the host (fault points, a Python
         error mid-step); a CUDA error that poisons the context cannot be
         recovered in-process.
@@ -833,6 +939,15 @@ class ServingEngine:
         old = self.cache
         pools = (old.ks, old.vs, old.kss, old.vss) if self.paged \
             else (old.ks, old.vs)
+        # staged promotions die with the old host state; the tier itself
+        # SURVIVES: the old index's device pages are parked in it too,
+        # and the fresh cache rebuilds host nodes for all of it, so a
+        # request that matched a shared prefix (on the device or through
+        # a promotion) matches it again and writes its prompt by the same
+        # promotion and extend, even if the prefix's writer has finished
+        self._staged_promotions.clear()
+        if self._kv_tier is not None:
+            old.park_in_tier()
         if self.paged:
             # flush the old cache's counter deltas, then re-baseline:
             # the fresh cache restarts its counters at zero
@@ -992,14 +1107,15 @@ class ServingEngine:
 
     def inflight_rids(self) -> set:
         """Every request id the engine itself still owns: queued, in a
-        slot (PREFILLING or decoding), or finished but not yet
-        delivered. Diffed against ``metrics.inflight_phases()``, a rid
+        slot (PREFILLING or decoding), staged mid-promotion, or finished
+        but not yet delivered. Diffed against ``metrics.inflight_phases()``, a rid
         the metrics still track and the engine does not is a request
         some failure path dropped."""
         rids = {r.rid for r in self.scheduler.pending()}
         for s in self.cache.active_slots():
             rids.add(self.cache.slots[s].rid)
         rids.update(r.rid for r in self._undelivered)
+        rids.update(self._staged_promotions)
         return rids
 
     # -- admission -----------------------------------------------------
@@ -1240,6 +1356,9 @@ class ServingEngine:
                 raise RequestCancelled(
                     req.rid, "client disconnected mid-prefill")
             self._run_copies(copies)
+            # promoted host pages install BEFORE the extend attends over
+            # them (staged; unwound on a failure)
+            self._stage_promotions(req, slot)
             tail = n - start
             bucket = bucket_for(tail, self.min_bucket, self.max_len)
             self._m_prefill.labels(bucket=bucket).inc()
@@ -1255,6 +1374,8 @@ class ServingEngine:
             cache.register_prefix(slot, ids)
             return logits
         except Exception:
+            # the staged promotion (if any) goes with the page claims
+            self._staged_promotions.pop(req.rid, None)
             cache.abort_sequence(slot, req)
             raise
 
@@ -1336,10 +1457,12 @@ class ServingEngine:
             start, copies = cache.begin_sequence(slot, req, ids)
             req._shared_len = start
             self._run_copies(copies)
+            self._stage_promotions(req, slot)
         except Exception:
             # the abort path returns every claim (the slot lease, if
             # held, is left alone); the caller requeues, or recover()
             # starts over
+            self._staged_promotions.pop(req.rid, None)
             cache.abort_sequence(slot, req)
             raise
         return start
@@ -1501,6 +1624,59 @@ class ServingEngine:
             wl = torch.tensor([wlen], device=self.adapter.device)
             caches = [c + (wl,) for c in caches]
         return self._logits(padded, tail, caches)[0]
+
+    def _stage_promotions(self, req: Request, slot: int) -> None:
+        """Install this request's planned tier promotions on their fresh
+        device pages BEFORE the extend reads them (reference
+        :2772-2820). Staged in ``_staged_promotions`` before the
+        ``serving.kv.promote`` fault point; popped on a successful
+        commit, or unwound HERE through ``abort_sequence`` on any raise
+        (the caller's own abort is then a no-op: the plan is gone), so a
+        failure returns the promotion's pages AND the tier pins. The
+        wait (``ptpu_kv_promotion_wait_seconds``) runs to the install's
+        completion: the tier fetch, the H2D copies and the pool
+        writes."""
+        c = self.cache
+        plan = c._plans.get(req.rid)
+        if plan is None or not plan["promote"]:
+            return
+        rid = req.rid
+        self._staged_promotions[rid] = slot
+        self.metrics.on_promotion_start(rid)
+        t0 = self.metrics.now()
+        try:
+            maybe_fail("serving.kv.promote", slot=slot, rid=rid,
+                       pages=len(plan["promote"]))
+            with span("serving.kv_promote", slot=slot, request_id=rid,
+                      pages=len(plan["promote"])):
+                work = c.begin_promotions(req)
+                self._install_pages(work)
+                c.commit_promotions(req, work)
+        except BaseException:
+            self._staged_promotions.pop(rid, None)
+            c.abort_sequence(slot, req)
+            raise
+        self._staged_promotions.pop(rid, None)
+        self.metrics.on_promotion(rid, self.metrics.now() - t0)
+
+    def _install_pages(self, work) -> None:
+        """Write each promoted payload into its ``dst`` page of every
+        layer's pool, in place: one H2D copy of the payload (from
+        page-locked memory on the card; the caching host allocator keeps
+        the buffer until the copy has run), then a slice write per layer.
+        The reference's install is an XLA program, not a Pallas kernel.
+        Returns once the writes have completed on the device."""
+        c, dev = self.cache, self.adapter.device
+        pools = (c.ks, c.vs, c.kss, c.vss)
+        for _node, dst, payload, _label in work:
+            for field, pool in zip(("k", "v", "ks", "vs"), pools):
+                if not pool:
+                    continue
+                staged = payload[field].to(dev, non_blocking=True)
+                for i, p in enumerate(pool):
+                    p[dst].copy_(staged[i])
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
 
     def _run_copies(self, copies) -> None:
         """COW page copies on the device, before any program reads the

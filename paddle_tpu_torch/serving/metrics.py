@@ -2,14 +2,13 @@
 latency percentiles, slot occupancy, steps, and the draft
 proposals' seconds of a speculative engine.
 
-Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``
-(without the KV host tier's promotion wait, which comes with that
-slice). The clock is injectable (``time_fn``) so tests can assert exact
+Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``. The
+clock is injectable (``time_fn``) so tests can assert exact
 accounting with a fake clock. Every hook also publishes to the
 ``ptpu_serving_*`` families of the observability registry
 (``registry``, the process default unless given): request and token
-counters, and the TTFT, inter-token, queue-wait, decode-stall and
-draft histograms. Per-request state is dropped when a request
+counters, and the TTFT, inter-token, queue-wait, decode-stall, draft
+and KV-promotion-wait histograms. Per-request state is dropped when a request
 finishes; the percentile pools are rolling windows of the last
 ``window`` observations.
 """
@@ -52,10 +51,12 @@ class EngineMetrics:
         self._n_tokens = 0
         self._n_steps = 0
         self._occ_sum = 0
+        self._window = window
         self._ttft: deque = deque(maxlen=window)
         self._qwait: deque = deque(maxlen=window)
         self._gaps: deque = deque(maxlen=window)
         self._draft: deque = deque(maxlen=window)
+        self._promo: deque = deque(maxlen=window)
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
         if registry is None:
@@ -84,6 +85,10 @@ class EngineMetrics:
             "wall time spent proposing one row's speculative draft "
             "(the spec_draft SLO phase: n-gram lookup or draft-model "
             "forwards, billed separately from verify compute)")
+        self._m_promo = registry.histogram(
+            "ptpu_kv_promotion_wait_seconds",
+            "host/disk -> device KV page promotion wall time per "
+            "request (tier fetch + H2D + install, to completion)")
 
     # -- event hooks (the engine calls these) --------------------------
     def on_submit(self, rid: int, stalled: bool = False) -> None:
@@ -124,6 +129,23 @@ class EngineMetrics:
         self._m_tokens.inc()
         self._t_last = t
 
+    def on_promotion_start(self, rid: int) -> None:
+        """The request's prefill is about to install demoted KV pages on
+        the device: only its phase moves (``kv_promotion``), so a
+        request lost before ``on_promotion`` is attributed there."""
+        r = self._reqs.get(rid)
+        if r is not None:
+            r.phase = "kv_promotion"
+
+    def on_promotion(self, rid: int, wait_s: float) -> None:
+        """One request's promotion completed: the wall time its prefill
+        spent installing demoted pages on the device."""
+        r = self._reqs.get(rid)
+        if r is not None:
+            r.phase = "prefill"
+        self._promo.append(wait_s)
+        self._m_promo.observe(wait_s)
+
     def on_draft(self, wait_s: float) -> None:
         """One row's draft proposal completed (or failed): its wall
         time, the cost side of speculation (``spec_draft_s``)."""
@@ -139,6 +161,19 @@ class EngineMetrics:
         self._reqs.pop(rid, None)
 
     # -- read surface ---------------------------------------------------
+    def snapshot_windows(self) -> Dict[str, object]:
+        """Copies of the rolling percentile windows (newest last) and
+        their bound (``window``): exact until traffic exceeds it,
+        recent-biased after."""
+        return {
+            "ttft": tuple(self._ttft),
+            "queue_wait": tuple(self._qwait),
+            "inter_token": tuple(self._gaps),
+            "promotion_wait": tuple(self._promo),
+            "spec_draft": tuple(self._draft),
+            "window": self._window,
+        }
+
     def inflight_phases(self) -> Dict[int, Dict[str, object]]:
         """Per-request last-seen phase and age for every request this
         ledger still holds in flight (``on_finished`` not yet called);
@@ -167,6 +202,7 @@ class EngineMetrics:
             "queue_wait_p99_s": pct(self._qwait, 99),
             "tok_latency_p50_s": pct(self._gaps, 50),
             "tok_latency_p99_s": pct(self._gaps, 99),
+            "promotion_wait_p99_s": pct(self._promo, 99),
             "spec_draft_s": float(sum(self._draft)),
             "occupancy_mean": (self._occ_sum / self._n_steps
                                / self.max_slots

@@ -446,16 +446,14 @@ def test_flight_recorder_dumps_on_failed_step(models, tmp_path):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_registry_families_match_reference(models, reference, layout):
     """The port's engine registers the reference's ptpu_serving_*
-    families (the KV tier's promotion wait aside, a later slice), with
-    the same kinds, and its step publishes the queue, slot and page
-    gauges."""
+    families and the KV tier's promotion wait, with the same kinds, and
+    its step publishes the queue, slot and page gauges."""
     led = ConservationLedger()
     eng = _engine(models, layout, led)
     eng.submit(np.arange(1, 6), 3)
     eng.run()
     ref_reg = reference[layout][1]
-    want = {n: ref_reg.get(n).kind for n in ref_reg.families()
-            if n != "ptpu_kv_promotion_wait_seconds"}
+    want = {n: ref_reg.get(n).kind for n in ref_reg.families()}
     got = {n: eng.registry.get(n).kind for n in eng.registry.families()}
     assert got == want
     # the last step decoded the request's last token

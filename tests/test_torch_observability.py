@@ -477,22 +477,32 @@ def _metrics_run(mod, obs):
         if step == 9:
             m.on_finished(0)
         m.on_draft(0.001 * step)
+        if step in (3, 6):
+            m.on_promotion_start(step - 3)
+            phases.append(sorted(
+                (rid, p["phase"]) for rid, p in
+                m.inflight_phases().items()))
+            m.on_promotion(step - 3, 0.002 * step)
         m.on_step(min(step, 4))
         phases.append(sorted((rid, p["phase"], round(p["age_s"], 9))
                              for rid, p in m.inflight_phases().items()))
-    return m.summary(), phases, reg.to_prometheus()
+    return m.summary(), phases, reg.to_prometheus(), m.snapshot_windows()
 
 
 def test_engine_metrics_match_reference():
     ref, port = (_metrics_run(mod, obs) for mod, obs in
                  ((ref_metrics, ref_obs), (port_metrics, port_obs)))
-    ref_summary = {k: v for k, v in ref[0].items()
-                   if k != "promotion_wait_p99_s"}
-    assert port[0] == ref_summary
+    assert port[0] == ref[0]
+    assert port[3] == ref[3]
+    assert port[0]["promotion_wait_p99_s"] > 0.0
     assert port[1] == ref[1]
-    # the reference's registry also holds the KV tier's promotion wait
-    strip = [ln for ln in ref[2].splitlines()
-             if "ptpu_kv_promotion_wait_seconds" not in ln]
-    assert port[2].splitlines() == strip
+    # the promotion wait's HELP text says that the port's wait runs to
+    # the install's completion (the reference's times its dispatches)
+    help_line = "# HELP ptpu_kv_promotion_wait_seconds"
+    assert [ln for ln in port[2].splitlines()
+            if not ln.startswith(help_line)] \
+        == [ln for ln in ref[2].splitlines()
+            if not ln.startswith(help_line)]
+    assert "ptpu_kv_promotion_wait_seconds_count 2" in port[2]
     assert "ptpu_serving_decode_stall_seconds_count 3" in port[2]
     assert math.isclose(port[0]["spec_draft_s"], 0.066)

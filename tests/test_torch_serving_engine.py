@@ -8,6 +8,8 @@ greedy requests and seeded temperature/top-k requests must give the
 reference's tokens exactly (f32; sampling draws from the same
 per-request numpy stream over logits that agree to ~1e-6).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -208,11 +210,26 @@ def test_model_needs_cuda_by_default(monkeypatch):
                                 dict(kv_transport=object()),
                                 dict(mesh=object()),
                                 dict(host_tier_pages=4),
-                                dict(kv_host_tier=True),
+                                dict(kv_host_tier=True,
+                                     kv_layout="contiguous"),
                                 dict(prefix_store_dir="store")])
-def test_later_slice_arguments_raise(port_model, kw):
-    with pytest.raises(NotImplementedError):
-        ServingEngine(port_model, **kw)
+def test_later_slice_arguments_raise(port_model, kw, tmp_path):
+    """The mesh arguments (the multi-GPU serving slice) raise
+    NotImplementedError. The KV tier's are ported and validated as the
+    reference validates them: a tier without the paged layout and
+    host_tier_pages without a tier raise ValueError, and prefix_store_dir
+    builds its store."""
+    if "prefix_store_dir" in kw:
+        path = str(tmp_path / kw["prefix_store_dir"])
+        eng = ServingEngine(port_model, prefix_store_dir=path)
+        assert eng.kv_host_tier and eng._kv_tier.store.path == path
+        assert os.path.exists(os.path.join(path, "meta.json"))
+    elif "host_tier_pages" in kw or "kv_host_tier" in kw:
+        with pytest.raises(ValueError):
+            ServingEngine(port_model, **kw)
+    else:
+        with pytest.raises(NotImplementedError):
+            ServingEngine(port_model, **kw)
 
 
 def test_reference_defaults_and_unknown_arguments(port_model):
