@@ -265,6 +265,42 @@ no result):
              int8 prefill logits equal through row 8's kernel and its
              plain version, and generate() profiled (5 new tokens less
              1) for device ms a decode step.
+6l. serve-gpt* — GPT-1.3B (gpt_1p3b_config: vocab 50304, hidden 2048,
+             24 layers, 16 heads of 128, tied head; random weights from
+             seed 0), once the Llama model is freed, at serve's
+             geometry and trace: serve-gpt-f32 (the model in f32, row 1
+             in f32; tokens held by the identity rule to a full-context
+             greedy forward, the reference GPT test's anchor) and
+             serve-gpt (bf16, contiguous; the same anchor printed with
+             its splits, the prefill logits through row 1 within
+             ROUTE_TOL of the plain route; 8 decode steps profiled);
+             serve-gpt-paged (the contiguous tokens bit for bit) and
+             serve-gpt-paged-int8 (int8 KV's 0.9 gate, every split within
+             INT8_GAP_STEPS); serve-gpt-prefix and, on the f32 model,
+             serve-gpt-f32-prefix (16 requests after one 384-token system
+             prompt, sharing on against off: 16 extends and no row-1
+             launch shared, each first token the argmax of its extend
+             logits, those within ROUTE_TOL of the whole prefill's; the
+             identity rule held in f32, printed in bf16); serve-gpt-spec (paged,
+             k = 4: the n-gram engine on the whole trace and a GPT
+             self-draft on its first 16 tokens a request, each held to
+             the paged k=1 tokens by the identity rule); serve-gpt-chunked
+             (the chunked trace at chunk 64 against unchunked, paged);
+             serve-gpt-recover (a decode fault, recover(), the identity
+             rule against the fault-free paged run); serve-gpt-int4 and
+             serve-gpt-int8 (weight_only_int4 / _int8: 96 launches of row
+             7 or row 8 a model call; the prefill logits through the
+             kernel within INT4_ROUTE_TOL of every quantized linear
+             through its plain version, the tokens fed through the plain
+             route and the last logits through both printed; int8 must
+             give the same tokens and logits). The bf16 anchor, prefix
+             and int4 pairs split exact and one-step ties of the tied
+             head's bf16 logits at 1-2.5% of positions (PERF.md), so
+             there the rule's agreement is printed. Row 1 exactly 24
+             layers x monolithic prefills in each, no other kernel but
+             the quantized runs' own. kernels-int4-gpt: row 7 at GPT's
+             four linears, M 1, 16 and 512, beside its bound, plain
+             version, torch._weight_int4pack_mm and the bf16 linear.
 7. train-flagship — bench.py:build_flagship's whole recipe: GPTTrainer
              at GPT-3 1.3B width and depth (vocab 50304, hidden 2048,
              24 layers, 16 heads of 128, max_seq_len 1024, tied
@@ -335,9 +371,10 @@ many kernel timings fell back to CUDA events), the
 line {"kernels": [...]}
 (launches from the train-flagship phase, int4_matmul's from
 serve-int4, the BN kernels' from train-resnet50, the f32 flash
-backward's from sdpa-f32, every path's beside them; ms and bounds at
-the trainer's shapes, int4_matmul's at lm_head's decode shape, the f32
-flash backward's at D=128), the
+backward's from sdpa-f32, every path's beside them, the GPT serving
+paths' included; ms and bounds at the trainer's shapes, int4_matmul's
+at lm_head's decode shape with GPT-1.3B's four linears beside it, the
+f32 flash backward's at D=128), the
 nvidia-smi name/power-limit line, and last {"ok": true, "device":
 {...}}. Needs a CUDA device and the repository checkout beside this
 file; imports nothing of JAX.
@@ -2026,10 +2063,20 @@ def llama_1b_config():
                        num_attention_heads=16, max_position_embeddings=1024)
 
 
-def phase_serve(torch, np, model):
+def served(model):
+    """The serving engine's own view of ``model`` (a Llama or a GPT):
+    its ``_ModelAdapter``, whose ``num_layers``, ``kv_heads``,
+    ``head_dim``, ``call`` and ``head`` the serving phases read, so one
+    helper serves either family."""
+    from paddle_tpu_torch.serving.engine import _ModelAdapter
+    return _ModelAdapter(model)
+
+
+def phase_serve(torch, np, model, name="serve"):
     from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
     from paddle_tpu_torch.serving import ServingEngine
     cfg = model.config
+    layers = served(model).num_layers
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, (PROMPT_LENS[i % 5],))
                for i in range(SLOTS)]
@@ -2064,14 +2111,14 @@ def phase_serve(torch, np, model):
                 f"request {r.rid}: {r.finish_reason}, "
                 f"{len(r.output_ids)} of {n} tokens")
     prefills = len(reqs)
-    want = cfg.num_hidden_layers * prefills
+    want = layers * prefills
     if launches != want:
         raise AssertionError(
-            f"flash_attention_fwd launched {launches} times in the "
-            f"engine run; expected {cfg.num_hidden_layers} layers x "
-            f"{prefills} prefills = {want}")
+            f"{name}: flash_attention_fwd launched {launches} times in the "
+            f"engine run; expected {layers} layers x {prefills} prefills "
+            f"= {want}")
     m = engine.metrics.summary()
-    emit({"phase": "serve", "requests": len(reqs),
+    emit({"phase": name, "requests": len(reqs),
           "tokens": m["total_tokens"], "wall_s": wall,
           "tokens_per_s": m["tokens_per_s"], "ttft_p50_s": m["ttft_p50_s"],
           "ttft_p99_s": m["ttft_p99_s"],
@@ -2187,18 +2234,18 @@ def prefill_logits(torch, model, ids, per_row: bool, n=None):
     through the static-cache prefill at position 0: a scalar position
     takes the flash-attention branch, a per-row position tensor the
     plain masked einsum."""
-    cfg = model.config
+    ad = served(model)
     dev = model.device
     n = len(ids) if n is None else n
     x = torch.as_tensor(ids, device=dev).long()[None]
     pos = torch.zeros(1, dtype=torch.long, device=dev) if per_row else 0
-    shape = (1, x.shape[1], cfg.kv_heads, cfg.head_dim)
+    shape = (1, x.shape[1], ad.kv_heads, ad.head_dim)
     caches = [(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
                torch.zeros(shape, dtype=torch.bfloat16, device=dev), pos)
-              for _ in range(cfg.num_hidden_layers)]
+              for _ in range(ad.num_layers)]
     with torch.inference_mode():
-        h, _ = model.llama(x, caches=caches)
-        logits = model._head(h[:, n - 1:n])[0, -1].float()
+        h, _ = ad.call(x, caches)
+        logits = ad.head(h[:, n - 1:n])[0, -1].float()
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
     return logits
@@ -2369,13 +2416,16 @@ def flash_only(name, launches, want) -> int:
 
 
 def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
-                      contig_decode, kv_dtype=None, bf16_run=None):
+                      contig_decode, kv_dtype=None, bf16_run=None,
+                      prefix="serve", gap_steps=None):
     """serve's trace through the paged engine (capacity parity, page
     128), in the model dtype or with int8 KV (see the module
-    docstring, 6a-6b). Returns (requests, launches, kv bytes)."""
+    docstring, 6a-6b); with ``gap_steps``, int8 KV's every split must
+    also lie within that many bf16 steps of the bf16 run's token.
+    Returns (requests, launches, kv bytes)."""
     from paddle_tpu_torch.serving import ServingEngine
-    name = "serve-paged-int8" if kv_dtype else "serve-paged"
-    cfg = model.config
+    name = f"{prefix}-paged-int8" if kv_dtype else f"{prefix}-paged"
+    layers = served(model).num_layers
     news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
 
     def engine(slots):
@@ -2390,7 +2440,7 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
     eng = engine(SLOTS)
     finite = []
     reqs, wall, launches = serve_run(torch, eng, prompts, news, finite)
-    flash = flash_only(name, launches, cfg.num_hidden_layers * len(reqs))
+    flash = flash_only(name, launches, layers * len(reqs))
     no_leaks(eng, name)
     stats = eng.paged_stats()
     row = {"phase": name, "requests": len(reqs), "page_size": PAGE,
@@ -2411,8 +2461,12 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
         steps = sorted(g / s for g, s in gaps)
         if forced < AGREE_MIN:
             raise AssertionError(
-                f"{name}: greedy agreement a step with serve-paged "
+                f"{name}: greedy agreement a step with {prefix}-paged "
                 f"{forced} < {AGREE_MIN}")
+        if gap_steps is not None and steps and steps[-1] > gap_steps:
+            raise AssertionError(
+                f"{name}: a split {steps[-1]} bf16 steps from the bf16 "
+                f"run's token (bound {gap_steps})")
         if not all(finite):
             raise AssertionError(f"{name}: non-finite logits sampled")
         c = eng.cache
@@ -2435,6 +2489,9 @@ def phase_serve_paged(torch, np, model, prompts, contig_reqs, contig,
                    scale_dtype=str(eng.cache.kss[0].dtype),
                    kv_bytes_bf16_paged=bf16_run[2],
                    kv_bytes_over_bf16=eng.cache.kv_bytes() / bf16_run[2])
+        if gap_steps is not None:
+            row.update(gap_bound_steps=gap_steps, identity_agree_min_met=(
+                forced >= IDENTITY_AGREE_MIN))
     m = eng.metrics.summary()
     kv = eng.cache.kv_bytes()
     del eng
@@ -4380,6 +4437,56 @@ def phase_int4_checks(torch, gen) -> dict:
             "zero_group": True, "one_event_per_call": events}
 
 
+def int4_case(torch, gen, M, K, N, group, what) -> dict:
+    """Row 7 at one shape against its plain version (within one bf16
+    step of the output's largest magnitude, the same bits twice, the
+    zero group at scale 1 with codes 0), with the device ms of kernel,
+    plain version, the library's int4 GEMM and the bf16 linear beside the
+    bound (see phase_kernels_int4)."""
+    from paddle_tpu_torch.ops.int4_matmul import (int4_matmul,
+                                                  int4_matmul_plain)
+    x, p, s, q, wb = int4_operands(torch, M, K, N, group, gen)
+    got = int4_matmul(x, p, s, group)
+    again = int4_matmul(x, p, s, group)
+    want = int4_matmul_plain(x, p, s, group)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = bf16_step(want.float())
+    if err > tol:
+        raise AssertionError(f"int4_matmul {M}x{K}x{N} ({what}): max "
+                             f"|kernel - plain| {err} > {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"int4_matmul {M}x{K}x{N}: two runs differ")
+    if not (s[1, 5].item() == 1.0 and not q[group:2 * group, 5].any()):
+        raise AssertionError("int4: the all-zero group is not at scale "
+                             "1 with codes 0")
+    packed, sz = int4pack_operands(torch, q, s, group)
+    lib = lambda: torch._weight_int4pack_mm(x, packed, group, sz)
+    lib_err = (lib().float() - want.float()).abs().max().item()
+    nbytes = M * K * 2 + K // 2 * N + K // group * N * 4 + M * N * 2
+    flops = 2 * M * K * N
+    b_ms, b_by = bound(nbytes, flops)
+    events = EVENT_TIMINGS
+    row = {
+        "M": M, "K": K, "N": N, "group": group, "linear": what,
+        "regime": int4_regime(M),
+        "max_abs_err": err, "tolerance": tol,
+        "ms": device_ms(torch, lambda: int4_matmul(x, p, s, group), 20),
+        "plain_ms": device_ms(torch, lambda: int4_matmul_plain(
+            x, p, s, group), 3),
+        "library_ms": device_ms(torch, lib, 20),
+        "library_max_abs_err": lib_err,
+        "bf16_linear_ms": device_ms(torch, lambda: x @ wb, 20),
+        "bound_ms": b_ms, "bound_by": b_by}
+    # timings that fell back to CUDA events (host launch gaps included)
+    row["event_timings"] = EVENT_TIMINGS - events
+    for key in ("ms", "plain_ms", "library_ms", "bf16_linear_ms"):
+        row[key.replace("ms", "gbps")] = nbytes / row[key] / 1e6
+        row[key.replace("ms", "tflops")] = flops / row[key] / 1e9
+    row["bound_share"] = b_ms / row["ms"]
+    return row
+
+
 def phase_kernels_int4(torch):
     """Kernel row 7 against its plain version on the card at Llama-1B's
     four linear shapes, M in INT4_MS and one ragged M, within one bf16
@@ -4390,52 +4497,11 @@ def phase_kernels_int4(torch):
     the unquantized model runs (x @ W in bf16), beside the bound, with
     the GB/s and TFLOP/s each reaches and the kernel's share of the
     bound; then phase_int4_checks."""
-    from paddle_tpu_torch.ops.int4_matmul import (int4_matmul,
-                                                  int4_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [(M, K, N, g, what) for K, N, g, what in INT4_SHAPES
              for M in INT4_MS]
     cases.append(INT4_RAGGED + ("down_proj, ragged M",))
-    rows = []
-    for M, K, N, group, what in cases:
-        x, p, s, q, wb = int4_operands(torch, M, K, N, group, gen)
-        got = int4_matmul(x, p, s, group)
-        again = int4_matmul(x, p, s, group)
-        want = int4_matmul_plain(x, p, s, group)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = bf16_step(want.float())
-        if err > tol:
-            raise AssertionError(f"int4_matmul {M}x{K}x{N} ({what}): max "
-                                 f"|kernel - plain| {err} > {tol}")
-        if not torch.equal(got, again):
-            raise AssertionError(f"int4_matmul {M}x{K}x{N}: two runs differ")
-        if not (s[1, 5].item() == 1.0 and not q[group:2 * group, 5].any()):
-            raise AssertionError("int4: the all-zero group is not at scale "
-                                 "1 with codes 0")
-        packed, sz = int4pack_operands(torch, q, s, group)
-        lib = lambda: torch._weight_int4pack_mm(x, packed, group, sz)
-        lib_err = (lib().float() - want.float()).abs().max().item()
-        nbytes = M * K * 2 + K // 2 * N + K // group * N * 4 + M * N * 2
-        flops = 2 * M * K * N
-        b_ms, b_by = bound(nbytes, flops)
-        row = {
-            "M": M, "K": K, "N": N, "group": group, "linear": what,
-            "regime": int4_regime(M),
-            "max_abs_err": err, "tolerance": tol,
-            "ms": device_ms(torch, lambda: int4_matmul(x, p, s, group), 20),
-            "plain_ms": device_ms(torch, lambda: int4_matmul_plain(
-                x, p, s, group), 3),
-            "library_ms": device_ms(torch, lib, 20),
-            "library_max_abs_err": lib_err,
-            "bf16_linear_ms": device_ms(torch, lambda: x @ wb, 20),
-            "bound_ms": b_ms, "bound_by": b_by}
-        for key in ("ms", "plain_ms", "library_ms", "bf16_linear_ms"):
-            row[key.replace("ms", "gbps")] = nbytes / row[key] / 1e6
-            row[key.replace("ms", "tflops")] = flops / row[key] / 1e9
-        row["bound_share"] = b_ms / row["ms"]
-        rows.append(row)
-        del x, p, s, q, wb, packed, sz, got, again, want
+    rows = [int4_case(torch, gen, *case) for case in cases]
     checks = phase_int4_checks(torch, gen)
     emit({"phase": "kernels", "name": "int4_matmul",
           "library": "torch._weight_int4pack_mm",
@@ -4450,17 +4516,40 @@ def weight_bytes(model) -> int:
                for t in model.state_dict().values())
 
 
-def phase_serve_int4(torch, np, model, prompts):
+# the kernel a weight-only linear launches once a call, by precision
+QUANT_KERNEL = {"int4": "int4_matmul", "int8": "quantize_rows"}
+
+
+def quantized(model, precision: str):
+    """A weight-only copy of ``model`` and its swapped layers' count."""
+    from paddle_tpu_torch.quantization import (Int4Linear, Int8Linear,
+                                               weight_only_int4,
+                                               weight_only_int8)
+    if precision == "int4":
+        q = weight_only_int4(model, group=INT4_GROUP, inplace=False)
+    else:
+        q = weight_only_int8(model, inplace=False)
+    layer = Int4Linear if precision == "int4" else Int8Linear
+    return q, sum(isinstance(m, layer) for m in q.modules())
+
+
+def phase_serve_int4(torch, np, model, prompts, precision="int4",
+                     name="serve-int4", per_call=None):
     """serve's 16 requests through ServingEngine(weight_only_int4(model,
-    group=128)): every request's token count; int4_matmul exactly 113
-    launches (16 layers x 7 linears + lm_head) per model call, one call
-    per prefill and per decode step, and flash_attention_fwd 16 layers x
-    16 prefills."""
-    from paddle_tpu_torch.ops.int4_matmul import int4_matmul
-    from paddle_tpu_torch.quantization import weight_only_int4
+    group=128)) (or weight_only_int8 with ``precision="int8"``): every
+    request's token count; the precision's kernel (row 7, or row 8's
+    dynamic quantize) exactly ``per_call`` launches per model call (for
+    Llama-1B 113: 16 layers x 7 linears + lm_head; the model must have
+    swapped that many linears), one call per prefill and per decode step,
+    and flash_attention_fwd layers x 16 prefills."""
     from paddle_tpu_torch.serving import ServingEngine
-    qmodel = weight_only_int4(model, group=INT4_GROUP, inplace=False)
-    cfg = model.config
+    qmodel, swapped = quantized(model, precision)
+    layers = served(model).num_layers
+    if per_call is None:
+        per_call = layers * LINEARS_PER_LAYER + 1
+    if swapped != per_call:
+        raise AssertionError(f"{name}: {swapped} linears swapped, expected "
+                             f"{per_call}")
     news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
     warm = ServingEngine(qmodel, kv_layout="contiguous", max_slots=2,
                          max_len=MAX_LEN, min_bucket=MIN_BUCKET)
@@ -4471,43 +4560,27 @@ def phase_serve_int4(torch, np, model, prompts):
     torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(qmodel, kv_layout="contiguous", max_slots=SLOTS,
                            max_len=MAX_LEN, min_bucket=MIN_BUCKET)
-    reqs = [engine.submit(p, max_new_tokens=n)
-            for p, n in zip(prompts, news)]
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_launches()
-    for r, n in zip(reqs, news):
-        if not (r.finished and r.finish_reason == "length"
-                and len(r.output_ids) == n):
-            raise AssertionError(
-                f"serve-int4 request {r.rid}: {r.finish_reason}, "
-                f"{len(r.output_ids)} of {n} tokens")
+    reqs, wall, counts = serve_run(torch, engine, prompts, news)
     m = engine.metrics.summary()
     # all 16 requests are admitted in the first step; the decode runs
     # until the longest has its tokens (its first came from its prefill)
     decode_steps = max(news) - 1
     if m["steps"] != decode_steps:
-        raise AssertionError(f"serve-int4: {m['steps']} engine steps, "
+        raise AssertionError(f"{name}: {m['steps']} engine steps, "
                              f"expected {decode_steps}")
-    L = cfg.num_hidden_layers
-    per_call = L * LINEARS_PER_LAYER + 1
     want = no_launches()
-    want.update(flash_attention_fwd=L * len(reqs),
-                int4_matmul=per_call * (len(reqs) + decode_steps))
+    want.update({"flash_attention_fwd": layers * len(reqs),
+                 QUANT_KERNEL[precision]:
+                     per_call * (len(reqs) + decode_steps)})
     if counts != want:
-        raise AssertionError(f"serve-int4 launches {counts}, expected "
-                             f"{want}")
-    emit({"phase": "serve-int4", "group": INT4_GROUP,
-          "requests": len(reqs), "tokens": m["total_tokens"],
+        raise AssertionError(f"{name} launches {counts}, expected {want}")
+    emit({"phase": name, "group": INT4_GROUP if precision == "int4"
+          else None, "requests": len(reqs), "tokens": m["total_tokens"],
           "wall_s": wall, "tokens_per_s": m["tokens_per_s"],
           "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
           "tok_latency_p50_s": m["tok_latency_p50_s"],
           "decode_steps": decode_steps, "prefills": len(reqs),
-          "int4_launches_per_model_call": per_call,
+          f"{precision}_launches_per_model_call": per_call,
           "launches": {k: v for k, v in counts.items() if v},
           "weight_gb": weight_bytes(qmodel) / 1e9,
           "bf16_weight_gb": weight_bytes(model) / 1e9,
@@ -5845,6 +5918,437 @@ def phase_train_check_resnet(torch, np):
     del base
     torch.cuda.empty_cache()
 
+# -- GPT serving (GPTForCausalLM on every engine path) -----------------------
+# GPT-1.3B (gpt_1p3b_config) served at serve's geometry; its phases run
+# after the Llama phases, once that model is freed. A block swaps four
+# linears (qkv, proj, fc1, fc2) under weight_only_int4 / _int8; the tied
+# head is a matmul against wte and stays bf16
+GPT_LINEARS_PER_BLOCK = 4
+# serve-gpt-prefix: one 384-token system prompt and 16 requests after it
+# (a 16-token tail each, 32 new tokens), paged with sharing on, against
+# the same prompts unshared
+GPT_PREFIX_SYS, GPT_PREFIX_TAIL, GPT_PREFIX_NEW = 384, 16, 32
+# serve-gpt-spec's self-draft engine: serve's 16 prompts at 16 new
+# tokens each (every drafted token is one eager model call of 24
+# layers), held to the first 16 tokens of the paged k=1 run
+GPT_DRAFT_NEW = 16
+# serve-gpt-recover: serve's trace on the paged layout, a decode fault at
+# its 21st decode step
+GPT_RC_FAULTS = (("serving.step.decode", 20),)
+# row 7 at GPT-1.3B's four linears ([K, N], group 128)
+GPT_INT4_SHAPES = [(2048, 6144, 128, "qkv"), (2048, 2048, 128, "proj"),
+                   (2048, 8192, 128, "fc1"), (8192, 2048, 128, "fc2")]
+GPT_INT4_MS = (1, 16, 512)
+
+
+def gpt_model(torch, dtype="bfloat16"):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return GPTForCausalLM(gpt_1p3b_config(), dtype=dtype, generator=gen)
+
+
+def split_stats(gaps) -> dict:
+    """How many splits, how many of them exact ties (the two logits equal
+    in bf16), the widest in bf16 steps, and the first eight (gap, step)."""
+    return {"splits": len(gaps), "exact_ties": sum(g == 0.0 for g, _ in gaps),
+            "max_gap_bf16_steps": max((g / s for g, s in gaps), default=0.0),
+            "split_gaps": gaps[:8]}
+
+
+def full_forward_rule(torch, np, name, model, prompts, reqs,
+                      gate: bool = True) -> dict:
+    """The identity rule against the reference GPT test's anchor, a
+    full-context greedy recompute (tests/test_serving_engine.py:135):
+    one uncached forward over each prompt and its served tokens gives at
+    each position the logits the greedy loop sees once it has chosen the
+    served tokens before it, so no split there means the loop yields
+    exactly the served tokens ("tokens"); otherwise the agreement must
+    reach IDENTITY_AGREE_MIN with every split within one bf16 step
+    ("near-ties"). The uncached forward takes row 1 over the whole
+    sequence; the engine's decode, the cache's einsum. ``gate=False``
+    prints the agreement and the splits (an exact tie counted apart)
+    without holding them: bf16 logits of random weights tie often
+    enough that the two attention routes split them (see PERF.md)."""
+    hits, gaps = [], []
+    with torch.inference_mode():
+        for p, r in zip(prompts, reqs):
+            seq = np.concatenate([p, r.output_ids[:-1]]).astype(np.int64)
+            ids = torch.as_tensor(seq, device=model.device)[None]
+            rows = model(ids)[0, len(p) - 1:].float().cpu().numpy()
+            if not np.isfinite(rows).all():
+                raise AssertionError(f"{name}: non-finite logits")
+            for row, tok in zip(rows, r.output_ids):
+                hits.append(int(row.argmax()) == tok)
+                if not hits[-1]:
+                    gaps.append(split_gap(row, tok))
+    agree = sum(hits) / len(hits)
+    if gate and (agree < IDENTITY_AGREE_MIN
+                 or any(g > s for g, s in gaps)):
+        raise AssertionError(
+            f"{name}: the full-context greedy forward agrees with the "
+            f"served tokens at {agree} of positions (min "
+            f"{IDENTITY_AGREE_MIN}), split gaps {gaps[:8]} (bound one "
+            f"bf16 step)")
+    return {"full_forward_agreement": agree, **split_stats(gaps),
+            "held": gate,
+            "identity_held_by": "tokens" if not gaps else "near-ties"}
+
+
+def forced_run(torch, base_reqs, prompts, engine, route=None):
+    """``engine`` serves ``prompts`` fed the base run's tokens (teacher
+    forcing), under ``route`` (a plain_route context) when given: the
+    (agreement, gaps) the identity rule reads."""
+    with (route() if route else contextlib.nullcontext()), \
+            teacher_forcing([r.output_ids for r in base_reqs]) as tf:
+        for p, b in zip(prompts, base_reqs):
+            tf.track(engine.submit(p, max_new_tokens=len(b.output_ids)))
+        engine.run()
+    if engine.paged:
+        no_leaks(engine, "teacher-forced run")
+    return tf.result()
+
+
+def route_parity(torch, np, model, route) -> dict:
+    """The last-token logits of a 64-token prompt (RandomState(0))
+    through the kernels and through ``route``'s plain versions: max
+    |diff| / max |plain| and whether the argmax agrees."""
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, model.config.vocab_size, (1, DECODE_PROMPT)), device=model.device)
+    with torch.inference_mode():
+        kern = model(ids)[0, -1].double()
+        with route():
+            plain = model(ids)[0, -1].double()
+    rel = ((kern - plain).abs().max()
+           / plain.abs().max().clamp_min(1e-9)).item()
+    return {"last_logit_rel_err_vs_plain": rel,
+            "argmax_same": int(kern.argmax()) == int(plain.argmax())}
+
+
+def gpt_serve_prefix(torch, np, model, name, hold: bool) -> dict:
+    """16 requests over one shared 384-token system prompt through the
+    paged engine with prefix sharing (the prompt warmed first: every
+    request extends over its 3 pages, learned positions from 384 on, no
+    row-1 launch) against the same prompts unshared (16 whole prefills,
+    row 1): each request's first token the argmax of its own extend
+    logits, those within ROUTE_TOL of its whole prefill's (as
+    serve-prefix holds Llama's), and with ``hold`` (the f32 model) the
+    tokens held by the identity rule; at bf16 the rule's agreement is
+    printed (its exact ties split by the two routes, see PERF.md)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    rng = np.random.RandomState(2)
+    system = rng.randint(1, 100, (GPT_PREFIX_SYS,)).astype(np.int64)
+    prompts = [np.concatenate([system, rng.randint(1, 100, (
+        GPT_PREFIX_TAIL,))]).astype(np.int64) for _ in range(SLOTS)]
+    news = [GPT_PREFIX_NEW] * SLOTS
+    layers = served(model).num_layers
+
+    def engine(share, first_logits=None):
+        eng = ServingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                            min_bucket=MIN_BUCKET, page_size=PAGE,
+                            prefix_sharing=share)
+        if share:                   # the system prompt's pages indexed
+            eng.submit(np.concatenate([system, system[:1]]),
+                       max_new_tokens=1)
+            eng.run()
+        if first_logits is not None:
+            raw = eng._prefill_raw
+
+            def keep(slot, ids, req, **kw):
+                first_logits[req.rid] = raw(slot, ids, req, **kw)
+                return first_logits[req.rid]
+            eng._prefill_raw = keep
+        return eng
+    base_first, first = {}, {}
+    base = engine(False, base_first)
+    base_reqs, base_wall, counts = serve_run(torch, base, prompts, news)
+    flash_unshared = flash_only(f"{name} unshared", counts, layers * SLOTS)
+    no_leaks(base, f"{name} unshared")
+    del base
+    eng = engine(True, first)
+    extends = count_calls(eng, "_extend")
+    reqs, wall, counts = serve_run(torch, eng, prompts, news)
+    flash_shared = flash_only(f"{name} shared", counts, 0)
+    st = eng.paged_stats()
+    if extends[0] != SLOTS or st["prefix_hit_tokens"] != SLOTS * GPT_PREFIX_SYS:
+        raise AssertionError(
+            f"{name}: {extends[0]} extends, prefix_hit_tokens "
+            f"{st['prefix_hit_tokens']}; expected {SLOTS} and "
+            f"{SLOTS * GPT_PREFIX_SYS}")
+    no_leaks(eng, f"{name} shared")
+    diff = 0.0
+    for r, b in zip(reqs, base_reqs):
+        got = first[r.rid]
+        if int(np.argmax(got)) != r.output_ids[0]:
+            raise AssertionError(
+                f"{name}: request {r.rid}'s first token {r.output_ids[0]} "
+                f"is not the argmax of its extend logits")
+        diff = max(diff, float(np.abs(got - base_first[b.rid]).max()))
+    if diff > ROUTE_TOL:
+        raise AssertionError(f"{name}: extend logits differ from the whole "
+                             f"prefill's by {diff} > {ROUTE_TOL}")
+
+    def forced():
+        return forced_run(torch, base_reqs, prompts, engine(True))
+    if hold:
+        ident = identity_rule(name, reqs, base_reqs, forced)
+    else:
+        agree, gaps = forced()
+        ident = {"greedy_agreement": agreement(reqs, base_reqs),
+                 "forced_agreement": agree, **split_stats(gaps),
+                 "held": False}
+    emit({"phase": name, "requests": SLOTS,
+          "system_prompt": GPT_PREFIX_SYS, "tail": GPT_PREFIX_TAIL,
+          "new": GPT_PREFIX_NEW, "page_size": PAGE,
+          "flash_launches": {"unshared": flash_unshared,
+                             "shared": flash_shared},
+          "extends": extends[0], "prefix_hit_tokens": st["prefix_hit_tokens"],
+          "prefix_hit_rate": st["prefix_hit_rate"],
+          "extend_logits_max_abs_diff": diff, "route_tol": ROUTE_TOL,
+          "tokens_per_s": {"unshared": sum(len(r.output_ids)
+                                           for r in base_reqs) / base_wall,
+                           "shared": sum(len(r.output_ids)
+                                         for r in reqs) / wall},
+          **ident, "leaks": 0})
+    return {"flash_attention_fwd": flash_shared}
+
+
+def gpt_serve_spec(torch, np, model, prompts, k1_reqs, k1_m) -> dict:
+    """serve's trace through paged speculative engines at k = 4: the
+    n-gram proposer over the whole trace, and a GPT self-draft
+    (draft_model=model) over its first GPT_DRAFT_NEW tokens a request;
+    each held to the paged k=1 run's tokens by the identity rule,
+    teacher-forcing through the verify (spec_forced). Prefix sharing is
+    off: spec_drive's warm-up serves every prompt once first, and a
+    shared prompt would then extend instead of running the k=1 run's
+    whole prefill."""
+    import types
+    layers = served(model).num_layers
+    news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
+    runs = {"ngram": ({}, news),
+            "self-draft": (dict(spec_proposer="draft", draft_model=model),
+                           [min(n, GPT_DRAFT_NEW) for n in news])}
+    rows, launches = {}, {}
+    for name, (kw, n_new) in runs.items():
+        base = [types.SimpleNamespace(output_ids=r.output_ids[:n])
+                for r, n in zip(k1_reqs, n_new)]
+        run = spec_drive(torch, np, model, prompts, n_new, page_size=PAGE,
+                         prefix_sharing=False, speculative=True,
+                         spec_k=SPEC_K, **kw)
+        eng = run["engine"]
+        flash = flash_only(f"serve-gpt-spec-{name}", run["launches"],
+                           layers * len(prompts))
+        st = spec_checked(f"serve-gpt-spec-{name}", eng)
+        del run["engine"], eng
+        ident = identity_rule(f"serve-gpt-spec-{name}", run["reqs"], base,
+                              lambda: spec_forced(torch, np, model, prompts,
+                                                  base, page_size=PAGE,
+                                                  prefix_sharing=False),
+                              suffix="_vs_k1")
+        launches[name] = {"flash_attention_fwd": flash}
+        rows[name] = {"tokens": run["tokens"], "wall_s": run["wall_s"],
+                      "tokens_per_s": run["tokens_per_s"],
+                      "engine_steps": run["steps"], "flash_launches": flash,
+                      "spec_stats": spec_fields(st), **ident}
+    emit({"phase": "serve-gpt-spec", "k": SPEC_K, "page_size": PAGE,
+          "requests": len(prompts), "tokens_per_s_k1": k1_m["tokens_per_s"],
+          "engine_steps_k1": k1_m["steps"],
+          "self_draft_new_cut": f"{max(news)} -> {GPT_DRAFT_NEW}",
+          **rows, "draft_faults": 0, "leaks": 0})
+    return launches
+
+
+def gpt_serve_chunked(torch, np, model) -> dict:
+    """The chunked trace (cp_trace) through the paged engine unchunked
+    and at prefill_chunk=64: row 1 exactly layers x monolithic prefills
+    and none inside a chunk, the chunked tokens held to the unchunked by
+    the identity rule, the max decode stalls."""
+    layers = served(model).num_layers
+    shorts, longs = cp_trace(np)
+    base = cp_drive(torch, model, shorts, longs)
+    ck = cp_drive(torch, model, shorts, longs, prefill_chunk=CP_CHUNK)
+    flash = {k: cp_checked(f"serve-gpt-chunked {k}", r, layers)
+             for k, r in (("unchunked", base), ("chunked", ck))}
+    del base["engine"], ck["engine"]
+    ident = identity_rule("serve-gpt-chunked", ck["reqs"], base["reqs"],
+                          lambda: cp_forced(torch, model, shorts, longs,
+                                            base["reqs"],
+                                            prefill_chunk=CP_CHUNK))
+    emit({"phase": "serve-gpt-chunked", "chunk": CP_CHUNK,
+          "page_size": PAGE, "flash_launches": flash,
+          "monolithic_prefills": {"unchunked": base["full_prefills"],
+                                  "chunked": ck["full_prefills"]},
+          "chunk_steps": ck["chunk_steps"],
+          "max_decode_stall_s": {"unchunked": max(base["gaps"]),
+                                 "chunked": max(ck["gaps"])},
+          "tok_latency_p99_s": {
+              "unchunked": float(np.percentile(base["gaps"], 99)),
+              "chunked": float(np.percentile(ck["gaps"], 99))},
+          "chunk_ms_mean": ck["chunk_ms_mean"],
+          "prefill_512_ms_unchunked": base["prefill_512_ms"], **ident,
+          "leaks": 0})
+    return {"flash_attention_fwd": flash["chunked"]}
+
+
+def gpt_serve_recover(torch, np, model, prompts, base_reqs) -> dict:
+    """serve's trace on the paged layout with a decode fault, recover()ed
+    (rc_drive: ledger, audits and flight-recorder dumps), held to the
+    fault-free paged run by the identity rule."""
+    layers = served(model).num_layers
+    news = [NEW_TOKENS[i % 4] for i in range(SLOTS)]
+    arrivals = {0: list(zip(prompts, news))}
+    run = rc_drive(torch, model, arrivals, GPT_RC_FAULTS, page_size=PAGE)
+    flash = flash_only("serve-gpt-recover", run["launches"],
+                       layers * run["full_prefills"])
+
+    def forced():
+        with teacher_forcing([r.output_ids for r in base_reqs]) as tf:
+            rc_drive(torch, model, arrivals, GPT_RC_FAULTS, tf=tf,
+                     page_size=PAGE)
+        return tf.result()
+    ident = identity_rule("serve-gpt-recover", run["reqs"], base_reqs, forced)
+    emit({"phase": "serve-gpt-recover", "faults": [p for p, _ in
+                                                   GPT_RC_FAULTS],
+          "reports": run["reports"], "recoveries_total":
+          run["recoveries_total"], "flight_recorder_dumps": run["dumps"],
+          "monolithic_prefills": run["full_prefills"],
+          "flash_launches": flash, "ledger_violations": 0, **ident,
+          "leaks": 0})
+    return {"flash_attention_fwd": flash}
+
+
+def gpt_serve_quant(torch, np, model, prompts, precision: str) -> dict:
+    """serve's trace through weight_only_int4 / _int8 GPT-1.3B
+    (phase_serve_int4: 96 swapped linears, one launch of row 7 or row 8
+    each a model call); the 300-token prompt's prefill logits through
+    the kernel and through every quantized linear's plain version
+    within INT4_ROUTE_TOL (as check-int4 holds Llama's), and the tokens
+    of the same engine fed the kernel run's tokens through the plain
+    route (the identity rule's agreement and splits) with the last
+    logits through both. int8, whose row 8 is bit for bit its plain
+    version, must give the same tokens and the same logits; int4's
+    tokens are printed (its routes sum in other orders)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    name = f"serve-gpt-{precision}"
+    per_call = served(model).num_layers * GPT_LINEARS_PER_BLOCK
+    qmodel, reqs, counts = phase_serve_int4(torch, np, model, prompts,
+                                            precision, name, per_call)
+    route = int4_plain_route if precision == "int4" else int8_plain_route
+    ids = prompts[PROMPT_LENS.index(300)]
+    kern = prefill_logits(torch, qmodel, ids, False)
+    with route():
+        plain = prefill_logits(torch, qmodel, ids, False)
+    diff = (kern - plain).abs().max().item()
+    if diff > INT4_ROUTE_TOL:
+        raise AssertionError(f"{name}: prefill logits, kernel vs plain "
+                             f"route: max |diff| {diff} > {INT4_ROUTE_TOL}")
+    eng = ServingEngine(qmodel, kv_layout="contiguous", max_slots=SLOTS,
+                        max_len=MAX_LEN, min_bucket=MIN_BUCKET)
+    agree, gaps = forced_run(torch, reqs, prompts, eng, route)
+    row = {"route_logits_max_abs_diff": diff, "route_tol": INT4_ROUTE_TOL,
+           "forced_agreement_vs_plain": agree, **split_stats(gaps),
+           **route_parity(torch, np, qmodel, route)}
+    if precision == "int8":
+        if gaps or diff:
+            raise AssertionError(f"{name}: {len(gaps)} splits and logits "
+                                 f"{diff} apart through row 8's plain "
+                                 f"version")
+        row["route_logits_equal"] = int8_route_check(torch, np, qmodel)
+    emit({"phase": name + "-check", **row})
+    del qmodel, eng
+    torch.cuda.empty_cache()
+    return {k: v for k, v in counts.items() if v}
+
+
+def gpt_route_check(torch, np, model, prompts) -> dict:
+    """The GPT engine's first tokens against the argmax of its own
+    bucket-padded prefill (the cache route), and the 300-token prompt's
+    prefill logits through row 1 against the plain masked einsum within
+    ROUTE_TOL (printed with the gap to it)."""
+    ids = prompts[PROMPT_LENS.index(300)]
+    kern = prefill_logits(torch, model, ids, per_row=False)
+    plain = prefill_logits(torch, model, ids, per_row=True)
+    diff = (kern - plain).abs().max().item()
+    if diff > ROUTE_TOL:
+        raise AssertionError(f"serve-gpt: prefill logits, kernel vs plain "
+                             f"route: max |diff| {diff} > {ROUTE_TOL}")
+    return {"route_logits_max_abs_diff": diff, "route_tol": ROUTE_TOL,
+            "route_argmax_equal": int(kern.argmax()) == int(plain.argmax()),
+            "logit_bf16_step": bf16_step(kern)}
+
+
+def phase_serve_gpt(torch, np) -> dict:
+    """GPT-1.3B (random weights from seed 0) on every engine path at
+    serve's geometry. In f32: contiguous, held to a full-context greedy
+    forward, and the shared-prefix extend held to unshared, both by the
+    identity rule. In bf16: contiguous (the same anchor printed), paged
+    (the contiguous tokens bit for bit) and paged int8 (int8 KV's gate
+    and its split bound), the shared-prefix extend, the speculative
+    verify (n-gram and a self-draft), chunked prefill and recover()
+    after a decode fault (the identity rule), and weight-only int4 /
+    int8; each with its exact launch counts. Returns the launches by
+    path."""
+    t0 = time.perf_counter()
+    launches = {}
+    # the anchor in f32 (row 1 in f32 in the prefills and the full
+    # forwards): held by the identity rule
+    model = gpt_model(torch, "float32")
+    prompts, reqs, launches["serve-gpt-f32"], _ = phase_serve(
+        torch, np, model, name="serve-gpt-f32")
+    emit({"phase": "serve-gpt-f32-check", **full_forward_rule(
+        torch, np, "serve-gpt-f32", model, prompts, reqs)})
+    launches["serve-gpt-f32-prefix"] = gpt_serve_prefix(
+        torch, np, model, "serve-gpt-f32-prefix", hold=True)
+    del model, reqs
+    torch.cuda.empty_cache()
+    model = gpt_model(torch)
+    prompts, reqs, launches["serve-gpt"], m = phase_serve(
+        torch, np, model, name="serve-gpt")
+    emit({"phase": "serve-gpt-check",
+          **full_forward_rule(torch, np, "serve-gpt", model, prompts, reqs,
+                              gate=False),
+          **gpt_route_check(torch, np, model, prompts)})
+    decode = decode_profile(torch, model, prompts, kv_layout="contiguous")
+    emit({"phase": "serve-gpt-profile", "decode": decode})
+    paged = phase_serve_paged(torch, np, model, prompts, reqs, m, decode,
+                              prefix="serve-gpt")
+    launches["serve-gpt-paged"] = paged[1]
+    paged8 = phase_serve_paged(torch, np, model, prompts, reqs, m, decode,
+                               kv_dtype="int8", bf16_run=paged,
+                               prefix="serve-gpt", gap_steps=INT8_GAP_STEPS)
+    launches["serve-gpt-paged-int8"] = paged8[1]
+    del paged8
+    launches["serve-gpt-prefix"] = gpt_serve_prefix(
+        torch, np, model, "serve-gpt-prefix", hold=False)
+    for name, counts in gpt_serve_spec(torch, np, model, prompts, paged[0],
+                                       paged[3]).items():
+        launches["serve-gpt-spec-" + name] = counts
+    launches["serve-gpt-chunked"] = gpt_serve_chunked(torch, np, model)
+    launches["serve-gpt-recover"] = gpt_serve_recover(torch, np, model,
+                                                      prompts, paged[0])
+    del paged
+    for precision in ("int4", "int8"):
+        launches[f"serve-gpt-{precision}"] = gpt_serve_quant(
+            torch, np, model, prompts, precision)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "serve-gpt-done", "phase_s": time.perf_counter() - t0})
+    return launches
+
+
+def phase_kernels_int4_gpt(torch) -> list:
+    """Row 7 against its plain version at GPT-1.3B's four linears, M in
+    GPT_INT4_MS (int4_case: ms beside the bytes bound, the plain version,
+    torch._weight_int4pack_mm and the bf16 linear)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = [int4_case(torch, gen, M, K, N, g, what)
+            for K, N, g, what in GPT_INT4_SHAPES for M in GPT_INT4_MS]
+    emit({"phase": "kernels-int4-gpt", "name": "int4_matmul",
+          "library": "torch._weight_int4pack_mm",
+          "tolerance": "one bf16 step of the output's largest magnitude",
+          "cases": rows})
+    return rows
+
+
 def main() -> int:
     # keep CUPTI set up between traces: torch.profiler's default tears it
     # down after each one, and on the card's machine traces then came
@@ -5935,6 +6439,8 @@ def main() -> int:
     launches["decode"] = phase_decode(torch, np, model)
     del model, reqs
     torch.cuda.empty_cache()
+    launches.update(phase_serve_gpt(torch, np))
+    gpt_int4_rows = phase_kernels_int4_gpt(torch)
 
     losses = {}
     for path in ("train-flagship", "train-flagship-ln", "train"):
@@ -6027,10 +6533,15 @@ def main() -> int:
         entry("fused_adamw8", "fused_adamw8.cu",
               "paddle_tpu/ops/fused_adamw.py:222",
               adamw8_rows + [adamw8_list], adamw8_list),
+        # with GPT-1.3B's four linears beside Llama-1B's (gpt_cases)
         entry("int4_matmul", "int4_matmul.cu",
-              "paddle_tpu/ops/int4_matmul.py:118", int4_rows,
+              "paddle_tpu/ops/int4_matmul.py:118", int4_rows + gpt_int4_rows,
               next(r for r in int4_rows if r["M"] == SLOTS
-                   and r["N"] == 32000), "serve-int4"),
+                   and r["N"] == 32000), "serve-int4", gpt_cases=[
+                  {k: r[k] for k in ("M", "K", "N", "linear", "max_abs_err",
+                                     "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+                  for r in gpt_int4_rows]),
         *(entry(k, "batch_norm.cu", f"paddle_tpu/ops/bn_pallas.py:{line}",
                 bn_rows[k], bn_rows[k][0], "train-resnet50")
           for k, line in zip(BN_KERNELS, (117, 136, 149, 162)))]})

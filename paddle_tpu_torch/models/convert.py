@@ -1,5 +1,5 @@
-"""Load the reference's weights into the port: Llama models and the GPT
-trainer.
+"""Load the reference's weights into the port: Llama and GPT models and
+the GPT trainer.
 
 ``llama_from_jax_state`` takes the reference model's ``state_dict()``
 as numpy arrays (``{name: np.asarray(t)}``; the caller converts, so
@@ -19,6 +19,12 @@ A weight-only quantized reference model (``weight_only_int4`` or
 scale outside its state) holding those codes and scales as they are, no
 re-quantization; both packages lay them out ``[in, out]``, so nothing of
 theirs is transposed.
+
+``gpt_lm_from_jax_state`` does the same for the reference's
+``GPTForCausalLM``: ``qkv``, ``proj``, ``fc1``, ``fc2`` and ``lm_head``
+weights are transposed; biases, ``wte``, ``wpe`` and the LayerNorms
+stay as they are; weight-only quantized linears carry across with their
+biases.
 
 ``gpt_trainer_from_jax_params`` takes ``GPTSpmdTrainer.params`` as
 numpy and returns a ``GPTTrainer`` holding them (``gpt_params_from_numpy``
@@ -50,11 +56,12 @@ import torch
 
 from .._device import resolve_device, resolve_dtype
 from ..quantization import Int4Linear, Int8Linear
-from .gpt import (GPTConfig, GPTTrainer, block_shapes, flatten_params,
-                  top_shapes)
+from .gpt import (GPTConfig, GPTForCausalLM, GPTTrainer, block_shapes,
+                  flatten_params, top_shapes)
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["gpt_opt_state_to_numpy", "gpt_params_from_numpy",
+__all__ = ["gpt_lm_from_jax_state", "gpt_opt_state_to_numpy",
+           "gpt_params_from_numpy",
            "gpt_params_to_numpy", "gpt_trainer_from_jax_params",
            "llama_from_jax_state",
            "momentum_from_numpy", "momentum_to_numpy",
@@ -68,11 +75,18 @@ def _np32(arr) -> np.ndarray:
     return a
 
 
-def _is_linear_weight(name: str) -> bool:
+def _is_llama_linear_weight(name: str) -> bool:
     return name.endswith("_proj.weight") or name == "lm_head.weight"
 
 
-def _swap_quantized(model: LlamaForCausalLM, np_state) -> None:
+_GPT_LINEARS = (".qkv.weight", ".proj.weight", ".fc1.weight", ".fc2.weight")
+
+
+def _is_gpt_linear_weight(name: str) -> bool:
+    return name.endswith(_GPT_LINEARS) or name == "lm_head.weight"
+
+
+def _swap_quantized(model: torch.nn.Module, np_state) -> None:
     """Replace each linear that ``np_state`` holds as weight-only codes
     (``<name>.wq``, ``<name>.w_scale``) by the quantized layer holding
     them; a name that is no linear of the model, a missing scale, an
@@ -99,17 +113,32 @@ def _swap_quantized(model: LlamaForCausalLM, np_state) -> None:
                 layer.to(linear.weight.device))
 
 
-def llama_from_jax_state(np_state: Dict[str, np.ndarray], cfg: LlamaConfig,
-                         device=None, dtype=None) -> LlamaForCausalLM:
-    model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
+def _load_lm(model, np_state, is_linear_weight):
+    """``model`` holding ``np_state``: quantized linears swapped in, the
+    ``[in, out]`` linear weights transposed, every name and shape
+    checked by a strict load."""
     _swap_quantized(model, np_state)
     state = {}
     for name, arr in np_state.items():
         t = torch.tensor(_np32(arr))        # a copy the model owns
-        state[name] = t.t() if _is_linear_weight(name) else t
+        state[name] = t.t() if is_linear_weight(name) else t
     model.load_state_dict(state, strict=True)
     model.eval()
     return model
+
+
+def llama_from_jax_state(np_state: Dict[str, np.ndarray], cfg: LlamaConfig,
+                         device=None, dtype=None) -> LlamaForCausalLM:
+    return _load_lm(LlamaForCausalLM(cfg, device=device, dtype=dtype),
+                    np_state, _is_llama_linear_weight)
+
+
+def gpt_lm_from_jax_state(np_state: Dict[str, np.ndarray], cfg: GPTConfig,
+                          device=None, dtype=None) -> GPTForCausalLM:
+    """A ``GPTForCausalLM`` holding the reference ``GPTForCausalLM``'s
+    ``state_dict()`` (as numpy; bf16 as the numpy-side bf16 or f32)."""
+    return _load_lm(GPTForCausalLM(cfg, device=device, dtype=dtype),
+                    np_state, _is_gpt_linear_weight)
 
 
 def _take(src: dict, shapes: dict, where: str, device, dtype,

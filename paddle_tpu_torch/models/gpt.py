@@ -1,6 +1,12 @@
-"""GPT pretraining step on one device.
+"""GPT in PyTorch: the serving model and the pretraining step on one
+device.
 
-Counterpart of ``paddle_tpu/models/gpt.py``: ``GPTConfig`` (:82) and
+Counterpart of ``paddle_tpu/models/gpt.py``: ``GPTConfig`` (:82), the
+serving model ``GPTBlock`` / ``GPTModel`` / ``GPTForCausalLM``
+(:106-294, at the end of this module: the uncached forward and the
+contiguous, paged and verify cache flavours the serving engine drives,
+see ``GPTBlock``; learned positions from the cache's write position;
+LayerNorm in the reference's rounding order, ``nn.LayerNorm``), and
 ``GPTTrainer``, the one-device form of
 ``GPTSpmdTrainer`` (:345) at ``layer_unroll="full"`` with no mesh. The
 step is the reference's: token + position embedding, pre-LN blocks
@@ -75,9 +81,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.nn import functional as TF
 
 from .._device import resolve_device, resolve_dtype
+from ..nn.functional import scaled_dot_product_attention
+from ..nn.layer.norm import LayerNorm
 from ..ops.flash_attention import (flash_attention_qkv_fused,
                                    flash_qkv_packed_bwd, flash_qkv_packed_fwd)
 from ..ops.fused_adamw import (AdamW8Leaves, AdamWLeaves,
@@ -90,9 +99,13 @@ from ..ops.quant_matmul import (int8_dgrad, int8_dot_dequant,
                                 int8_ln_linear_all8_bwd, int8_ln_matmul,
                                 int8_matmul, layer_seed, site_seed,
                                 sr_quantize_colwise, step_seed)
+from ._decode_cache import (cache_attend, check_cache_pos,
+                            paged_cache_attend, per_position)
+from .llama import _Embedding, _Linear
 
-__all__ = ["GPTConfig", "GPTTrainer", "block_shapes", "flatten_params",
-           "layer_norm", "top_shapes"]
+__all__ = ["GPTBlock", "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "GPTTrainer", "block_shapes", "flatten_params", "layer_norm",
+           "top_shapes"]
 
 
 @dataclasses.dataclass
@@ -669,3 +682,186 @@ class GPTTrainer:
     def n_params(self) -> int:
         return sum(p.numel() for p in self._leaves)
 
+
+
+# ---------------------------------------------------------------------------
+# the serving model (reference gpt.py:106-294)
+# ---------------------------------------------------------------------------
+
+def _gelu(x):
+    return TF.gelu(x, approximate="tanh")
+
+
+class GPTBlock(nn.Module):
+    """A pre-LN block (reference :106-213): ``ln1``, the fused ``qkv``
+    projection read as ``[b, t, 3, H, D]``, attention, ``proj``, ``ln2``,
+    ``fc1``, tanh-gelu, ``fc2``. ``cache`` selects the attention:
+
+    - None: causal ``scaled_dot_product_attention`` (row 1 on the card
+      where ``kernel_takes``, its plain branch otherwise);
+    - ``(k, v, pos)`` / ``(k, v, pos, wlen)``: the contiguous buffers
+      through ``_decode_cache.cache_attend`` (the verify and chunk
+      flavours with ``wlen``; a scalar ``pos == 0`` prefill takes row 1);
+    - ``(kp, vp, ks, vs, table, pos)`` / ``(..., pos, wlen)``: the paged
+      pools through ``_decode_cache.paged_cache_attend``.
+
+    Cached and uncached calls share one tail (:208-213). ``positionwise``
+    (cached calls only) runs the norms and linears one position at a
+    time (``_decode_cache.per_position``)."""
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        D, F = cfg.hidden_size, cfg.ffn_size
+        self.ln1 = LayerNorm(D, device=device, dtype=dtype)
+        self.ln2 = LayerNorm(D, device=device, dtype=dtype)
+        self.qkv = _Linear(D, 3 * D, device=device, dtype=dtype)
+        self.proj = _Linear(D, D, device=device, dtype=dtype)
+        self.fc1 = _Linear(D, F, device=device, dtype=dtype)
+        self.fc2 = _Linear(F, D, device=device, dtype=dtype)
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def forward(self, x, cache=None, positionwise: bool = False):
+        b, t, _ = x.shape
+        D = self.cfg.head_dim
+        pw = positionwise and cache is not None
+        qkv = per_position(lambda y: self.qkv(self.ln1(y)), x, pw)
+        qkv = qkv.reshape(b, t, 3, -1, D)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        new_cache = None
+        if cache is None:
+            attn = scaled_dot_product_attention(
+                q, k, v, is_causal=True, training=self.training)
+            attn = attn.reshape(b, t, -1)
+        elif len(cache) in (6, 7):
+            kp, vp, ksc, vsc, table, pos = cache[:6]
+            wlen = cache[6] if len(cache) == 7 else None
+            # the extend's bucket padding may run past the table and is
+            # sent to the trash page: only the start position is checked
+            per_row = check_cache_pos(pos, 1, table.shape[1] * kp.shape[1])
+            p = torch.as_tensor(pos, device=x.device).long() if per_row \
+                else int(pos)
+            attn, kp2, vp2, ks2, vs2 = paged_cache_attend(
+                q, k, v, kp, vp, ksc, vsc, table, p, x.dtype, wlen=wlen)
+            new_cache = (kp2, vp2, ks2, vs2, table, pos + t)
+        else:
+            kc, vc, pos = cache[:3]
+            wlen = cache[3] if len(cache) == 4 else None
+            # the verify's writes past the buffer are dropped
+            per_row = check_cache_pos(pos, 1 if wlen is not None else t,
+                                      kc.shape[1])
+            p = torch.as_tensor(pos, device=x.device).long() if per_row \
+                else pos
+            attn, kc2, vc2 = cache_attend(q, k, v, kc, vc, p, per_row,
+                                          wlen=wlen)
+            new_cache = (kc2, vc2, pos + t)
+        x = x + self.drop(per_position(self.proj, attn.to(x.dtype), pw))
+        x = x + self.drop(per_position(
+            lambda y: self.fc2(_gelu(self.fc1(self.ln2(y)))), x, pw))
+        return x if new_cache is None else (x, new_cache)
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = _Embedding(cfg.vocab_size, cfg.hidden_size,
+                              device=device, dtype=dtype)
+        self.wpe = _Embedding(cfg.max_seq_len, cfg.hidden_size,
+                              device=device, dtype=dtype)
+        self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype)
+                                     for _ in range(cfg.num_layers)])
+        self.ln_f = LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
+
+    def _cache_positions(self, base, t: int):
+        """Learned positions of a cached call (reference :236-255): the
+        write position ``base`` (an int, or a ``[b]`` tensor) plus
+        ``0..t-1``, clipped to the table. The clip touches only tokens
+        whose writes are masked or sent to the trash page (a verify row
+        near its cap, the extend's bucket padding), where the
+        reference's gather fills NaN."""
+        dev = self.wpe.weight.device
+        steps = torch.arange(t, device=dev)
+        if getattr(base, "ndim", 0) >= 1:
+            pos = torch.as_tensor(base, device=dev).long()[:, None] \
+                + steps[None]
+        else:
+            pos = (steps + int(base))[None]
+        return pos.clamp(max=self.cfg.max_seq_len - 1)
+
+    def forward(self, input_ids, caches=None, positionwise: bool = False):
+        b, t = input_ids.shape
+        if caches is None:
+            if t > self.cfg.max_seq_len:
+                raise ValueError(f"sequence length {t} exceeds "
+                                 f"max_seq_len={self.cfg.max_seq_len}")
+            pos = torch.arange(t, device=input_ids.device)[None]
+            x = self.wte(input_ids) + self.wpe(pos)
+            for blk in self.blocks:
+                x = blk(x)
+            return self.ln_f(x)
+        # pos is the last element of the (k, v, pos) and paged 6-tuples,
+        # the second to last of the verify flavours (which append wlen)
+        verify = len(caches[0]) in (4, 7)
+        base = caches[0][-2] if verify else caches[0][-1]
+        x = self.wte(input_ids) + self.wpe(self._cache_positions(base, t))
+        new_caches = []
+        for blk, c in zip(self.blocks, caches):
+            x, nc = blk(x, c, positionwise)
+            new_caches.append(nc)
+        return per_position(self.ln_f, x, positionwise), new_caches
+
+
+class GPTForCausalLM(nn.Module):
+    """The GPT serving model (reference :258-294), ``nn.Module``s with the
+    reference's names (``gpt.wte``, ``gpt.wpe``, ``gpt.blocks.{i}.{ln1,
+    qkv,proj,ln2,fc1,fc2}``, ``gpt.ln_f``, ``lm_head`` when untied).
+    ``device=None`` means the CUDA device (raises without one);
+    ``dtype`` is a name or a ``torch.dtype``, f32 by default
+    (``cfg.dtype`` is the trainer's). Weights are drawn from
+    ``generator`` (seed 0 when None) with the reference's initialisers:
+    Xavier-normal linears and embeddings, zero biases, LayerNorm weights
+    at one and biases at zero. The tied head is ``h @ wte.weight.T``."""
+
+    def __init__(self, cfg: GPTConfig, use_tp: bool = False, device=None,
+                 dtype=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if use_tp:
+            raise NotImplementedError(
+                "tensor-parallel GPT serving (use_tp) comes with the "
+                "multi-GPU slice of the port")
+        dev = resolve_device(device)
+        dt = resolve_dtype(dtype)
+        self.config = cfg
+        self.gpt = GPTModel(cfg, device=dev, dtype=dt)
+        if not cfg.tie_embeddings:
+            self.lm_head = _Linear(cfg.hidden_size, cfg.vocab_size,
+                                   bias=False, device=dev, dtype=dt)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                w = mod.weight
+                std = math.sqrt(2.0 / (w.shape[0] + w.shape[1]))
+                w.normal_(0.0, std, generator=generator)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.wte.weight.device
+
+    def forward(self, input_ids, caches=None, positionwise: bool = False):
+        if caches is not None:
+            h, new_caches = self.gpt(input_ids, caches, positionwise)
+            return self._head(h), new_caches
+        return self._head(self.gpt(input_ids))
+
+    def _head(self, h):
+        if self.config.tie_embeddings:
+            return TF.linear(h, self.gpt.wte.weight)
+        return self.lm_head(h)

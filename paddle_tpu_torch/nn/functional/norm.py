@@ -1,6 +1,12 @@
-"""Normalisation functionals: RMS normalisation and BatchNorm.
+"""Normalisation functionals: RMS and layer normalisation, BatchNorm.
 
 Counterpart of ``paddle_tpu/nn/functional/norm.py``.
+
+``layer_norm`` (:135-164) keeps the reference's order too: mean and
+variance in f32, the normalized value rounded to the input dtype, then
+the weight multiply and bias add in the input dtype. ``ops/layer_norm.py``
+(the trainer's) and ``torch.nn.functional.layer_norm`` apply the affine
+in f32 and round once, which differs at bf16, so neither is used here.
 
 ``rms_norm`` (:174-189) keeps the reference's order of operations: mean
 square in f32, ``rsqrt``, cast back to the input dtype, then the weight
@@ -31,7 +37,7 @@ import torch
 
 from ...ops import batch_norm as _bn
 
-__all__ = ["batch_norm", "rms_norm"]
+__all__ = ["batch_norm", "layer_norm", "rms_norm"]
 
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6,
@@ -44,6 +50,22 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6,
     out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5):
+    n = len(normalized_shape) if isinstance(normalized_shape,
+                                            (list, tuple)) else 1
+    dims = tuple(range(x.dim() - n, x.dim()))
+    xf = x.float()
+    centred = xf - xf.mean(dim=dims, keepdim=True)
+    var = centred.square().mean(dim=dims, keepdim=True)
+    out = (centred * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
     return out
 
 

@@ -4,9 +4,10 @@ from .common import Linear
 from .container import Sequential
 from .conv import Conv2D
 from .loss import CrossEntropyLoss
-from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, RMSNorm
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   LayerNorm, RMSNorm)
 from .pooling import AdaptiveAvgPool2D, MaxPool2D
 
 __all__ = ["AdaptiveAvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "Conv2D", "CrossEntropyLoss", "Linear",
+           "BatchNorm3D", "Conv2D", "CrossEntropyLoss", "LayerNorm", "Linear",
            "MaxPool2D", "RMSNorm", "ReLU", "Sequential"]

@@ -1,8 +1,9 @@
-"""Norm layers: ``RMSNorm`` and the BatchNorms.
+"""Norm layers: ``RMSNorm``, ``LayerNorm`` and the BatchNorms.
 
 Counterpart of ``paddle_tpu/nn/layer/norm.py``: ``RMSNorm`` (weight
-``[hidden]`` initialised to ones, applied by ``functional.rms_norm``)
-and ``_BatchNormBase``, ``BatchNorm``, ``BatchNorm1D``/``2D``/``3D``
+``[hidden]`` initialised to ones, applied by ``functional.rms_norm``),
+``LayerNorm`` (:87-113: weight ones and bias zeros in the model dtype,
+epsilon 1e-5, applied by ``functional.layer_norm``) and ``_BatchNormBase``, ``BatchNorm``, ``BatchNorm1D``/``2D``/``3D``
 (:15-72): weight ones and bias zeros (f32; ``weight_attr=False`` /
 ``bias_attr=False`` drop them), the running statistics in the
 reference's buffer names ``_mean`` (zeros) and ``_variance`` (ones),
@@ -16,10 +17,10 @@ import torch
 from torch import nn
 
 from ..._device import resolve_device
-from ..functional.norm import batch_norm, rms_norm
+from ..functional.norm import batch_norm, layer_norm, rms_norm
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "RMSNorm"]
+           "LayerNorm", "RMSNorm"]
 
 
 class RMSNorm(nn.Module):
@@ -32,6 +33,24 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 device=None, dtype=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self.normalized_shape = list(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(
+            self.normalized_shape, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(
+            self.normalized_shape, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                          self.epsilon)
 
 
 def _attr(attr, what: str) -> bool:

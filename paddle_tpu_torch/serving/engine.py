@@ -145,31 +145,42 @@ _LATER = {
 
 
 class _ModelAdapter:
-    """Uniform view over the causal LMs with a static-cache path: a
-    backbone callable taking (ids, caches), a logits head, and the
-    cache geometry. Llama only in this slice."""
+    """Uniform view over the causal LMs with a static-cache path
+    (reference :80-125): a backbone callable taking (ids, caches,
+    positionwise), a logits head, and the cache geometry, for a
+    ``LlamaForCausalLM`` (``.llama``) or a ``GPTForCausalLM``
+    (``.gpt``). Past this class the engine reads no model family's
+    names."""
 
     def __init__(self, model):
-        if not hasattr(model, "llama"):
-            raise TypeError(
-                f"{type(model).__name__} exposes no static-cache decode "
-                "path this engine can drive (expected a LlamaForCausalLM "
-                "with a .llama backbone; GPT serving comes with a later "
-                "slice of the port)")
         self.model = model
         cfg = model.config
-        backbone = model.llama
-        self.call = lambda ids, caches, positionwise=False: backbone(
-            ids, None, caches, positionwise)
+        # the projections may be nn.Linear or a weight-only Int4Linear /
+        # Int8Linear: all have out_features
+        if hasattr(model, "llama"):
+            backbone = model.llama
+            self.call = lambda ids, caches, positionwise=False: backbone(
+                ids, None, caches, positionwise)
+            self.num_layers = len(backbone.layers)
+            kv_width = backbone.layers[0].self_attn.k_proj.out_features
+            self.max_positions = cfg.max_position_embeddings
+            w = backbone.embed_tokens.weight
+        elif hasattr(model, "gpt"):
+            backbone = model.gpt
+            self.call = lambda ids, caches, positionwise=False: backbone(
+                ids, caches, positionwise)
+            self.num_layers = len(backbone.blocks)
+            kv_width = backbone.blocks[0].qkv.out_features // 3
+            self.max_positions = cfg.max_seq_len
+            w = backbone.wte.weight
+        else:
+            raise TypeError(
+                f"{type(model).__name__} exposes no static-cache decode "
+                "path this engine can drive (expected a .llama or .gpt "
+                "backbone with a (k, v, pos) cache forward)")
         self.head = model._head
-        self.num_layers = len(backbone.layers)
         self.head_dim = cfg.head_dim
-        # an nn.Linear or a weight-only Int4Linear / Int8Linear: all
-        # have out_features
-        kp = backbone.layers[0].self_attn.k_proj
-        self.kv_heads = kp.out_features // cfg.head_dim
-        self.max_positions = cfg.max_position_embeddings
-        w = backbone.embed_tokens.weight
+        self.kv_heads = kv_width // cfg.head_dim
         self.dtype, self.device = w.dtype, w.device
 
 
